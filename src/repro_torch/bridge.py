@@ -1,0 +1,51 @@
+"""Parameter bridge between the JAX package and the port (new; no reference
+counterpart).
+
+The JAX package's parameters are a nested dict of arrays; the port keeps the
+same paths, the same stacked ``(L, …)`` leaves and the same key order, so a
+tree crosses as numpy arrays leaf by leaf.  numpy has no native bfloat16:
+bf16 crosses as float32 (every bf16 value is exact in float32) and is cast
+back on the torch side, so the round trip is exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _leaf_to_torch(a, device: torch.device, dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes bf16 from a JAX array
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(arr)              # a copy: JAX buffers are read-only
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_to_torch(tree: dict, device, dtype=None) -> dict:
+    """numpy (or array-like) leaves → torch tensors on ``device``, same
+    paths and key order.  ``dtype`` casts every floating leaf."""
+    dev = resolve_device(device)
+
+    def to_torch_tree(node):
+        if isinstance(node, dict):
+            return {k: to_torch_tree(v) for k, v in node.items()}
+        return _leaf_to_torch(node, dev, dtype)
+    return to_torch_tree(tree)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """torch leaves → numpy on the host, same paths and key order; bf16
+    leaves come back as float32."""
+    def to_numpy_tree(node):
+        if isinstance(node, dict):
+            return {k: to_numpy_tree(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return to_numpy_tree(params)

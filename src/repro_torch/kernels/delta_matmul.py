@@ -1,0 +1,111 @@
+"""Fused "base + per-slot delta" matmul (counterpart of
+``repro/kernels/delta_matmul.py``).
+
+    y[b] = x[b] @ w  +  Σ_{e : slots[e] == b}  x[b] @ dw[e]
+
+x (B, d) and w (d, f) in bf16 or f32; dw (C, d, f) f32, the delta overlay's
+entries for one layer; slots (C,) int32 owner slot per entry, -1 = empty.
+Sums are f32 and the result is (B, f) in x's type.
+
+:func:`base_delta_matmul_2d` launches the hand-written Hopper kernel
+(``csrc/delta_matmul.cu``); :func:`base_delta_matmul_2d_torch` is the plain
+PyTorch version of the same function, which the CPU tests and the on-card
+comparison use.  Unlike the TPU wrapper, neither makes f32 copies of x, w
+or dw up front: the kernel widens bf16 in registers.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_BATCH = 16          # the kernel's largest decode batch (csrc MAXB)
+_FLOAT_TYPES = (torch.bfloat16, torch.float32)
+
+
+def base_delta_matmul_2d_torch(x: torch.Tensor, w: torch.Tensor,
+                               dw: torch.Tensor,
+                               slots: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``x.float() @ w.float()``, then each entry's row
+    correction added in entry order (as ``_entry_accumulate`` does),
+    cast to x's type.  Empty entries add a zero correction; no host sync."""
+    xf = x.float()
+    acc = xf @ w.float()
+    safe = slots.clamp(min=0).long()
+    live = (slots >= 0).float()
+    for e in range(dw.shape[0]):
+        idx = safe[e:e + 1]
+        corr = (xf.index_select(0, idx) @ dw[e].float()) * live[e]
+        acc.index_add_(0, idx, corr)
+    return acc.to(x.dtype)
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load_library("delta_matmul").base_delta_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _error_string(err: int) -> str:
+    fn = _build.load_library("delta_matmul").base_delta_matmul_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()
+
+
+def _check(x, w, dw, slots) -> None:
+    for name, t in (("x", x), ("w", w), ("dw", dw), ("slots", slots)):
+        if not t.is_cuda:
+            raise ValueError(f"base_delta_matmul_2d: {name} is on {t.device}, "
+                             f"the kernel takes CUDA tensors only")
+        if t.device != x.device:
+            raise ValueError(f"base_delta_matmul_2d: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"base_delta_matmul_2d: {name} is not contiguous")
+    if x.dim() != 2 or w.dim() != 2 or dw.dim() != 3 or slots.dim() != 1:
+        raise ValueError("base_delta_matmul_2d: want x (B,d), w (d,f), "
+                         f"dw (C,d,f), slots (C,); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(dw.shape)}, "
+                         f"{tuple(slots.shape)}")
+    B, d = x.shape
+    f = w.shape[1]
+    if w.shape[0] != d or tuple(dw.shape[1:]) != (d, f) \
+            or slots.shape[0] != dw.shape[0]:
+        raise ValueError("base_delta_matmul_2d: shapes disagree: x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}, dw "
+                         f"{tuple(dw.shape)}, slots {tuple(slots.shape)}")
+    if not 1 <= B <= MAX_BATCH or d < 1 or f < 1:
+        raise ValueError(f"base_delta_matmul_2d: takes 1 <= B <= {MAX_BATCH} "
+                         f"and d, f >= 1; got B={B}, d={d}, f={f}")
+    if x.dtype not in _FLOAT_TYPES or w.dtype not in _FLOAT_TYPES:
+        raise ValueError(f"base_delta_matmul_2d: x and w must be bf16 or f32, "
+                         f"got {x.dtype}, {w.dtype}")
+    if dw.dtype != torch.float32 or slots.dtype != torch.int32:
+        raise ValueError(f"base_delta_matmul_2d: dw must be f32 and slots "
+                         f"int32, got {dw.dtype}, {slots.dtype}")
+
+
+def base_delta_matmul_2d(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
+                         slots: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream; CUDA tensors only.
+    Raises on anything the kernel does not take, and if the launch fails."""
+    _check(x, w, dw, slots)
+    B, d = x.shape
+    f = w.shape[1]
+    out = torch.empty((B, f), dtype=x.dtype, device=x.device)
+    err = _launcher()(x.data_ptr(), w.data_ptr(), dw.data_ptr(),
+                      slots.data_ptr(), out.data_ptr(), B, d, f,
+                      dw.shape[0], x.dtype == torch.bfloat16,
+                      w.dtype == torch.bfloat16,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"base_delta_matmul kernel launch failed: "
+                           f"{_error_string(err)} (cudaError {err})")
+    return out

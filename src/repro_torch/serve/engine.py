@@ -1,0 +1,116 @@
+"""Device-side machinery for personalized-delta serving (counterpart of
+``repro/serve/engine.py``, DESIGN.md §9).
+
+:class:`DeltaOverlay` is the capacity-C per-layer delta entry table the
+fused decode consumes.  Its device state is the reference's: ``{"slots":
+(L, C) int32 owner slot ids (-1 = free), "leaves": {name: (L, C, *shape)
+f32}}``, with a host ``slot_ids`` mirror that makes admit/release pure
+bookkeeping.  Admitting a user writes only *their* delta rows, in place
+(``copy_`` into the entry; the reference donates the table to a jitted
+write); releasing a slot only marks its entries free — the kernel masks
+stale rows by the -1 owner id.  The reference's ``serve_suite`` and jit
+cache have no counterpart: PyTorch runs eagerly.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import Model, _block_shapes, supports_delta_decode
+from repro_torch.serve.deltas import DeltaRecord
+
+
+def check_device(model: Model, device) -> torch.device:
+    """Resolve an entry point's ``device`` and hold it to the model's."""
+    dev = resolve_device(device)
+    if dev != model.device:
+        raise ValueError(f"device {dev} differs from the model's "
+                         f"{model.device}")
+    return dev
+
+
+class DeltaOverlay:
+    """Capacity-C per-layer delta entries over the ``blocks`` stack."""
+
+    def __init__(self, model: Model, capacity: int, *, device="cuda"):
+        self._device = check_device(model, device)
+        if not supports_delta_decode(model.cfg):
+            raise ValueError(
+                f"family {model.cfg.family!r} has no delta-decode path")
+        shapes = _block_shapes(model.cfg, "dense")   # per-layer leaf shapes
+        L = model.cfg.n_layers
+        self.capacity = int(capacity)
+        self.leaves = {
+            name: torch.zeros((L, self.capacity) + tuple(shp),
+                              dtype=torch.float32, device=self._device)
+            for name, shp in shapes.items()}
+        self.slot_ids = np.full((L, self.capacity), -1, np.int32)
+        self.entries: dict[int, list[tuple[int, int]]] = {}
+        self._slots_dev = torch.tensor(self.slot_ids, device=self._device)
+        self._dirty = False
+
+    @property
+    def n_entries(self) -> int:
+        return int((self.slot_ids >= 0).sum())
+
+    def try_admit(self, slot: int, record: Optional[DeltaRecord]) -> bool:
+        """Claim one entry per selected layer for ``slot`` and write the
+        delta rows.  Returns False (writing nothing) if any layer's capacity
+        is exhausted — the caller keeps the request queued."""
+        self.release(slot)
+        if record is None or record.n_layers == 0:
+            self.entries[slot] = []
+            return True
+        extra = set(record.segments) - {"blocks"}
+        if extra:
+            raise ValueError(
+                f"delta overlay only serves the 'blocks' stack, record "
+                f"touches {sorted(extra)}")
+        rows_idx, leaves = record.segments["blocks"]
+        plan = []
+        taken: dict[int, int] = {}
+        for li in rows_idx.tolist():
+            free = np.nonzero(self.slot_ids[li] < 0)[0].tolist()
+            free = free[taken.get(li, 0):]
+            if not free:
+                return False
+            taken[li] = taken.get(li, 0) + 1
+            plan.append((li, free[0]))
+        ent = []
+        for j, (li, c) in enumerate(plan):
+            for name, leaf in self.leaves.items():
+                leaf[li, c].copy_(torch.from_numpy(
+                    np.ascontiguousarray(leaves[name][j], np.float32)))
+            self.slot_ids[li, c] = slot
+            ent.append((li, c))
+        self.entries[slot] = ent
+        self._dirty = True
+        return True
+
+    def release(self, slot: int) -> None:
+        for li, c in self.entries.pop(slot, []):
+            self.slot_ids[li, c] = -1
+            self._dirty = True
+
+    def device(self) -> dict:
+        """The ``delta`` argument for :meth:`Model.decode_step`."""
+        if self._dirty:
+            self._slots_dev = torch.tensor(self.slot_ids, device=self._device)
+            self._dirty = False
+        return {"slots": self._slots_dev, "leaves": self.leaves}
+
+
+def stack_tree(tree: dict, n: int) -> dict:
+    """n identical copies along a new leading axis (dense-baseline layout)."""
+    return {k: stack_tree(v, n) if isinstance(v, dict)
+            else v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
+            for k, v in tree.items()}
+
+
+def tree_slot(tree: dict, i: int) -> dict:
+    """Views of entry ``i`` of every leaf of a stacked tree."""
+    return {k: tree_slot(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
