@@ -16,7 +16,16 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
    with the plain version forced, then in shared and dense mode;
 4. checks, at reduced depth in f32, that delta-mode generations equal
    decoding each request alone against the user's materialised parameters;
-5. prints one JSON line of per-kernel results, the card's name and power
+5. holds the training kernels (``layer_grad_norm``, ``masked_update``)
+   against their plain versions at TinyLlama's eight block leaves and
+   times them likewise;
+6. runs three rounds of Algorithm 1 ("ours": probe, (P1) select, masked
+   τ-step update, Eq.(5)-(7) aggregate, eval) at full TinyLlama-1.1B width
+   through ``Experiment.run``, counting kernel launches, then replays round
+   0 stage by stage against the plain versions and the dense program;
+7. checks, on reduced xlm-roberta in f32, that two rounds on the card and
+   on the CPU choose the same cohorts and masks and reach the same params;
+8. prints one JSON line of per-kernel results, the card's name and power
    limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -230,7 +240,7 @@ def phase_serve(card: str) -> dict:
     cfg = get_arch("tinyllama_1_1b")
     rt = RuntimeConfig(remat=False)
     model = Model(cfg, rt, device="cuda")
-    plain = Model(cfg, rt, device="cuda", delta_mode="torch")
+    plain = Model(cfg, rt, device="cuda", kernel_mode="torch")
     t0 = time.perf_counter()
     params = model.init(0)
     store = synthetic_store(model, users=4, layers_per_user=2, seed=0)
@@ -261,7 +271,7 @@ def phase_serve(card: str) -> dict:
                               plain.init_cache(slots, max_seq, per_slot=True),
                               delta=ov.device())
     ref = Model(dataclasses.replace(cfg, dtype="float32"), rt, device="cuda",
-                delta_mode="torch")
+                kernel_mode="torch")
     p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
                else v.float()) for k, v in params.items()}
     l32, _ = ref.decode_step(p32, toks, pos,
@@ -370,6 +380,297 @@ def phase_exact(card: str) -> None:
         f"alone against its user's parameters ({stats['steps']} steps)")
 
 
+# ---------------------------------------------------------------------------
+# Training slice: layer_grad_norm and masked_update, one round of Algorithm 1
+# ---------------------------------------------------------------------------
+
+def stream_bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """Least time in ms for a streaming pass: bytes over HBM bandwidth or
+    its f32 operations over the f32 (non-tensor-core) peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_train_kernels(card: str) -> dict:
+    """Both training kernels vs their plain versions at TinyLlama's eight
+    block leaves (norms over L = 22 rows, the update over the 11 rows above
+    a cut at 11 with a mixed 0/1 mask), plus an f32 case and ragged F."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import layer_grad_norm as lgn
+    from repro_torch.kernels import masked_update as mu
+    from repro_torch.models.model import _block_shapes
+
+    cfg = get_arch("tinyllama_1_1b")
+    leaves = [(name, math.prod(shp))
+              for name, shp in sorted(_block_shapes(cfg, "dense").items())]
+    L, L_upd, lr = cfg.n_layers, cfg.n_layers // 2, 0.01
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    mask = torch.tensor([float(i % 3 != 1) for i in range(L_upd)],
+                        device="cuda")
+    cases = [(name, F, torch.bfloat16, True) for name, F in leaves]
+    cases += [("attn_wq/f32", dict(leaves)["attn_wq"], torch.float32, False),
+              ("ragged_F5000", 5000, torch.bfloat16, False),
+              ("ragged_F17", 17, torch.float32, False)]
+    rows = {"layer_grad_norm": [], "masked_update": []}
+    errs = {"layer_grad_norm": 0.0, "masked_update": 0.0}
+    for name, F, dt, on_path in cases:
+        es = torch.tensor([], dtype=dt).element_size()
+        dtn = "bfloat16" if dt == torch.bfloat16 else "float32"
+        g = torch.randn((L, F), generator=gen, device="cuda").to(dt)
+        got = lgn.layer_sq_norms_2d(g)
+        want = lgn.layer_sq_norms_2d_torch(g)
+        again = lgn.layer_sq_norms_2d(g)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
+        log(f"[train-kernel] layer_grad_norm {name:14s} L={L} F={F:9d} "
+            f"{dtn:8s} max_abs_err={err:.3e} max_rel_err="
+            f"{((got - want).abs() / want.abs()).max().item():.3e} "
+            f"(rtol 1e-5) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"layer_grad_norm disagrees with its plain version at {name}")
+        check(torch.equal(got, again), f"layer_grad_norm is not "
+                                       f"deterministic at {name}")
+        if on_path:
+            errs["layer_grad_norm"] = max(errs["layer_grad_norm"], err)
+            bound, by = stream_bound(L * F * es + 4 * L, 2 * L * F)
+            r = {"leaf": name, "L": L, "F": F, "bound_ms": bound,
+                 "bound_by": by,
+                 "ms": time_ms(lambda: lgn.layer_sq_norms_2d(g), flush),
+                 "plain_ms": time_ms(lambda: lgn.layer_sq_norms_2d_torch(g),
+                                     flush),
+                 "library_ms": time_ms(lambda: torch.linalg.vector_norm(
+                     g, dim=1, dtype=torch.float32) ** 2, flush)}
+            rows["layer_grad_norm"].append(r)
+            log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
+                f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
+                f"| plain {r['plain_ms']:.4f} ms | torch.linalg.vector_norm"
+                f"(g, dim=1, dtype=f32)**2 {r['library_ms']:.4f} ms   [{card}]")
+        del g
+        p = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
+        g = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
+        got = mu.masked_sgd_update_2d(p, g, mask, lr)
+        want = mu.masked_sgd_update_2d_torch(p, g, mask, lr)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.equal(got, want)
+        log(f"[train-kernel] masked_update   {name:14s} L={L_upd} F={F:9d} "
+            f"{dtn:8s} max_abs_err={err:.3e} (must be 0) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"masked_update differs from its plain version at {name}")
+        if on_path:
+            bound, by = stream_bound(L_upd * F * 3 * es + 4 * L_upd,
+                                     2 * L_upd * F)
+            scale = (-lr * mask)[:, None]
+            r = {"leaf": name, "L": L_upd, "F": F, "bound_ms": bound,
+                 "bound_by": by,
+                 "ms": time_ms(lambda: mu.masked_sgd_update_2d(p, g, mask,
+                                                               lr), flush),
+                 "plain_ms": time_ms(lambda: mu.masked_sgd_update_2d_torch(
+                     p, g, mask, lr), flush),
+                 "library_ms": time_ms(lambda: torch.addcmul(p, g, scale),
+                                       flush)}
+            rows["masked_update"].append(r)
+            log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
+                f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
+                f"| plain {r['plain_ms']:.4f} ms | torch.addcmul(p, g, "
+                f"(-lr*m)[:, None]) (f32 out) {r['library_ms']:.4f} ms"
+                f"   [{card}]")
+        del p, g, got, want
+    out = {}
+    for kname, rs in rows.items():
+        total = {k: sum(r[k] for r in rs)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[train-kernel] {kname}, all eight leaves: kernel "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, plain "
+            f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} "
+            f"ms   [{card}]")
+        out[kname] = {"rows": rs, "total": total, "max_abs_err": errs[kname]}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _round_experiment(cfg, task, model=None, **kw):
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig
+    return Experiment(model if model is not None else cfg, task, "ours",
+                      cohort_size=4, local_steps=2, batch_size=4, budget=2,
+                      lam=1.0, lr=0.01, rounds=3, pipeline=False,
+                      runtime=RuntimeConfig(remat=False, seq_chunk=128),
+                      device="cuda", **kw)
+
+
+def _tree_max_diff(a, b) -> float:
+    if isinstance(a, dict):
+        return max(_tree_max_diff(a[k], b[k]) for k in a)
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_round(card: str) -> dict:
+    """Three rounds of Algorithm 1 ("ours") at full TinyLlama-1.1B width in
+    bf16 through Experiment.run, counting kernel launches; then round 0
+    again, stage by stage, against the plain versions and the dense
+    program."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("tinyllama_1_1b")
+    task_cfg = FederatedTaskConfig(n_clients=16, vocab_size=cfg.vocab_size,
+                                   seq_len=128, test_samples=32,
+                                   objective="lm", skew="feature", seed=0)
+    exp = _round_experiment(cfg, SyntheticFederatedData(task_cfg))
+    fl, L = exp.fl, cfg.n_layers
+    params = exp.init_params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, hist = exp.run(params)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del final
+    cuts = []
+    for r in hist.records:
+        cut = int(np.flatnonzero(r.mask_matrix.sum(0) > 0)[0]) \
+            if r.mask_matrix.any() else L
+        cuts.append(cut)
+        log(f"[round] round {r.round}: cohort {r.cohort.tolist()} cut {cut} "
+            f"selected {[np.flatnonzero(m).tolist() for m in r.mask_matrix]} "
+            f"train_loss {r.train_loss:.6f} test_loss {r.test_loss:.6f} "
+            f"{r.wall_s:.3f} s   [{card}]")
+        check(all(math.isfinite(v) for v in (r.train_loss, r.test_loss)),
+              f"round {r.round}: non-finite loss")
+        check(np.all(r.mask_matrix.sum(1) <= fl.budget)
+              and r.mask_matrix.shape == (fl.cohort_size, L),
+              f"round {r.round}: masks break the budget")
+    want = {"layer_grad_norm": len(hist.records) * fl.cohort_size * 8,
+            "masked_update": sum(fl.cohort_size * fl.local_steps * 8
+                                 for c in cuts if c < L),
+            "base_delta_matmul": 0}
+    log(f"[round] launches {launches}, want {want}")
+    check(launches == want, "the round did not launch the training kernels "
+                            "as often as its path requires")
+    tokens = fl.cohort_size * fl.local_steps * fl.batch_size * 128
+    log(f"[round] {len(hist.records)} rounds in {run_s:.3f} s; per round "
+        f"{[round(r.wall_s, 3) for r in hist.records]} s; peak device memory "
+        f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)   [{card}]")
+
+    # round 0 again, stage by stage: kernels, plain versions, dense program
+    task = SyntheticFederatedData(task_cfg)
+    srv = _round_experiment(cfg, task).build()
+    rt = RuntimeConfig(remat=False, seq_chunk=128)
+    plain = _round_experiment(cfg, task, model=Model(
+        cfg, rt, device="cuda", kernel_mode="torch")).build()
+    dense = _round_experiment(cfg, task, mask_aware=False).build()
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    plan = srv.plan_round(0)
+    sampled = srv.sample_round(plan)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    stats = srv.probe_round(params, sampled)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    masks = srv.select_round(plan, stats)
+    marks.append(time.perf_counter())
+    new_k, losses = srv.update_round(params, sampled, masks)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    test_loss, _ = srv.client.evaluate(new_k, srv._to_device(task.test_batch()))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    split = dict(zip(("plan+sample", "probe", "select", "update", "eval"),
+                     np.diff(marks)))
+    log(f"[round] timed round 0 (synchronised at stage boundaries): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+        + f"; {tokens / split['update']:.0f} trained tokens/s in the update "
+        f"({tokens} tokens), {tokens / sum(split.values()):.0f} per round"
+        f"   [{card}]")
+    check(np.array_equal(masks, hist.records[0].mask_matrix),
+          "round 0 replayed stage by stage chose other masks than the run")
+    stats_p = plain.probe_round(params, sampled)
+    masks_p = plain.select_round(plan, stats_p)
+    rel = max(float(np.max(np.abs(stats_p[k] - stats[k]) / np.abs(stats[k])))
+              for k in stats)
+    log(f"[round] probe stats, kernels vs plain versions: max rel err "
+        f"{rel:.3e} (rtol 1e-4); masks equal: "
+        f"{bool(np.array_equal(masks_p, masks))}")
+    check(rel <= 1e-4, "probe stats: kernel and plain versions disagree")
+    check(np.array_equal(masks_p, masks), "plain-version probe stats chose "
+                                          "other masks")
+    new_p, losses_p = plain.update_round(params, sampled, masks)
+    dp = _tree_max_diff(new_k, new_p)
+    log(f"[round] update with the kernel run's masks, kernels vs plain "
+        f"versions: max |Δparams| {dp:.3e} (bf16), losses "
+        f"{np.abs(losses - losses_p).max():.3e}")
+    del new_p
+    torch.cuda.empty_cache()
+    new_d, losses_d = dense.update_round(params, sampled, masks)
+    log(f"[round] dense program (mask_aware=False) vs masked program, round "
+        f"0: max |Δparams| {_tree_max_diff(new_k, new_d):.3e} (bf16), "
+        f"losses {np.abs(losses - losses_d).max():.3e}, test loss "
+        f"{test_loss:.6f}")
+    return {"launches": launches, "run_s": run_s,
+            "wall_s": [r.wall_s for r in hist.records], "split": split,
+            "peak_gb": peak_gb, "tokens_per_round": tokens}
+
+
+def phase_round_exact(card: str) -> None:
+    """Reduced xlm-roberta in f32, 2 rounds: the same run on the card (the
+    kernels) and on the CPU (the plain versions) gives the same cohorts
+    and masks and params within atol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("xlm_roberta_base"), n_layers=4, d_model=32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        task = SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=12, n_classes=10, vocab_size=cfg.vocab_size, seq_len=8,
+            samples_per_client=16, skew="label", objective="classification"))
+        exp = Experiment(cfg, task, "ours", cohort_size=4, rounds=2,
+                         local_steps=2, lr=0.01, batch_size=4, budget=2,
+                         lam=1.0, seed=3, pipeline=False, device=dev,
+                         runtime=RuntimeConfig(remat=False, seq_chunk=16))
+        params = tree_map(lambda t: t.to(dev),
+                          Experiment(cfg, task, device="cpu").init_params())
+        ops.reset_launches()
+        final, hist = exp.run(params)
+        runs[dev] = (tree_map(lambda t: t.cpu(), final), hist,
+                     dict(ops.LAUNCHES))
+    (pg, hg, lg), (pc, hc, lc) = runs["cuda"], runs["cpu"]
+    check(lg["layer_grad_norm"] > 0 and lg["masked_update"] > 0
+          and lc == {k: 0 for k in lc},
+          f"reduced run: launches on the card {lg}, on the CPU {lc}")
+    for rg, rc in zip(hg.records, hc.records):
+        check(np.array_equal(rg.cohort, rc.cohort)
+              and np.array_equal(rg.mask_matrix, rc.mask_matrix),
+              f"reduced run, round {rg.round}: card and CPU chose other "
+              f"cohorts or masks")
+    err = _tree_max_diff(pg, pc)
+    log(f"[round-exact] reduced xlm-r f32, 2 rounds: cohorts and masks "
+        f"equal on card and CPU; max |Δparams| {err:.3e} (atol 1e-5); card "
+        f"launches {lg}")
+    check(err <= 1e-5, "reduced run: card and CPU params differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -393,6 +694,9 @@ def main() -> int:
         kern = phase_kernel(card)
         served = phase_serve(card)
         phase_exact(card)
+        train = phase_train_kernels(card)
+        rounds = phase_round(card)
+        phase_round_exact(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -411,6 +715,26 @@ def main() -> int:
         "timed_as": "sum over one layer's six projections at B=4",
         "library_call": "torch.matmul(x, w), the base product only",
         "shapes": kern["rows"]}]}
+    for name, rel, lib, timed in (
+            ("layer_grad_norm", "layer_grad_norm.py:64",
+             "torch.linalg.vector_norm(g, dim=1, dtype=float32)**2",
+             "sum over the eight block leaves at L=22, one probe batch"),
+            ("masked_update", "masked_update.py:40",
+             "torch.addcmul(p, g, (-lr*m)[:, None]) (f32 output)",
+             "sum over the eight block leaves at L=11, one local step")):
+        t = train[name]
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{rel}",
+            "launches": rounds["launches"][name],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["total"]["ms"], "plain_ms": t["total"]["plain_ms"],
+            "bound_ms": t["total"]["bound_ms"],
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in t["rows"]) else "operations"),
+            "library_ms": t["total"]["library_ms"],
+            "timed_as": timed, "library_call": lib, "shapes": t["rows"]})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(card)

@@ -1,7 +1,7 @@
 """Configuration for the PyTorch port (counterpart of ``repro/configs/base.py``).
 
 A data-only copy of the reference's :class:`ArchConfig`, :func:`reduced`,
-:class:`RuntimeConfig` and the architecture registry; ``get_arch`` loads
+:class:`FLConfig`, :class:`RuntimeConfig` and the architecture registry; ``get_arch`` loads
 ``repro_torch.configs.<id>``.  The port never imports ``repro``, so it keeps
 its own copy.  ``RuntimeConfig.use_pallas`` is carried over with the rest of
 the fields but the port never reads it: kernel choice follows the tensor's
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +173,40 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 256,
     if cfg.task == "classification":
         changes.update(n_classes=cfg.n_classes)
     return replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Federated learning setup (the paper)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Algorithm 1 + Problem (P1) hyper-parameters."""
+
+    n_clients: int = 100            # N
+    cohort_size: int = 20           # |S_t|
+    rounds: int = 50                # T
+    local_steps: int = 1            # tau
+    lr: float = 0.01                # eta
+    batch_size: int = 64
+
+    # Layer selection
+    strategy: str = "ours"          # ours | top | bottom | both | snr | rgn | full
+    budget: int = 1                 # R (identical-resource scenario)
+    budgets: Optional[Tuple[int, ...]] = None   # heterogeneous per-client R_i
+    lam: float = 10.0               # lambda in (P1)
+    selection_period: int = 1       # re-select every k rounds ("Sel. Period")
+    selection_batches: int = 1      # batches used for the probe gradient ("Sel. Batch")
+    seed: int = 0
+
+    # Layer freezing (paper §B.2: embeddings and classifier frozen)
+    freeze_embed: bool = True
+    freeze_head: bool = True
+
+    def budget_of(self, i: int) -> int:
+        if self.budgets is not None:
+            return self.budgets[i % len(self.budgets)]
+        return self.budget
 
 
 # ---------------------------------------------------------------------------

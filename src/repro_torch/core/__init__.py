@@ -1,1 +1,1 @@
-"""Host-side FL core pieces the serving slice needs (counterpart of ``repro/core``)."""
+"""The FL core: masks, aggregation, clients, (P1) selection, per-client state and the server (counterpart of ``repro/core``)."""

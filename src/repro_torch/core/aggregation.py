@@ -1,12 +1,130 @@
-"""Per-layer delta rows (counterpart of ``repro/core/aggregation.py``).
+"""Federated aggregation, Eq. (5)-(7) (counterpart of
+``repro/core/aggregation.py``).
 
-This slice ports only :func:`apply_delta_rows` (reference line 214), which
-``DeltaStore.materialize`` needs; Eq.(5)–(7) aggregation comes with the
-training slice.
+    Δ^t = Σ_{l∈L_t} Σ_{i∈S_t} w_{i,l}^t Δ_{i,l}^t ,   θ^{t+1} = θ^t − η Δ^t
+
+* :func:`aggregate` — the sequential oracle: one scale-and-add per cohort
+  member's delta tree.
+* :func:`aggregate_stacked` / :func:`aggregate_stacked_suffix` — the
+  vectorized engine's path over a stacked (n, …) delta tree (whole tree,
+  or the trainable suffix above the round's prefix cut).  The reference's
+  einsum over n becomes an explicit sum in client order, so no (n, …)
+  temporary is written.
+* :func:`apply_update` / :func:`apply_update_suffix` — Eq. (6).
+* :func:`apply_delta_rows` — personalized-delta serving.
+
+Every selectable segment is a stacked (count, …) segment here: the hybrid
+family's unstacked shared block is not ported.
+
+The fault helpers (``corrupt_delta_rows``, ``finite_row_mask``,
+``zero_delta_rows``) are not ported yet (ROADMAP.md, Queue 1 item 9).
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
+
+from repro_torch.core.masks import aggregation_weights
+from repro_torch.models.model import (segment_cuts, split_mask,
+                                      split_mask_matrix)
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _row_scale(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(c,) per-row values broadcast against a (c, …) stacked leaf."""
+    return s.to(x.dtype).reshape((s.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def scale_by_layer(tree: dict, scale_vec: torch.Tensor, cfg) -> dict:
+    """Multiply each selectable layer's subtree by its entry of scale_vec
+    (L,); frozen groups (embed/head/norms) are zeroed."""
+    parts = split_mask(scale_vec, cfg)
+    out = {}
+    for key, sub in tree.items():
+        if key not in parts:
+            out[key] = tree_map(torch.zeros_like, sub)
+        else:
+            out[key] = tree_map(lambda x, s=parts[key]: x * _row_scale(s, x),
+                                sub)
+    return out
+
+
+def aggregate(deltas: Sequence[dict], mask_matrix, sizes, cfg) -> dict:
+    """Eq. (5): Δ^t = Σ_l Σ_i w_{i,l} Δ_{i,l}, client by client."""
+    dev = tree_leaves(deltas[0])[0].device
+    W = aggregation_weights(torch.as_tensor(mask_matrix, device=dev),
+                            torch.as_tensor(sizes, device=dev))
+    total = None
+    for i, d in enumerate(deltas):
+        scaled = scale_by_layer(d, W[i], cfg)
+        total = scaled if total is None else tree_map(torch.add, total, scaled)
+    return total
+
+
+def _weighted_sum(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Σ_n w[n, :] ⊙ x[n] in f32 for a (n, c, …) leaf and (n, c) weights,
+    summed in client order."""
+    acc = None
+    for n in range(x.shape[0]):
+        term = _row_scale(w[n].float(), x[n].float()) * x[n].float()
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def aggregate_stacked(deltas: dict, weights: torch.Tensor, cfg) -> dict:
+    """Eq. (5) over a stacked cohort delta tree (leaves carry a leading
+    (n,) client axis); ``weights`` is the (n, L) Eq.(7) matrix.  Frozen
+    groups come back zero, as in :func:`aggregate`."""
+    parts = split_mask_matrix(weights, cfg)
+    out = {}
+    for key, sub in deltas.items():
+        if key not in parts:
+            out[key] = tree_map(lambda x: torch.zeros(
+                x.shape[1:], dtype=torch.float32, device=x.device), sub)
+        else:
+            out[key] = tree_map(lambda x, w=parts[key]: _weighted_sum(w, x),
+                                sub)
+    return out
+
+
+def apply_update(params: dict, update: dict, lr: float) -> dict:
+    """Eq. (6): θ^{t+1} = θ^t − η Δ^t."""
+    return tree_map(lambda p, u: p - lr * u.to(p.dtype), params, update)
+
+
+def aggregate_stacked_suffix(deltas: dict, weights: torch.Tensor, cut: int,
+                             cfg) -> dict:
+    """Eq. (5) over the trainable suffix only: ``deltas`` is the
+    ``trainable_slice``-shaped tree with a leading (n,) client axis;
+    ``weights`` the full (n, L) Eq.(7) matrix (its frozen columns are zero
+    by construction).  Returns the suffix-shaped global update."""
+    parts = split_mask_matrix(weights, cfg)
+    cuts = segment_cuts(cut, cfg)
+    return {key: tree_map(lambda x, w=parts[key][:, cuts[key]:]:
+                          _weighted_sum(w, x), sub)
+            for key, sub in deltas.items()}
+
+
+def apply_update_suffix(params: dict, update: dict, lr: float, cut: int,
+                        cfg) -> dict:
+    """Eq. (6) on the trainable suffix, scattered back into the full tree:
+    suffix rows get ``p − η·u``; frozen rows and groups pass through as
+    the same tensors (the dense path's ``p − η·0 = p`` exactly)."""
+    cuts = segment_cuts(cut, cfg)
+    out = {}
+    for key, sub in params.items():
+        if key not in update:
+            out[key] = sub
+            continue
+        c = cuts[key]
+
+        def upd(p, u, c=c):
+            new = p[c:] - lr * u.to(p.dtype)
+            return new if c == 0 else torch.cat([p[:c], new], 0)
+
+        out[key] = tree_map(upd, sub, update[key])
+    return out
 
 
 def apply_delta_rows(params: dict, rows: dict, deltas: dict,

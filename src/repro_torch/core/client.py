@@ -1,0 +1,262 @@
+"""Client-side local training (Eq. 2-4) and the selection probe, §4.2
+(counterpart of ``repro/core/client.py``).
+
+Two granularities share the same per-client math:
+
+* per client: :meth:`Client.local_update` / :meth:`Client.probe` — the
+  sequential oracle;
+* per cohort: :meth:`Client.cohort_update` / :meth:`Client.probe_cohort` —
+  the vectorized engine, with the Eq.(5)-(7) aggregation and Eq.(6) apply
+  in the same call.  The reference's ``jax.vmap`` over the cohort becomes
+  a loop over clients (each is independent, so the results are the same)
+  and its ``lax.scan`` over τ a loop over steps; there is no jit cache.
+
+The masked round (``cohort_update`` with an integer cut) differentiates
+only the trainable suffix above the cut and applies each τ step through
+the ``masked_update`` kernel (:func:`masked_suffix_sgd`); the probe's
+per-layer ‖g‖² goes through the ``layer_grad_norm`` kernel.  Both follow
+the tensors' device unless ``Model(kernel_mode="torch")`` forces the plain
+versions.  Gradients are taken of the selectable segments only: the
+reference differentiates embeddings and head too, then masks them to zero,
+which leaves them unchanged — here they are never differentiated.
+
+``cohort_update_guarded`` (faults) and ``probe_update_cohort`` (the
+streaming scheduler's fused program) are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation as agg
+from repro_torch.core import masks as M
+from repro_torch.core.strategies import PROBE_KEYS
+from repro_torch.kernels import ops
+from repro_torch.models.model import (Model, apply_layer_mask, layer_layout,
+                                      segment_cuts, split_mask,
+                                      trainable_slice)
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def masked_suffix_sgd(trainable: dict, grads: dict, mask: torch.Tensor,
+                      lr: float, cut: int, cfg, *,
+                      mode: Optional[str] = None) -> dict:
+    """Fused Eq.(3) apply on the trainable suffix — the masked τ loop's call
+    site for the ``masked_update`` kernel: each segment's stacked leaves
+    get θ ← θ − η·m(l)·g, out of place, through ``ops.masked_sgd_update``
+    (``mode`` forces the kernel or the plain version)."""
+    cuts = segment_cuts(cut, cfg)
+    mparts = split_mask(mask, cfg)
+    return {path: ops.masked_sgd_update(sub, grads[path],
+                                        mparts[path][cuts[path]:], lr,
+                                        mode=mode)
+            for path, sub in trainable.items()}
+
+
+def probe_stats_dict(stats: dict) -> dict[str, np.ndarray]:
+    """Materialise a probe result to host numpy."""
+    return {k: v.detach().cpu().numpy() for k, v in stats.items()}
+
+
+def _requires_grad(tree: dict) -> dict:
+    """Leaves that autograd differentiates, sharing the given storage."""
+    return tree_map(lambda t: t.detach().requires_grad_(), tree)
+
+
+def _grads(loss: torch.Tensor, wrt: dict) -> dict:
+    leaves = tree_leaves(wrt)
+    it = iter(torch.autograd.grad(loss, leaves))
+    return tree_map(lambda _: next(it), wrt)
+
+
+def _row(batches: dict, *idx) -> dict:
+    return {k: v[idx] for k, v in batches.items()}
+
+
+class Client:
+    """Stateless executor for local training; data is passed per call.
+
+    Batches are dicts of tensors on the model's device; masks and sizes
+    are host arrays (the select stage's output).
+    """
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.cfg = model.cfg
+        self._kernel_mode = model.kernel_mode
+        self._paths = tuple(seg.path for seg in layer_layout(model.cfg))
+
+    def _device_f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32),
+                               device=self.model.device)
+
+    # -- Eq. (3)-(4): τ masked SGD steps, return accumulated update ---------
+    def _local_update_impl(self, params: dict, batches: dict,
+                           mask: torch.Tensor, lr: float):
+        """The dense program for one client: every selectable layer is
+        differentiated, the gradient masked per layer.  Returns (Δ over
+        the selectable segments, mean loss)."""
+        model, cfg = self.model, self.cfg
+        sel0 = {k: params[k] for k in self._paths}
+        sel, losses = sel0, []
+        for s in range(next(iter(batches.values())).shape[0]):
+            wrt = _requires_grad(sel)
+            loss = model.loss({**params, **wrt}, _row(batches, s))
+            g = apply_layer_mask(_grads(loss, wrt), mask, cfg)
+            sel = tree_map(lambda p, gi: p.detach() - lr * gi, wrt, g)
+            losses.append(loss.detach())
+        # Δ_i^t = (θ^{t,0} − θ^{t,τ}) / η  = Σ_k Σ_{l∈L_i} g_{i,l}
+        delta = tree_map(lambda a, b: (a - b).float() / lr, sel0, sel)
+        return delta, torch.stack(losses).mean()
+
+    def local_update(self, params: dict, batches: dict, mask,
+                     lr: float) -> tuple[dict, float]:
+        """One client's τ steps (batches: dict with a leading τ axis).
+        Returns (Δ as a full tree, zero outside the selectable segments,
+        mean loss) — the sequential oracle's input to ``aggregate``."""
+        delta, loss = self._local_update_impl(params, batches,
+                                              self._device_f32(mask), lr)
+        full = {k: delta[k] if k in delta else tree_map(
+            lambda t: torch.zeros_like(t, dtype=torch.float32), v)
+            for k, v in params.items()}
+        return full, float(loss)
+
+    def _masked_local_update(self, params: dict, batches: dict,
+                             mask: torch.Tensor, lr: float, cut: int):
+        """One client's τ steps on the trainable suffix above ``cut``; the
+        frozen prefix runs without a graph.  Returns (suffix Δ, mean loss).
+        """
+        model, cfg = self.model, self.cfg
+        tr0 = trainable_slice(params, cut, cfg)
+        tr, losses = tr0, []
+        for s in range(next(iter(batches.values())).shape[0]):
+            wrt = _requires_grad(tr)
+            loss = model.loss(params, _row(batches, s), trainable=wrt,
+                              cut=cut)
+            g = _grads(loss, wrt)
+            tr = masked_suffix_sgd(tree_map(torch.Tensor.detach, wrt), g,
+                                   mask, lr, cut, cfg,
+                                   mode=self._kernel_mode)
+            losses.append(loss.detach())
+        delta = tree_map(lambda a, z: (a - z).float() / lr, tr0, tr)
+        return delta, torch.stack(losses).mean()
+
+    def _stacked_deltas(self, client_update, n: int):
+        """Run ``client_update(i) -> (Δ_i, loss_i)`` client by client into
+        stacked (n, …) f32 leaves; only one client's graph is alive at a
+        time."""
+        stacked, losses = None, []
+        for i in range(n):
+            delta, loss = client_update(i)
+            if stacked is None:
+                stacked = tree_map(lambda d: torch.empty(
+                    (n,) + tuple(d.shape), dtype=d.dtype, device=d.device),
+                    delta)
+            tree_map(lambda s, d, i=i: s[i].copy_(d), stacked, delta)
+            losses.append(loss)
+            del delta
+        return stacked, torch.stack(losses)
+
+    def cohort_update(self, params: dict, batches: dict, masks, sizes,
+                      lr: float, cut: Optional[int] = None
+                      ) -> tuple[dict, np.ndarray]:
+        """One round step for the whole cohort: τ local steps per client,
+        then Eq.(5)-(7) aggregation and the Eq.(6) apply.
+
+        batches: leaves with leading (cohort, τ) axes; masks: (cohort, L);
+        sizes: (cohort,) client dataset sizes d_i.  ``cut=None`` runs the
+        dense program (every selectable layer differentiated); an integer
+        cut runs the mask-aware program for that frozen-prefix depth, and a
+        cut of L (no layer selected) only computes forward losses.
+        Returns (new global params, per-client mean local losses).
+        """
+        cfg = self.cfg
+        mt = self._device_f32(masks)
+        n = mt.shape[0]
+        if cut is not None and cut >= self.model.n_selectable:
+            with torch.no_grad():
+                losses = torch.stack([torch.stack([
+                    self.model.loss(params, _row(batches, i, s))
+                    for s in range(next(iter(batches.values())).shape[1])
+                ]).mean() for i in range(n)])
+            return params, losses.cpu().numpy()
+        weights = M.aggregation_weights(mt, self._device_f32(sizes))  # Eq. 7
+        if cut is None:
+            deltas, losses = self._stacked_deltas(
+                lambda i: self._local_update_impl(params, _row(batches, i),
+                                                  mt[i], lr), n)
+            update = agg.aggregate_stacked(deltas, weights, cfg)
+            del deltas
+            new_params = agg.apply_update_suffix(params, update, lr, 0, cfg)
+        else:
+            deltas, losses = self._stacked_deltas(
+                lambda i: self._masked_local_update(params, _row(batches, i),
+                                                    mt[i], lr, cut), n)
+            update = agg.aggregate_stacked_suffix(deltas, weights, cut, cfg)
+            del deltas
+            new_params = agg.apply_update_suffix(params, update, lr, cut, cfg)
+        return new_params, losses.cpu().numpy()
+
+    # -- selection probe: layer-wise gradient stats on one batch ------------
+    def _probe_impl(self, params: dict, batch: dict,
+                    reqs: tuple = PROBE_KEYS) -> dict[str, torch.Tensor]:
+        """Gradient stats for one batch, trimmed to the requested keys:
+        ``ours`` needs ‖g_l‖² only (the ``layer_grad_norm`` kernel), SNR
+        mean and variance, RGN also ‖θ_l‖².  The probe is dense over all L
+        layers: next round's selection needs every layer's utility."""
+        cfg = self.cfg
+        out: dict[str, torch.Tensor] = {}
+        if {"grad_sq_norms", "grad_means", "grad_vars"} & set(reqs):
+            wrt = _requires_grad({k: params[k] for k in self._paths})
+            g = _grads(self.model.loss({**params, **wrt}, batch), wrt)
+            if "grad_means" in reqs or "grad_vars" in reqs:
+                sq, mean, var = M.per_layer_stats(g, cfg)
+                out.update(grad_sq_norms=sq, grad_means=mean, grad_vars=var)
+            else:
+                out["grad_sq_norms"] = M.per_layer_sq_norms(
+                    g, cfg, mode=self._kernel_mode)
+        if "param_sq_norms" in reqs:
+            out["param_sq_norms"] = M.per_layer_param_sq_norms(
+                params, cfg, mode=self._kernel_mode)
+        return {k: v for k, v in out.items() if k in reqs}
+
+    def probe(self, params: dict, batch: dict,
+              reqs: tuple = PROBE_KEYS) -> dict[str, np.ndarray]:
+        return probe_stats_dict(self._probe_impl(params, batch, tuple(reqs)))
+
+    def probe_cohort(self, params: dict, batches: dict,
+                     reqs: tuple = PROBE_KEYS,
+                     score_fn=None) -> dict[str, np.ndarray]:
+        """The probe for a whole cohort: batches with leading (cohort,
+        selection_batches) axes.  Returns (cohort, L) arrays for the
+        requested keys, each the mean over the selection batches, plus
+        ``"scores"`` when a strategy's device ``score_fn`` is given (applied
+        to the meaned stats on the device)."""
+        n, nb = next(iter(batches.values())).shape[:2]
+        rows = []
+        for i in range(n):
+            outs = [self._probe_impl(params, _row(batches, i, b), tuple(reqs))
+                    for b in range(nb)]
+            rows.append({k: torch.stack([o[k] for o in outs]).mean(0)
+                         for k in outs[0]})
+        stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if score_fn is not None:
+            stats = dict(stats, scores=score_fn(stats))
+        return probe_stats_dict(stats)
+
+    # -- evaluation -----------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, params: dict, batch: dict) -> tuple[float, float]:
+        """One forward for both loss and accuracy: the hidden state feeds
+        the loss tail and, for labelled batches, the accuracy logits."""
+        model = self.model
+        h, aux, prefix_len = model.forward_seq(params, batch)
+        loss = model.loss_from_hidden(params, h, aux, prefix_len, batch)
+        acc = 0.0
+        if "label" in batch:
+            logits = model._head(params, h.mean(1)[:, None])[:, 0]
+            acc = float((logits.argmax(-1) == batch["label"].long())
+                        .float().mean())
+        return float(loss), acc

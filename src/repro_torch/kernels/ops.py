@@ -1,5 +1,6 @@
 """Model-layout wrappers over the port's kernels (counterpart of
-``repro/kernels/ops.py``; this slice ports ``base_delta_matmul``, line 160).
+``repro/kernels/ops.py``: ``layer_grad_norms`` line 103,
+``masked_sgd_update`` line 128, ``base_delta_matmul`` line 160).
 
 Dispatch follows the tensor, never ``RuntimeConfig.use_pallas``: a CUDA
 tensor launches the kernel (or the launch raises), a CPU tensor takes the
@@ -13,15 +14,83 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import delta_matmul as _dmm
+from repro_torch.kernels import layer_grad_norm as _lgn
+from repro_torch.kernels import masked_update as _mu
 
 # Kernel launches made through this module, by kernel.  Reset it to 0 before
 # a run and read it after to show which kernels the run went through.
-LAUNCHES = {"base_delta_matmul": 0}
+LAUNCHES = {"base_delta_matmul": 0, "layer_grad_norm": 0, "masked_update": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _resolve_mode(mode: Optional[str], t: torch.Tensor) -> str:
+    if mode not in (None, "cuda", "torch"):
+        raise ValueError(f"mode must be None, 'cuda' or 'torch', got {mode!r}")
+    if mode is None:
+        return "cuda" if t.is_cuda else "torch"
+    return mode
+
+
+def _sorted_leaves(tree):
+    """Leaves of a nested dict in sorted-key order, the order
+    ``jax.tree.leaves`` visits a dict (sums across leaves follow it)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k])
+    else:
+        yield tree
+
+
+def layer_grad_norms(stacked_grads, *,
+                     mode: Optional[str] = None) -> torch.Tensor:
+    """Σ over leaves of row-wise ‖·‖² for (L, …) stacked leaves → (L,) f32.
+
+    The probe reduction (``core/masks.py`` routes ``per_layer_sq_norms``
+    here): one launch of the ``layer_grad_norm`` kernel per leaf on the
+    card, the plain version on the CPU.  Leaves are summed in sorted-key
+    order, as the reference sums them.
+    """
+    total = None
+    for leaf in _sorted_leaves(stacked_grads):
+        flat = leaf.reshape(leaf.shape[0], -1)
+        if _resolve_mode(mode, leaf) == "cuda":
+            sq = _lgn.layer_sq_norms_2d(flat.contiguous())
+            LAUNCHES["layer_grad_norm"] += 1
+        else:
+            sq = _lgn.layer_sq_norms_2d_torch(flat)
+        total = sq if total is None else total + sq
+    return total
+
+
+def masked_sgd_update(stacked_params: dict, stacked_grads: dict,
+                      mask: torch.Tensor, lr: float, *,
+                      mode: Optional[str] = None) -> dict:
+    """Fused Eq.(3) apply θ_l ← θ_l − η·m(l)·g_l over a stacked dict, out of
+    place (same keys, new tensors).
+
+    The apply step of the masked τ loop (``core/client.py``): one launch of
+    the ``masked_update`` kernel per leaf on the card, the plain version on
+    the CPU.  ``mask`` is (L,) f32 on the leaves' device.
+    """
+    def upd(p, g):
+        if isinstance(p, dict):
+            return {k: upd(p[k], g[k]) for k in p}
+        L = p.shape[0]
+        if _resolve_mode(mode, p) == "cuda":
+            out = _mu.masked_sgd_update_2d(p.reshape(L, -1),
+                                           g.reshape(L, -1).contiguous(),
+                                           mask, lr)
+            LAUNCHES["masked_update"] += 1
+        else:
+            out = _mu.masked_sgd_update_2d_torch(p.reshape(L, -1),
+                                                 g.reshape(L, -1), mask, lr)
+        return out.reshape(p.shape)
+
+    return upd(stacked_params, stacked_grads)
 
 
 def base_delta_matmul(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
@@ -33,10 +102,7 @@ def base_delta_matmul(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
     x: (B, 1, d) decode activations or (B, d); w: (d, f); dw: (C, d, f) f32;
     slots: (C,) int32, -1 = empty.  Returns x's shape with d → f.
     """
-    if mode not in (None, "cuda", "torch"):
-        raise ValueError(f"mode must be None, 'cuda' or 'torch', got {mode!r}")
-    if mode is None:
-        mode = "cuda" if x.is_cuda else "torch"
+    mode = _resolve_mode(mode, x)
     squeeze = x.dim() == 3
     if squeeze:
         if x.shape[1] != 1:

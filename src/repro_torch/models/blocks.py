@@ -4,10 +4,11 @@ Norms, RoPE, GQA attention and gated MLPs on plain tensors, with the
 reference's parameter layout: stacked ``(L, …)`` leaves in the same key
 order, consumed one layer at a time by a Python loop (``models/model.py``).
 
-This slice ports the decode path.  Decode writes its token into the KV
-cache **in place** (the reference returns a new cache); the no-cache
-full-sequence path (``attend_chunked``, training and prefill) belongs to the
-training slice (ROADMAP "Port slice 2") and raises here.
+Decode writes its token into the KV cache **in place** (the reference
+returns a new cache).  The no-cache full-sequence path (training, prefill)
+attends in one piece, or query chunk by query chunk
+(:func:`attend_chunked`) when the sequence is a multiple of ``seq_chunk``
+longer than it.  Encoder-decoder cross-attention (whisper) is not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as _kops
@@ -91,16 +93,23 @@ def sinusoid_positions(positions: torch.Tensor, d_model: int,
 # ---------------------------------------------------------------------------
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-               window: int,
+               window: int, prefix_len: int = 0,
                k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Additive mask bias (Q, K) from positions (f32, 0 or NEG_INF).  The
-    reference's ``prefix_len`` (prefix-LM training) comes with slice 2."""
+    """Additive mask bias (Q, K) from positions (f32, 0 or NEG_INF).
+
+    ``prefix_len``: positions < prefix_len see each other bidirectionally
+    (PaliGemma prefix-LM).  ``window``: sliding window (0 = unlimited).
+    ``k_valid``: optional bool (K,) marking populated cache slots.
+    """
     q = q_pos[:, None]
     k = k_pos[None, :]
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                     device=q_pos.device)
     if causal:
-        ok &= k <= q
+        vis = k <= q
+        if prefix_len:
+            vis = vis | ((k < prefix_len) & (q < prefix_len))
+        ok &= vis
     if window:
         ok &= (q - k) < window
     if k_valid is not None:
@@ -158,6 +167,36 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, hd)
 
 
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_positions: torch.Tensor, k_positions: torch.Tensor,
+                   causal: bool, window: int, prefix_len: int, chunk: int,
+                   scale: float, remat_chunk: bool = False) -> torch.Tensor:
+    """Query-chunked attention: peak memory O(chunk × Sk) per head.
+
+    Each query chunk attends to the full key range with a position-derived
+    mask; equal to :func:`attend_full`.  ``remat_chunk`` checkpoints each
+    chunk, so the backward recomputes one chunk's scores at a time.
+    """
+    B, Sq, H, hd = q.shape
+    if Sq % chunk:
+        raise ValueError(f"seq {Sq} not divisible by chunk {chunk}")
+
+    def attend_chunk(qi, pi):
+        bias = _mask_bias(pi, k_positions, causal=causal, window=window,
+                          prefix_len=prefix_len)
+        return attend_full(qi, k, v, bias, scale)
+
+    outs = []
+    for c in range(Sq // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if remat_chunk and torch.is_grad_enabled():
+            outs.append(checkpoint(attend_chunk, q[:, sl], q_positions[sl],
+                                   use_reentrant=False))
+        else:
+            outs.append(attend_chunk(q[:, sl], q_positions[sl]))
+    return torch.cat(outs, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Attention block (params + forward)
 # ---------------------------------------------------------------------------
@@ -199,11 +238,18 @@ def init_stacked(gen: torch.Generator, shapes: dict, n: int, dtype,
 def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                   positions: torch.Tensor, cache: Optional[dict] = None,
                   cache_pos: Optional[torch.Tensor] = None,
-                  causal: bool = True, window: int = 0,
+                  causal: bool = True, window: int = 0, prefix_len: int = 0,
+                  cross_kv: Optional[tuple] = None, seq_chunk: int = 1024,
+                  remat_chunk: bool = False,
                   delta: Optional[dict] = None,
                   delta_slots: Optional[torch.Tensor] = None,
                   delta_mode: Optional[str] = None):
     """One attention sub-block (pre-norm, residual added by caller).
+
+    Without a cache (training, prefill) the block attends over its own
+    sequence: in one piece, or by query chunks of ``seq_chunk`` when the
+    sequence is a longer multiple of it (``remat_chunk`` recomputes each
+    chunk in the backward).  ``cross_kv`` (whisper) is not ported.
 
     cache: {"k": (B,W,Kh,hd), "v": ..., "pos": (W,) int32} — decode writes
     the current token at ring index ``cache_pos % W`` (in place) and attends
@@ -214,6 +260,10 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ({leaf_name: (C, *shape)} + (C,) owner slots, -1 = empty); projections
     then go through :func:`repro_torch.kernels.ops.base_delta_matmul`.
     """
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "encoder-decoder cross-attention (whisper) is not ported yet: "
+            "ROADMAP.md Queue 1 item 10, 'Other model families'")
     B, S, d = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -247,9 +297,17 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, cos_q, sin_q)
 
     if cache is None:
-        raise NotImplementedError(
-            "full-sequence attention (attend_chunked) comes with the training "
-            "slice: ROADMAP.md 'Port slice 2'")
+        if S > seq_chunk and S % seq_chunk == 0:
+            out = attend_chunked(q, k, v, q_positions=positions,
+                                 k_positions=positions, causal=causal,
+                                 window=window, prefix_len=prefix_len,
+                                 chunk=seq_chunk, scale=scale,
+                                 remat_chunk=remat_chunk)
+        else:
+            bias = _mask_bias(positions, positions, causal=causal,
+                              window=window, prefix_len=prefix_len)
+            out = attend_full(q, k, v, bias, scale)
+        return proj(out.reshape(B, S, H * hd), "wo")
     W = cache["k"].shape[1]
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     if cpos.dim() == 2:

@@ -1,10 +1,12 @@
-"""Model facade, decode path (counterpart of ``repro/models/model.py``).
+"""Model facade (counterpart of ``repro/models/model.py``).
 
-This slice ports what serving needs for the ``dense`` and ``vlm`` (LM)
-families: the layer layout, parameter init, the KV cache and
-:meth:`Model.decode_step`.  A ``lax.scan`` over layers becomes a Python
-loop over ``params["blocks"][name][l]``; cache writes happen in place.
-Other families, and the training/prefill forward, raise
+For the ``dense`` and ``vlm`` families: the layer layout and the mask
+helpers of the mask-aware engine (``segment_cuts``, ``trainable_slice``,
+``split_mask``, ``apply_layer_mask``), parameter init, the sequence
+forward and losses of training (:meth:`Model.forward_seq`,
+:meth:`Model.loss`), the KV cache and :meth:`Model.decode_step`.  A
+``lax.scan`` over layers becomes a Python loop over the rows of
+``params["blocks"]``; cache writes happen in place.  Other families raise
 ``NotImplementedError`` until their slices land (ROADMAP.md).
 """
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RuntimeConfig
 from repro_torch.models import blocks as B
+from repro_torch.tree import tree_map
 
 _LM_FAMILIES = ("dense", "vlm")
 _IMAX = torch.iinfo(torch.int32).max
@@ -62,6 +66,72 @@ def supports_delta_decode(cfg: ArchConfig) -> bool:
     the plain dense stack, whose projections go through
     ``ops.base_delta_matmul``."""
     return cfg.family in _LM_FAMILIES
+
+
+def supports_prefix_cut(cfg: ArchConfig) -> bool:
+    """Whether the mask-aware engine can split this family's forward at a
+    frozen-prefix layer index: the mask order must be a prefix of the
+    compute graph, which zamba2's interleaved shared block breaks."""
+    return cfg.family != "hybrid"
+
+
+def segment_cuts(cut: int, cfg: ArchConfig) -> dict[str, int]:
+    """Per-segment frozen-prefix lengths for a global mask-index ``cut``:
+    segments below it are fully frozen (cut == count), the one containing
+    it is split, the ones above are fully trainable (cut == 0)."""
+    out, off = {}, 0
+    for seg in layer_layout(cfg):
+        out[seg.path] = min(max(int(cut) - off, 0), seg.count)
+        off += seg.count
+    return out
+
+
+def trainable_slice(params: dict, cut: int, cfg: ArchConfig) -> dict:
+    """Rows ``[cut_k:]`` of every selectable segment with trainable layers,
+    as views of ``params`` (the τ loop's first input; it must never be
+    written in place).  Fully frozen segments are omitted."""
+    cuts = segment_cuts(cut, cfg)
+    out = {}
+    for seg in layer_layout(cfg):
+        c = cuts[seg.path]
+        if c < seg.count:
+            out[seg.path] = {k: a[c:] for k, a in params[seg.path].items()}
+    return out
+
+
+def split_mask(mask, cfg: ArchConfig) -> dict:
+    """Split an (L,)-mask (tensor or array) into per-segment slices keyed
+    by param path."""
+    out, off = {}, 0
+    for seg in layer_layout(cfg):
+        out[seg.path] = mask[off:off + seg.count]
+        off += seg.count
+    return out
+
+
+def split_mask_matrix(mask_matrix, cfg: ArchConfig) -> dict:
+    """Split an (n, L) cohort mask/weight matrix into (n, count) segments."""
+    out, off = {}, 0
+    for seg in layer_layout(cfg):
+        out[seg.path] = mask_matrix[:, off:off + seg.count]
+        off += seg.count
+    return out
+
+
+def apply_layer_mask(tree: dict, mask: torch.Tensor, cfg: ArchConfig) -> dict:
+    """Multiply per-layer subtrees of ``tree`` (grads/updates) by the (L,)
+    mask; non-selectable groups (embed, head, norms) are zeroed (the paper
+    freezes them)."""
+    parts = split_mask(mask, cfg)
+    out = {}
+    for key, sub in tree.items():
+        if key in parts:
+            m = parts[key]
+            out[key] = tree_map(lambda x, m=m: x * m.to(x.dtype).reshape(
+                (m.shape[0],) + (1,) * (x.dim() - 1)), sub)
+        else:
+            out[key] = tree_map(torch.zeros_like, sub)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +184,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
 
 
 def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                     positions, window, cache, cache_pos, delta=None,
-                     delta_mode=None):
+                     positions, window, cache=None, cache_pos=None,
+                     causal=True, prefix_len=0, seq_chunk=1024,
+                     remat_chunk=False, delta=None, delta_mode=None):
     # delta: (slots (C,), {leaf_name: (C, *shape)}) — this layer's row of
     # the per-slot serving overlay; leaf names are split by sub-block prefix
     dslots = dattn = dmlp = None
@@ -124,29 +195,42 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         dattn = _take(dleaves, "attn_") or None
         dmlp = _take(dleaves, "mlp_") or None
     x = x + B.attention_fwd(_take(p, "attn_"), x, cfg, positions=positions,
-                            cache=cache, cache_pos=cache_pos, causal=True,
-                            window=window, delta=dattn, delta_slots=dslots,
+                            cache=cache, cache_pos=cache_pos, causal=causal,
+                            window=window, prefix_len=prefix_len,
+                            seq_chunk=seq_chunk, remat_chunk=remat_chunk,
+                            delta=dattn, delta_slots=dslots,
                             delta_mode=delta_mode)
     return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp,
                          delta_slots=dslots, delta_mode=delta_mode)
 
 
-class Model:
-    """Facade over one architecture: init and decode on ``device``.
+def _rows(stack: dict) -> dict:
+    """Per-layer views of a stacked segment, one ``unbind`` per leaf (its
+    backward writes each leaf's gradient once, where indexing row by row
+    would write a full-size zero tensor per row)."""
+    return {name: leaf.unbind(0) for name, leaf in stack.items()}
 
-    ``delta_mode`` picks the delta projection's implementation: ``None``
-    follows the tensors' device (the kernel on the card), ``"torch"``
-    forces the plain version, which is how the kernel is held against it
-    end to end.
+
+class Model:
+    """Facade over one architecture: init, loss and decode on ``device``.
+
+    ``kernel_mode`` picks the kernels' implementation: ``None`` follows the
+    tensors' device (the Hopper kernels on the card), ``"torch"`` forces
+    the plain versions, which is how the kernels are held against them end
+    to end.
     """
 
     def __init__(self, cfg: ArchConfig, runtime: RuntimeConfig = RuntimeConfig(),
-                 *, device="cuda", delta_mode: Optional[str] = None):
+                 *, device="cuda", kernel_mode: Optional[str] = None):
         cfg.validate()
         self.cfg = cfg
         self.runtime = runtime
         self.device = resolve_device(device)
-        self.delta_mode = delta_mode
+        self.kernel_mode = kernel_mode
+
+    @property
+    def n_selectable(self) -> int:
+        return self.cfg.n_selectable_layers()
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int = 0) -> dict:
@@ -172,6 +256,130 @@ class Model:
             return h @ params["head"]
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]
         return B.softcap(h @ w, cfg.logit_softcap)
+
+    # -- sequence forward (train / prefill) ---------------------------------
+    def _run_stack(self, step, x, full: dict, trainable: Optional[dict],
+                   cut: int):
+        """Apply ``step(x, layer_params)`` over a stacked segment, split at
+        the frozen-prefix ``cut``.
+
+        Dense path (``trainable is None``): every row from ``full``.
+        Mask-aware path: rows ``[:cut]`` from ``full`` under
+        ``torch.no_grad()`` (the reference's ``lax.stop_gradient``: no
+        graph, no saved activations, no backward) and the rest from
+        ``trainable``, the slice the caller differentiates.
+        ``runtime.remat`` recomputes each differentiated block in the
+        backward instead of keeping its activations.
+        """
+        def f(h, p):
+            if self.runtime.remat and torch.is_grad_enabled():
+                return checkpoint(step, h, p, use_reentrant=False)
+            return step(h, p)
+
+        if trainable is None:
+            rows = _rows(full)
+            for i in range(next(iter(full.values())).shape[0]):
+                x = f(x, {n: r[i] for n, r in rows.items()})
+            return x
+        if cut > 0:
+            with torch.no_grad():
+                rows = _rows({n: a[:cut] for n, a in full.items()})
+                for i in range(cut):
+                    x = step(x, {n: r[i] for n, r in rows.items()})
+        if trainable:
+            rows = _rows(trainable)
+            for i in range(next(iter(trainable.values())).shape[0]):
+                x = f(x, {n: r[i] for n, r in rows.items()})
+        return x
+
+    def forward_seq(self, params: dict, batch: dict, *,
+                    trainable: Optional[dict] = None, cut: int = 0):
+        """Full-sequence forward.  Returns (hidden, aux_loss, prefix_len).
+
+        ``trainable``/``cut`` select the mask-aware path: the block stack is
+        split at mask index ``cut``; rows below it come from ``params``
+        (frozen), rows at or above it from ``trainable`` (the
+        :func:`trainable_slice` dict the caller differentiates).
+        """
+        cfg, rt = self.cfg, self.runtime
+        _need_lm_family(cfg, "forward_seq")
+        prefix_len = 0
+        if cfg.family == "vlm":
+            proj = params["embed"]["patch_proj"]
+            px = batch["patches"].to(proj.dtype) @ proj
+            prefix_len = px.shape[1]
+            if cfg.task == "classification":
+                x = px
+            else:
+                x = torch.cat([px, self._embed_tokens(params,
+                                                      batch["tokens"])], 1)
+        else:
+            x = self._embed_tokens(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        causal = cfg.task == "lm"
+
+        def step(h, p):
+            return _dense_block_fwd(p, h, cfg, positions=positions,
+                                    causal=causal, window=cfg.sliding_window,
+                                    prefix_len=prefix_len,
+                                    seq_chunk=rt.seq_chunk,
+                                    remat_chunk=rt.remat_scores)
+
+        blocks_cut = segment_cuts(cut, cfg)["blocks"] if trainable is not None \
+            else 0
+        x = self._run_stack(step, x, params["blocks"],
+                            None if trainable is None
+                            else trainable.get("blocks", {}), blocks_cut)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux, prefix_len
+
+    # -- losses --------------------------------------------------------------
+    def loss(self, params: dict, batch: dict, *,
+             trainable: Optional[dict] = None, cut: int = 0) -> torch.Tensor:
+        h, aux, prefix_len = self.forward_seq(params, batch,
+                                              trainable=trainable, cut=cut)
+        return self.loss_from_hidden(params, h, aux, prefix_len, batch)
+
+    def loss_from_hidden(self, params: dict, h: torch.Tensor,
+                         aux: torch.Tensor, prefix_len: int,
+                         batch: dict) -> torch.Tensor:
+        """The loss tail on an already-computed hidden state, shared by
+        :meth:`loss` and the single-forward eval (``core/client.py``)."""
+        cfg = self.cfg
+        if cfg.task == "classification":
+            pooled = h.mean(1)
+            logits = self._head(params, pooled[:, None])[:, 0].float()
+            ce = -torch.log_softmax(logits, -1).gather(
+                -1, batch["label"].long()[:, None])
+            return ce.mean() + aux
+        tokens = batch["tokens"]
+        text_h = h[:, prefix_len:] if prefix_len else h
+        return self._lm_ce(params, text_h[:, :-1], tokens[:, 1:]) + aux
+
+    def _lm_ce(self, params: dict, h: torch.Tensor, targets: torch.Tensor,
+               chunk: int = 1024) -> torch.Tensor:
+        """Next-token cross-entropy, by chunks of ``chunk`` positions when
+        the sequence is a longer multiple of it (never the whole (B,S,V)
+        f32 logits at once)."""
+        cfg = self.cfg
+        h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        w = params["embed"]["tok"].T if cfg.tie_embeddings \
+            and cfg.task == "lm" else params["head"]
+
+        def token_ce(hi, ti):
+            logits = B.softcap(hi @ w, cfg.logit_softcap).float()
+            gold = logits.gather(-1, ti.long()[..., None])[..., 0]
+            return torch.logsumexp(logits, -1) - gold
+
+        S = h.shape[1]
+        if S <= chunk or S % chunk:
+            return token_ce(h, targets).mean()
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(S // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            tot = tot + token_ce(h[:, sl], targets[:, sl]).sum()
+        return tot / (targets.shape[0] * S)
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, *, window: int = 0,
@@ -240,5 +448,5 @@ class Model:
                       {name: leaf[li] for name, leaf in delta["leaves"].items()})
             x = _dense_block_fwd(p, x, cfg, positions=positions, window=w,
                                  cache=kv_l, cache_pos=pos, delta=dl,
-                                 delta_mode=self.delta_mode)
+                                 delta_mode=self.kernel_mode)
         return self._head(params, x)[:, 0], cache
