@@ -7,26 +7,42 @@ Builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
 source, all at once), then, failing with a non-zero exit on any mismatch:
 
 1. prints the environment and the card's name and power limit;
-2. holds each kernel against its plain PyTorch version at the shapes the
-   main path gives it, and times kernel, plain version and the nearest
+2. holds ``ssd_scan`` against its plain version at Mamba2-370M's main-path
+   shape (b 4, S 512, H 32, P 64, N 128, bf16), with a slowly decaying
+   state, a single chunk, G = 4 and f32 inputs, and times it beside its
+   bound;
+3. holds ``delta_matmul`` against its plain version at TinyLlama's six
+   projection shapes and times kernel, plain version and the nearest
    PyTorch library call with CUDA events, beside the least time the card
    could take (its bound);
-3. serves full-width TinyLlama-1.1B (22 layers, random weights, seed 0)
+4. serves full-width TinyLlama-1.1B (22 layers, random weights, seed 0)
    through ``SlotServer`` in delta mode, counting kernel launches; repeats
    with the plain version forced, then in shared and dense mode;
-4. checks, at reduced depth in f32, that delta-mode generations equal
+5. checks, at reduced depth in f32, that delta-mode generations equal
    decoding each request alone against the user's materialised parameters;
-5. holds the training kernels (``layer_grad_norm``, ``masked_update``)
+6. holds the training kernels (``layer_grad_norm``, ``masked_update``)
    against their plain versions at TinyLlama's eight block leaves and
    times them likewise;
-6. runs three rounds of Algorithm 1 ("ours": probe, (P1) select, masked
+7. runs three rounds of Algorithm 1 ("ours": probe, (P1) select, masked
    τ-step update, Eq.(5)-(7) aggregate, eval) at full TinyLlama-1.1B width
    through ``Experiment.run``, counting kernel launches, then replays round
    0 stage by stage against the plain versions and the dense program;
-7. checks, on reduced xlm-roberta in f32, that two rounds on the card and
+8. checks, on reduced xlm-roberta in f32, that two rounds on the card and
    on the CPU choose the same cohorts and masks and reach the same params;
-8. prints one JSON line of per-kernel results, the card's name and power
-   limit, and a last JSON line ``{"ok": true, "device": {...}}``.
+9. holds the training kernels at Mamba2-370M's nine block leaves (L = 48);
+10. runs three "ours" rounds at full Mamba2-370M width (seq_len 512: four
+    chunks) through ``Experiment.run``, counting ``ssd_scan``,
+    ``layer_grad_norm`` and ``masked_update`` launches against the round's
+    structure, replays round 0 stage by stage (launches per stage) and
+    against the plain versions, then runs one "top" round (cut 46: the
+    mask-aware engine skips a 46-layer prefix);
+11. profiles one full-width Mamba2 client step (fwd+bwd) with
+    ``torch.profiler``: wall time, device busy share, the top kernels;
+12. serves full-width Mamba2-370M in shared and dense mode, and holds the
+    f32 sequence forward's logits over a 256-token prompt (the kernel, two
+    chunks) against step-by-step decode (the recurrence);
+13. prints one JSON line of per-kernel results, the card's name and power
+    limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 card, or when the port's sources are missing.
@@ -207,12 +223,13 @@ def synthetic_store(model, users: int, layers_per_user: int, seed: int):
     store = DeltaStore(cfg)
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=model.device).manual_seed(seed)
+    kind = "ssm" if cfg.family == "ssm" else "dense"
     for uid in range(users):
         idx = np.sort(rng.choice(cfg.n_layers, size=layers_per_user,
                                  replace=False)).astype(np.int32)
         leaves = {name: (torch.randn((len(idx), *shp), generator=gen,
                                      device=model.device) * 0.01).cpu().numpy()
-                  for name, shp in _block_shapes(cfg, "dense").items()}
+                  for name, shp in _block_shapes(cfg, kind).items()}
         store.put(uid, DeltaRecord(layers=idx,
                                    segments={"blocks": (idx, leaves)}))
     return store
@@ -393,28 +410,33 @@ def stream_bound(nbytes: int, flops: int) -> tuple[float, str]:
                                        else "operations")
 
 
-def phase_train_kernels(card: str) -> dict:
-    """Both training kernels vs their plain versions at TinyLlama's eight
-    block leaves (norms over L = 22 rows, the update over the 11 rows above
-    a cut at 11 with a mixed 0/1 mask), plus an f32 case and ragged F."""
+def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
+                        kind: str = "dense", f32_leaves=("attn_wq",),
+                        ragged: bool = True) -> dict:
+    """Both training kernels vs their plain versions at one family's block
+    leaves (norms over all L rows, the update over the L/2 rows above a cut
+    at L/2 with a mixed 0/1 mask), plus f32 cases of ``f32_leaves`` and,
+    with ``ragged``, ragged F."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import layer_grad_norm as lgn
     from repro_torch.kernels import masked_update as mu
     from repro_torch.models.model import _block_shapes
 
-    cfg = get_arch("tinyllama_1_1b")
+    cfg = get_arch(arch)
     leaves = [(name, math.prod(shp))
-              for name, shp in sorted(_block_shapes(cfg, "dense").items())]
+              for name, shp in sorted(_block_shapes(cfg, kind).items())]
     L, L_upd, lr = cfg.n_layers, cfg.n_layers // 2, 0.01
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     mask = torch.tensor([float(i % 3 != 1) for i in range(L_upd)],
                         device="cuda")
     cases = [(name, F, torch.bfloat16, True) for name, F in leaves]
-    cases += [("attn_wq/f32", dict(leaves)["attn_wq"], torch.float32, False),
-              ("ragged_F5000", 5000, torch.bfloat16, False),
-              ("ragged_F17", 17, torch.float32, False)]
+    cases += [(f"{name}/f32", dict(leaves)[name], torch.float32, False)
+              for name in f32_leaves]
+    if ragged:
+        cases += [("ragged_F5000", 5000, torch.bfloat16, False),
+                  ("ragged_F17", 17, torch.float32, False)]
     rows = {"layer_grad_norm": [], "masked_update": []}
     errs = {"layer_grad_norm": 0.0, "masked_update": 0.0}
     for name, F, dt, on_path in cases:
@@ -427,7 +449,7 @@ def phase_train_kernels(card: str) -> dict:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
-        log(f"[train-kernel] layer_grad_norm {name:14s} L={L} F={F:9d} "
+        log(f"[train-kernel] layer_grad_norm {name:16s} L={L} F={F:9d} "
             f"{dtn:8s} max_abs_err={err:.3e} max_rel_err="
             f"{((got - want).abs() / want.abs()).max().item():.3e} "
             f"(rtol 1e-5) {'ok' if ok else 'MISMATCH'}")
@@ -457,7 +479,7 @@ def phase_train_kernels(card: str) -> dict:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.equal(got, want)
-        log(f"[train-kernel] masked_update   {name:14s} L={L_upd} F={F:9d} "
+        log(f"[train-kernel] masked_update   {name:16s} L={L_upd} F={F:9d} "
             f"{dtn:8s} max_abs_err={err:.3e} (must be 0) "
             f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"masked_update differs from its plain version at {name}")
@@ -484,7 +506,7 @@ def phase_train_kernels(card: str) -> dict:
     for kname, rs in rows.items():
         total = {k: sum(r[k] for r in rs)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        log(f"[train-kernel] {kname}, all eight leaves: kernel "
+        log(f"[train-kernel] {kname}, {cfg.name}'s {len(leaves)} leaves: kernel "
             f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, plain "
             f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} "
             f"ms   [{card}]")
@@ -494,12 +516,12 @@ def phase_train_kernels(card: str) -> dict:
     return out
 
 
-def _round_experiment(cfg, task, model=None, **kw):
+def _round_experiment(cfg, task, model=None, strategy="ours", rounds=3, **kw):
     from repro_torch.api.experiment import Experiment
     from repro_torch.configs.base import RuntimeConfig
-    return Experiment(model if model is not None else cfg, task, "ours",
+    return Experiment(model if model is not None else cfg, task, strategy,
                       cohort_size=4, local_steps=2, batch_size=4, budget=2,
-                      lam=1.0, lr=0.01, rounds=3, pipeline=False,
+                      lam=1.0, lr=0.01, rounds=rounds, pipeline=False,
                       runtime=RuntimeConfig(remat=False, seq_chunk=128),
                       device="cuda", **kw)
 
@@ -557,7 +579,7 @@ def phase_round(card: str) -> dict:
     want = {"layer_grad_norm": len(hist.records) * fl.cohort_size * 8,
             "masked_update": sum(fl.cohort_size * fl.local_steps * 8
                                  for c in cuts if c < L),
-            "base_delta_matmul": 0}
+            "base_delta_matmul": 0, "ssd_scan": 0}
     log(f"[round] launches {launches}, want {want}")
     check(launches == want, "the round did not launch the training kernels "
                             "as often as its path requires")
@@ -670,6 +692,449 @@ def phase_round_exact(card: str) -> None:
         f"launches {lg}")
     check(err <= 1e-5, "reduced run: card and CPU params differ")
 
+# ---------------------------------------------------------------------------
+# The ssm family: ssd_scan, Mamba2-370M rounds and serving
+# ---------------------------------------------------------------------------
+
+SSD_CHUNK = 128
+SSM_SEQ = 512            # the Mamba2 round's seq_len: four chunks
+# Mamba2-370M's scan on the main path: the round's batch 4 × seq_len 512
+SSD_MAIN = dict(b=4, s=512, h=32, p=64, g=1, n=128)
+# Forward logits vs step-by-step decode, f32, full width (the reference's
+# own decode-consistency test holds 2e-3)
+DECODE_TOL = 2e-3
+
+
+def ssd_bound(b, s, h, p, g, n, q, dtype) -> tuple[float, str]:
+    """Least time in ms for one scan: its bytes (x, B/C per group, dt, A, D
+    read once, y written once) over HBM bandwidth, or the operations these
+    inputs need (the causal half of each chunk's Q × Q products; no
+    inter-chunk term for the first chunk, no state update after the last)
+    over the peak rate of the inputs' type."""
+    import torch
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * s * h * p * es + 2 * b * s * g * n * es
+              + b * s * h * 4 + 2 * h * 4)
+    nc, tri = s // q, q * (q + 1) // 2
+    flops = 2 * b * h * (nc * tri * (n + p) + 2 * (nc - 1) * q * n * p)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S[name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_inputs(b, s, h, p, g, n, dtype, gen, slow_decay=False):
+    """Model-layout scan inputs as mamba2_fwd builds them: x, B and C are
+    strided views of one (b, s, h·p + 2·g·n) conv output, dt = softplus(·)
+    in f32, A_log and D in the inputs' type.  At the model's init A ≈ −1
+    and dt ≈ 0.7, so the state decays within ~20 positions; ``slow_decay``
+    (A ∈ [−0.05, −0.005], dt ≈ 0.02) carries it across every chunk."""
+    import torch
+    import torch.nn.functional as F
+    dev = "cuda"
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    Bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    Cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    raw = torch.randn((b, s, h), generator=gen, device=dev)
+    if slow_decay:
+        dt = F.softplus(raw - 4.0)
+        A_log = torch.log(torch.rand((h,), generator=gen, device=dev)
+                          * 0.045 + 0.005).to(dtype)
+    else:
+        dt = F.softplus(raw)
+        A_log = (torch.randn((h,), generator=gen, device=dev) * 0.02).to(dtype)
+    D = (torch.randn((h,), generator=gen, device=dev) * 0.02).to(dtype)
+    return x, dt, A_log, Bm, Cm, D
+
+
+def phase_ssd_kernel(card: str) -> dict:
+    """ssd_scan vs its plain version on the card: Mamba2-370M's main-path
+    shape (at the model's init and with a slowly decaying state), a single
+    chunk, G > 1 and f32 inputs; two launches must give the same bits."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    m = SSD_MAIN
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main", m, bf16, False, True),
+             ("main/slow_decay", m, bf16, True, False),
+             ("single_chunk", dict(m, s=128), bf16, True, False),
+             ("groups_4", dict(m, g=4), bf16, True, False),
+             ("main/f32", m, f32, True, False)]
+    out = {}
+    for name, shp, dtype, slow, on_path in cases:
+        x, dt, A_log, Bm, Cm, D = ssd_inputs(**shp, dtype=dtype, gen=gen,
+                                             slow_decay=slow)
+        A, Df = -torch.exp(A_log.float()), D.float()
+
+        def kernel():
+            return sk.ssd_scan(x, dt, A, Bm, Cm, Df, chunk=SSD_CHUNK)
+
+        def plain():
+            with torch.no_grad():
+                return ops.ssd(x, dt, A_log, Bm, Cm, D, chunk=SSD_CHUNK,
+                               mode="torch")
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        # bf16 out: one rounding of an f32 sum taken in another order; f32
+        # out: 1e-5 of the output's largest magnitude
+        rtol, atol = ((TOL["bfloat16"], TOL["bfloat16"]) if dtype == bf16
+                      else (1e-5, 1e-5 * scale))
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), rtol=rtol, atol=atol)
+        dtn = "bfloat16" if dtype == bf16 else "float32"
+        log(f"[ssd-kernel] {name:16s} {shp} {dtn:8s} max_abs_err={err:.3e} "
+            f"(rtol {rtol:g}, atol {atol:.3g}; |y| <= {scale:.3g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"ssd_scan disagrees with its plain version at {name}")
+        check(torch.equal(got, again), f"ssd_scan is not deterministic at "
+                                       f"{name}")
+        if on_path or dtype == f32:
+            bound, by = ssd_bound(**shp, q=SSD_CHUNK, dtype=dtype)
+            r = {"case": name, **shp, "chunk": SSD_CHUNK, "dtype": dtn,
+                 "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                 "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain,
+                                                                   flush)}
+            out[name] = r
+            log(f"[ssd-kernel]   time {r['ms']:.4f} ms | bound {bound:.4f} "
+                f"ms ({by}) | kernel/bound {r['ms'] / bound:.1f} | plain "
+                f"{r['plain_ms']:.4f} ms | library: none   [{card}]")
+        if on_path:
+            # what one layer's scan costs a training step: the kernel's
+            # forward, then the backward's recompute through ssd_chunked
+            ins = [t.detach().requires_grad_() for t in (x, dt, A_log, Bm,
+                                                         Cm, D)]
+            gy = torch.randn_like(got)
+
+            def fwd_bwd():
+                torch.autograd.grad(ops.ssd(*ins, chunk=SSD_CHUNK), ins, gy)
+            r["fwd_bwd_ms"] = time_ms(fwd_bwd, flush)
+            log(f"[ssd-kernel]   ops.ssd forward + backward (recomputed "
+                f"through ssd_chunked) {r['fwd_bwd_ms']:.4f} ms   [{card}]")
+            del ins, gy
+        del x, dt, A_log, Bm, Cm, D, got, again, want
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_task(cfg):
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    return SyntheticFederatedData(FederatedTaskConfig(
+        n_clients=16, vocab_size=cfg.vocab_size, seq_len=SSM_SEQ,
+        test_samples=32, objective="lm", skew="feature", seed=0))
+
+
+def phase_ssm_round(card: str) -> dict:
+    """Three rounds of "ours" at full Mamba2-370M width (seq_len 512: four
+    chunks, the carried state crosses three boundaries) through
+    Experiment.run, counting launches against the round's structure; round
+    0 replayed stage by stage (launches per stage) and against the plain
+    versions; then one "top" round, whose cut at 46 makes the mask-aware
+    engine skip a 46-layer prefix."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, _block_shapes
+
+    cfg = get_arch("mamba2_370m")
+    L, n_leaves = cfg.n_layers, len(_block_shapes(cfg, "ssm"))
+    exp = _round_experiment(cfg, _ssm_task(cfg))
+    fl = exp.fl
+    params = exp.init_params()
+    log(f"[ssm-round] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in params['blocks'].values()) / 1e6:.1f} M "
+        f"block + {params['embed']['tok'].numel() / 1e6:.1f} M embedding "
+        f"params in {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, hist = exp.run(params)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del final
+    cuts = []
+    for r in hist.records:
+        cut = int(np.flatnonzero(r.mask_matrix.sum(0) > 0)[0]) \
+            if r.mask_matrix.any() else L
+        cuts.append(cut)
+        log(f"[ssm-round] round {r.round}: cohort {r.cohort.tolist()} cut "
+            f"{cut} selected "
+            f"{[np.flatnonzero(m).tolist() for m in r.mask_matrix]} "
+            f"train_loss {r.train_loss:.6f} test_loss {r.test_loss:.6f} "
+            f"{r.wall_s:.3f} s   [{card}]")
+        check(all(math.isfinite(v) for v in (r.train_loss, r.test_loss)),
+              f"round {r.round}: non-finite loss")
+        check(np.all(r.mask_matrix.sum(1) <= fl.budget)
+              and r.mask_matrix.shape == (fl.cohort_size, L),
+              f"round {r.round}: masks break the budget")
+    n = len(hist.records)
+    probe_fwd = fl.cohort_size * fl.selection_batches
+    update_fwd = fl.cohort_size * fl.local_steps
+    want = {"ssd_scan": n * (probe_fwd + update_fwd + 1) * L,
+            "layer_grad_norm": n * probe_fwd * n_leaves,
+            "masked_update": sum(update_fwd * n_leaves for c in cuts
+                                 if c < L),
+            "base_delta_matmul": 0}
+    log(f"[ssm-round] launches {launches}, want {want} (ssd_scan: one per "
+        f"layer per sequence forward: probe {probe_fwd}, update "
+        f"{update_fwd}, eval 1 per round)")
+    check(launches == want, "the Mamba2 round did not launch the kernels as "
+                            "often as its path requires")
+    tokens = update_fwd * fl.batch_size * SSM_SEQ
+    log(f"[ssm-round] {n} rounds in {run_s:.3f} s; per round "
+        f"{[round(r.wall_s, 3) for r in hist.records]} s; peak device memory "
+        f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)   [{card}]")
+
+    # round 0 again, stage by stage, launches counted per stage
+    task = _ssm_task(cfg)
+    srv = _round_experiment(cfg, task).build()
+    rt = RuntimeConfig(remat=False, seq_chunk=128)
+    plain = _round_experiment(cfg, task, model=Model(
+        cfg, rt, device="cuda", kernel_mode="torch")).build()
+    stage = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t, ops.LAUNCHES["ssd_scan"])
+        return res
+    plan, sampled = staged("plan+sample", lambda: (
+        lambda pl: (pl, srv.sample_round(pl)))(srv.plan_round(0)))
+    stats = staged("probe", lambda: srv.probe_round(params, sampled))
+    masks = staged("select", lambda: srv.select_round(plan, stats))
+    new_k, losses = staged("update", lambda: srv.update_round(params, sampled,
+                                                              masks))
+    test_loss, _ = staged("eval", lambda: srv.client.evaluate(
+        new_k, srv._to_device(task.test_batch())))
+    split = {k: v[0] for k, v in stage.items()}
+    per_stage = {k: v[1] for k, v in stage.items()}
+    log(f"[ssm-round] timed round 0 (synchronised at stage boundaries): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+        + f"; {tokens / split['update']:.0f} trained tokens/s in the update "
+        f"({tokens} tokens), {tokens / sum(split.values()):.0f} per round; "
+        f"ssd_scan launches per stage {per_stage}   [{card}]")
+    check(per_stage == {"plan+sample": 0, "probe": probe_fwd * L,
+                        "select": 0, "update": update_fwd * L, "eval": L},
+          "ssd_scan launches per stage differ from the round's structure")
+    check(np.array_equal(masks, hist.records[0].mask_matrix),
+          "round 0 replayed stage by stage chose other masks than the run")
+    ops.reset_launches()
+    stats_p = plain.probe_round(params, sampled)
+    masks_p = plain.select_round(plan, stats_p)
+    rel = max(float(np.max(np.abs(stats_p[k] - stats[k]) / np.abs(stats[k])))
+              for k in stats)
+    new_p, losses_p = plain.update_round(params, sampled, masks)
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version replay launched kernels: {ops.LAUNCHES}")
+    dp = _tree_max_diff(new_k, new_p)
+    log(f"[ssm-round] round 0, kernels vs plain versions: probe stats max "
+        f"rel err {rel:.3e} (rtol 2e-2: 48 bf16 layers, see PERF.md); masks "
+        f"equal: {bool(np.array_equal(masks_p, masks))}; update with the "
+        f"kernel run's masks: max |Δparams| {dp:.3e} (bf16), losses "
+        f"{np.abs(losses - losses_p).max():.3e}; test loss {test_loss:.6f}")
+    check(rel <= 2e-2, "probe stats: kernel and plain versions disagree")
+    check(np.array_equal(masks_p, masks), "plain-version probe stats chose "
+                                          "other masks")
+    del new_p, new_k
+    torch.cuda.empty_cache()
+
+    # one "top" round: the cut at L − budget freezes a 46-layer prefix
+    top = _round_experiment(cfg, _ssm_task(cfg), strategy="top", rounds=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, hist_top = top.run(params)
+    torch.cuda.synchronize()
+    top_s = time.perf_counter() - t0
+    top_launches = dict(ops.LAUNCHES)
+    top_peak = torch.cuda.max_memory_allocated() / 1e9
+    del final
+    rec = hist_top.records[0]
+    top_cut = int(np.flatnonzero(rec.mask_matrix.sum(0) > 0)[0])
+    want_top = {"ssd_scan": (update_fwd + 1) * L, "layer_grad_norm": 0,
+                "masked_update": update_fwd * n_leaves,
+                "base_delta_matmul": 0}
+    log(f"[ssm-round] top round: cut {top_cut}, train_loss "
+        f"{rec.train_loss:.6f} test_loss {rec.test_loss:.6f}, {top_s:.3f} s, "
+        f"peak {top_peak:.2f} GB; launches {top_launches}, want {want_top}"
+        f"   [{card}]")
+    check(top_cut == L - fl.budget, f"top round cut at {top_cut}")
+    check(top_launches == want_top, "the top round did not launch the "
+                                    "kernels as its path requires")
+    check(all(math.isfinite(v) for v in (rec.train_loss, rec.test_loss)),
+          "top round: non-finite loss")
+    return {"launches": launches, "top_launches": top_launches,
+            "run_s": run_s, "wall_s": [r.wall_s for r in hist.records],
+            "split": split, "peak_gb": peak_gb, "top_s": top_s,
+            "top_peak_gb": top_peak, "tokens_per_round": tokens,
+            "probe_rel_err": rel}
+
+
+def phase_ssm_profile(card: str) -> dict:
+    """Where a Mamba2 training step's time goes: one client step at full
+    width (loss and gradients of all 48 layers' block leaves, batch 4 ×
+    512, bf16) under torch.profiler, after a warm-up step.  Reports the
+    step's wall time, the device's busy time (the kernels' own time; idle =
+    the rest) and the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("mamba2_370m")
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
+                  device="cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, SSM_SEQ),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    wrt = {k: v.detach().requires_grad_() for k, v in
+           params["blocks"].items()}
+
+    def step():
+        loss = model.loss({**params, "blocks": wrt}, batch)
+        torch.autograd.grad(loss, list(wrt.values()))
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (kernels.get(e.key, (0.0, 0))[0]
+                              + e.self_device_time_total / 1e3,
+                              kernels.get(e.key, (0.0, 0))[1] + e.count)
+    busy_ms = sum(v[0] for v in kernels.values())
+    n_launch = sum(v[1] for v in kernels.values())
+    groups = {"ssd_scan (forward kernel)": 0.0, "matmul (cuBLAS/CUTLASS)": 0.0,
+              "other": 0.0}
+    for name, (ms, _) in kernels.items():
+        low = name.lower()
+        key = ("ssd_scan (forward kernel)" if "ssd_scan" in low
+               else "matmul (cuBLAS/CUTLASS)"
+               if any(w in low for w in ("gemm", "cutlass", "sm90_xmma",
+                                         "cublas", "nvjet"))
+               else "other")
+        groups[key] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[ssm-profile] one full-width client step (fwd+bwd, "
+        f"{cfg.n_layers} layers, 4 × {SSM_SEQ} tokens): wall {wall_ms:.1f} "
+        f"ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%;"
+        f" idle {100 * (1 - busy_ms / wall_ms):.1f}%), {n_launch} kernel "
+        f"launches   [{card}]")
+    log("[ssm-profile] device time by group: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in groups.items()))
+    for name, (ms, cnt) in top:
+        log(f"[ssm-profile]   {ms:8.2f} ms  {cnt:5d}x  {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": n_launch,
+            "groups": groups}
+
+
+def phase_ssm_serve(card: str) -> dict:
+    """Full-width Mamba2-370M through SlotServer in shared and dense mode;
+    then, in f32, the sequence forward's logits (the kernel, two chunks of
+    a 256-token prompt) against step-by-step decode (the recurrence)."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("mamba2_370m")
+    rt = RuntimeConfig(remat=False, seq_chunk=128)
+    model = Model(cfg, rt, device="cuda")
+    params = model.init(0)
+    slots, n_req, plen, max_new = 4, 8, 8, 16
+    max_seq = plen + max_new + 1
+    store = synthetic_store(model, users=4, layers_per_user=2, seed=0)
+    results = {}
+    for mode in ("shared", "dense"):
+        srv = serve.SlotServer(model, params, slots, max_seq, mode=mode,
+                               store=None if mode == "shared" else store,
+                               device="cuda")
+        reqs = requests(cfg, n_req, plen, max_new,
+                        0 if mode == "shared" else 4)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        done, stats = srv.run(reqs)
+        torch.cuda.synchronize()
+        check(len(done) == n_req and all(len(r.generated) == max_new
+                                         for r in done),
+              f"ssm {mode}: {len(done)} of {n_req} requests finished")
+        check(all(v == 0 for v in ops.LAUNCHES.values()),
+              f"ssm {mode} decode launched kernels: {ops.LAUNCHES}")
+        results[mode] = stats
+        log(f"[ssm-serve] {mode:6s} {stats['steps']} steps, "
+            f"{stats['gen_tokens']} tokens, {stats['tok_per_s']:.1f} tok/s, "
+            f"{stats['wall_s'] * 1e3 / stats['steps']:.2f} ms/step   [{card}]")
+        del srv
+    del params, store
+    torch.cuda.empty_cache()
+
+    import dataclasses
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = Model(c32, rt, device="cuda")
+    p32 = m32.init(1)
+    S = 256
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    with torch.no_grad():
+        h, _, _ = m32.forward_seq(p32, {"tokens": tokens})
+        seq_logits = m32._head(p32, h)
+    check(ops.LAUNCHES["ssd_scan"] == cfg.n_layers,
+          f"the f32 sequence forward made {ops.LAUNCHES['ssd_scan']} ssd_scan "
+          f"launches, want {cfg.n_layers}")
+    cache = m32.init_cache(2, S)
+    t0 = time.perf_counter()
+    dec = []
+    for t in range(S):
+        logits, cache = m32.decode_step(
+            p32, tokens[:, t], torch.tensor(t, dtype=torch.int32,
+                                            device="cuda"), cache)
+        dec.append(logits)
+    dec = torch.stack(dec, 1)
+    torch.cuda.synchronize()
+    err = (dec - seq_logits).abs().max().item()
+    scale = seq_logits.abs().max().item()
+    ok = bool(torch.isfinite(seq_logits).all()) and torch.allclose(
+        dec, seq_logits, atol=DECODE_TOL, rtol=DECODE_TOL)
+    per_pos = (dec - seq_logits).abs().amax(dim=(0, 2))
+    log(f"[ssm-serve] f32 forward_seq (ssd_scan, 2 chunks) vs {S} decode "
+        f"steps: max_abs_err {err:.3e} (|logits| <= {scale:.3g}; atol/rtol "
+        f"{DECODE_TOL:g}); worst position {int(per_pos.argmax())}, at the "
+        f"chunk boundary (127, 128) {per_pos[127].item():.3e}, "
+        f"{per_pos[128].item():.3e}; decode "
+        f"{(time.perf_counter() - t0) * 1e3 / S:.2f} ms/step "
+        f"{'ok' if ok else 'MISMATCH'}   [{card}]")
+    check(ok, "forward_seq and step-by-step decode disagree (f32)")
+    results["decode_max_abs_err"] = err
+    return results
+
 
 def main() -> int:
     import torch
@@ -691,12 +1156,19 @@ def main() -> int:
         f"{torch.cuda.device_count()}; nvidia-smi: {card}")
     try:
         build_kernels()
+        ssd = phase_ssd_kernel(card)
         kern = phase_kernel(card)
         served = phase_serve(card)
         phase_exact(card)
         train = phase_train_kernels(card)
         rounds = phase_round(card)
         phase_round_exact(card)
+        train_ssm = phase_train_kernels(card, "mamba2_370m", "ssm",
+                                        f32_leaves=("ssm_D", "ssm_in_proj"),
+                                        ragged=False)
+        ssm_rounds = phase_ssm_round(card)
+        phase_ssm_profile(card)
+        phase_ssm_serve(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -715,26 +1187,52 @@ def main() -> int:
         "timed_as": "sum over one layer's six projections at B=4",
         "library_call": "torch.matmul(x, w), the base product only",
         "shapes": kern["rows"]}]}
-    for name, rel, lib, timed in (
+    for name, rel, lib, timed, timed_ssm in (
             ("layer_grad_norm", "layer_grad_norm.py:64",
              "torch.linalg.vector_norm(g, dim=1, dtype=float32)**2",
-             "sum over the eight block leaves at L=22, one probe batch"),
+             "sum over TinyLlama's eight block leaves at L=22, one probe "
+             "batch",
+             "sum over Mamba2's nine block leaves at L=48, one probe batch"),
             ("masked_update", "masked_update.py:40",
              "torch.addcmul(p, g, (-lr*m)[:, None]) (f32 output)",
-             "sum over the eight block leaves at L=11, one local step")):
-        t = train[name]
+             "sum over TinyLlama's eight block leaves at L=11, one local step",
+             "sum over Mamba2's nine block leaves at L=24, one local "
+             "step")):
+        t, tm = train[name], train_ssm[name]
+        by_path = {"tinyllama_round": rounds["launches"][name],
+                   "mamba2_round": ssm_rounds["launches"][name],
+                   "mamba2_top_round": ssm_rounds["top_launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{rel}",
-            "launches": rounds["launches"][name],
-            "max_abs_err": t["max_abs_err"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(t["max_abs_err"], tm["max_abs_err"]),
             "ms": t["total"]["ms"], "plain_ms": t["total"]["plain_ms"],
             "bound_ms": t["total"]["bound_ms"],
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                         for r in t["rows"]) else "operations"),
             "library_ms": t["total"]["library_ms"],
-            "timed_as": timed, "library_call": lib, "shapes": t["rows"]})
+            "timed_as": timed, "library_call": lib, "shapes": t["rows"],
+            "mamba2_370m": {**tm["total"], "timed_as": timed_ssm,
+                            "shapes": tm["rows"]}})
+    main_ssd = ssd["main"]
+    line["kernels"].append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:72",
+        "launches": ssm_rounds["launches"]["ssd_scan"]
+        + ssm_rounds["top_launches"]["ssd_scan"],
+        "launches_by_path": {
+            "mamba2_round": ssm_rounds["launches"]["ssd_scan"],
+            "mamba2_top_round": ssm_rounds["top_launches"]["ssd_scan"]},
+        "max_abs_err": main_ssd["max_abs_err"], "ms": main_ssd["ms"],
+        "plain_ms": main_ssd["plain_ms"], "bound_ms": main_ssd["bound_ms"],
+        "bound_by": main_ssd["bound_by"], "library_ms": None,
+        "timed_as": "one Mamba2-370M layer's scan on the round's batch: "
+                    "b 4, S 512, H 32, P 64, G 1, N 128, chunk 128, bf16",
+        "library_call": None, "shapes": list(ssd.values())})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(card)

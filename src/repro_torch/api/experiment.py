@@ -13,7 +13,7 @@ Strategy instance) into an :class:`FLServer`.  FL hyper-parameters come
 from ``fl=FLConfig(...)`` or keyword overrides; ``n_clients`` follows the
 task.  The model runs on ``device`` (the card unless ``device="cpu"``).
 
-Not ported yet (ROADMAP.md, 'Slice 3'): pretraining
+Not ported yet (ROADMAP.md, 'Slice 5'): pretraining
 (``pretrain_steps > 0`` raises), and what the server does not port
 (``pipeline=True``, ``checkpoint_dir``, ``faults`` raise there).
 """
@@ -49,7 +49,7 @@ class Experiment:
         if pretrain_steps > 0:
             raise NotImplementedError(
                 "pretraining (data/pretrain.py, optim/optimizers.py) is not "
-                "ported yet (ROADMAP.md, 'Slice 3', item 2)")
+                "ported yet (ROADMAP.md, 'Slice 5', item 2)")
         if isinstance(model, Model):
             self.model = model
         else:

@@ -28,7 +28,7 @@ current cohort's stats and budgets, the (P1) solve is warm-started from
 each member's previous masks (unseen members greedily filled), and an
 identical (cohort, budgets, stats, init) round skips the solve.
 
-Not ported yet (ROADMAP.md, 'Slice 3'): the streaming ``RoundScheduler``
+Not ported yet (ROADMAP.md, 'Slice 5'): the streaming ``RoundScheduler``
 that ``run`` uses by default for the vectorized engine (``pipeline=True``
 raises; pass ``pipeline=False``), round-boundary checkpoints
 (``checkpoint_dir``) and fault injection (``faults``).
@@ -54,7 +54,7 @@ from repro_torch.core.state import ClientStateStore
 from repro_torch.core.strategies import ProbeReport
 from repro_torch.models.model import Model, supports_prefix_cut
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, 'Slice 3', item {})"
+_NOT_PORTED = "is not ported yet (ROADMAP.md, 'Slice 5', item {})"
 
 
 @dataclass

@@ -1,5 +1,5 @@
 """Model-layout wrappers over the port's kernels (counterpart of
-``repro/kernels/ops.py``: ``layer_grad_norms`` line 103,
+``repro/kernels/ops.py``: ``ssd`` line 76, ``layer_grad_norms`` line 103,
 ``masked_sgd_update`` line 128, ``base_delta_matmul`` line 160).
 
 Dispatch follows the tensor, never ``RuntimeConfig.use_pallas``: a CUDA
@@ -16,10 +16,12 @@ import torch
 from repro_torch.kernels import delta_matmul as _dmm
 from repro_torch.kernels import layer_grad_norm as _lgn
 from repro_torch.kernels import masked_update as _mu
+from repro_torch.kernels import ssd_scan as _ssd
 
 # Kernel launches made through this module, by kernel.  Reset it to 0 before
 # a run and read it after to show which kernels the run went through.
-LAUNCHES = {"base_delta_matmul": 0, "layer_grad_norm": 0, "masked_update": 0}
+LAUNCHES = {"base_delta_matmul": 0, "layer_grad_norm": 0, "masked_update": 0,
+            "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -43,6 +45,69 @@ def _sorted_leaves(tree):
             yield from _sorted_leaves(tree[k])
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# SSD (model layout: x (B,S,H,P), dt (B,S,H), A_log (H,), B/C (B,S,G,N))
+# ---------------------------------------------------------------------------
+
+def _ssd_forward(x, dt, A_log, Bmat, Cmat, D, chunk: int, mode: str):
+    A = -torch.exp(A_log.float())
+    if mode == "cuda":
+        y = _ssd.ssd_scan(x, dt.float(), A.contiguous(), Bmat, Cmat,
+                          D.float().contiguous(), chunk=chunk)
+        LAUNCHES["ssd_scan"] += 1
+        return y
+    # the plain version on the reference wrapper's per-head layout
+    b, s, h, p = x.shape
+    g, n = Bmat.shape[2], Bmat.shape[3]
+    rep = h // g
+
+    def heads(t):       # (B,S,G,N) -> (B·H,S,N); head h reads group h // rep
+        return torch.repeat_interleave(t, rep, dim=2).transpose(1, 2) \
+            .reshape(b * h, s, n)
+    y = _ssd.ssd_scan_torch(x.transpose(1, 2).reshape(b * h, s, p),
+                            dt.transpose(1, 2).reshape(b * h, s),
+                            A.repeat(b), heads(Bmat), heads(Cmat),
+                            D.float().repeat(b), chunk=chunk)
+    return y.reshape(b, h, s, p).transpose(1, 2)
+
+
+class _SSD(torch.autograd.Function):
+    """Forward: the ``ssd_scan`` kernel (or its plain version).  Backward:
+    recompute through the model function ``models.ssd.ssd_chunked`` and
+    differentiate it, as the reference differentiates ``ssd_chunked`` (it
+    has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, Bmat, Cmat, D, chunk, mode):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A_log, Bmat, Cmat, D)
+        return _ssd_forward(x, dt, A_log, Bmat, Cmat, D, chunk, mode)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from repro_torch.models.ssd import ssd_chunked
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y, _ = ssd_chunked(*ins, ctx.chunk)
+            it = iter(torch.autograd.grad(
+                y, [t for t, n in zip(ins, need) if n], gy))
+        return (*(next(it) if n else None for n in need), None, None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+        Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
+        chunk: int = 128, mode: Optional[str] = None) -> torch.Tensor:
+    """Model-layout SSD → y (B,S,H,P) in x's type: one launch of the
+    ``ssd_scan`` kernel on the card, the plain version on the CPU (``mode``
+    forces either).  Differentiable: the backward recomputes through
+    ``models.ssd.ssd_chunked``; under ``torch.no_grad()`` only the forward
+    runs."""
+    return _SSD.apply(x, dt, A_log, Bmat, Cmat, D, min(chunk, x.shape[1]),
+                      _resolve_mode(mode, x))
 
 
 def layer_grad_norms(stacked_grads, *,

@@ -221,8 +221,14 @@ def init_stacked(gen: torch.Generator, shapes: dict, n: int, dtype,
 
     Keys in ``sorted(shapes)`` order, as the reference builds them; leaves
     are drawn one after another from ``gen`` (the reference splits a JAX
-    key, so the numbers differ, the rules do not).  The ssm leaves'
-    (``A_log``, ``D``) rules come with the ssm family."""
+    key, so the numbers differ, the rules do not).  Zeros for names that
+    start with ``b``, are ``ln`` or end in ``_bias``; N(0, scale²) for the
+    rest.  The reference also has rules for ``A_log`` (log U[1, 16)) and
+    ``D`` (ones), but the ssm leaves reach it prefixed (``ssm_A_log``,
+    ``ssm_D``), so those never fire: ``ssm_A_log``, ``ssm_D``, ``ssm_ln``,
+    ``ssm_gate_ln`` and ``ssm_conv_b`` are N(0, 0.02) and only
+    ``ssm_dt_bias`` is zeros, so A = −exp(A_log) ≈ −1.  The port keeps
+    exactly those rules."""
     params = {}
     for name, shp in sorted(shapes.items()):
         full = (n, *shp) if n else tuple(shp)

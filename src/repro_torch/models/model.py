@@ -1,13 +1,14 @@
 """Model facade (counterpart of ``repro/models/model.py``).
 
-For the ``dense`` and ``vlm`` families: the layer layout and the mask
-helpers of the mask-aware engine (``segment_cuts``, ``trainable_slice``,
-``split_mask``, ``apply_layer_mask``), parameter init, the sequence
-forward and losses of training (:meth:`Model.forward_seq`,
-:meth:`Model.loss`), the KV cache and :meth:`Model.decode_step`.  A
-``lax.scan`` over layers becomes a Python loop over the rows of
-``params["blocks"]``; cache writes happen in place.  Other families raise
-``NotImplementedError`` until their slices land (ROADMAP.md).
+For the ``dense``, ``vlm`` and ``ssm`` (Mamba2) families: the layer layout
+and the mask helpers of the mask-aware engine (``segment_cuts``,
+``trainable_slice``, ``split_mask``, ``apply_layer_mask``), parameter
+init, the sequence forward and losses of training
+(:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or conv/state cache
+and :meth:`Model.decode_step`.  A ``lax.scan`` over layers becomes a Python
+loop over the rows of ``params["blocks"]``; cache writes happen in place.
+Other families raise ``NotImplementedError`` until their slices land
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RuntimeConfig
 from repro_torch.models import blocks as B
+from repro_torch.models import ssd as SSD
 from repro_torch.tree import tree_map
 
-_LM_FAMILIES = ("dense", "vlm")
+_DENSE_FAMILIES = ("dense", "vlm")
+_PORTED_FAMILIES = ("dense", "vlm", "ssm")
 _IMAX = torch.iinfo(torch.int32).max
 
 
@@ -29,8 +32,8 @@ def _torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _need_lm_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in _LM_FAMILIES:
+def _need_ported_family(cfg: ArchConfig, what: str) -> None:
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"{what} for family {cfg.family!r} is not ported yet "
             f"(ROADMAP.md, 'Other model families')")
@@ -65,7 +68,7 @@ def supports_delta_decode(cfg: ArchConfig) -> bool:
     """Whether :meth:`Model.decode_step` accepts a per-slot delta overlay:
     the plain dense stack, whose projections go through
     ``ops.base_delta_matmul``."""
-    return cfg.family in _LM_FAMILIES
+    return cfg.family in _DENSE_FAMILIES
 
 
 def supports_prefix_cut(cfg: ArchConfig) -> bool:
@@ -143,6 +146,8 @@ def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
     if kind == "dense":
         return {**_prefixed("attn_", B.attn_param_shapes(cfg)),
                 **_prefixed("mlp_", B.mlp_param_shapes(cfg))}
+    if kind == "ssm":
+        return _prefixed("ssm_", SSD.mamba2_param_shapes(cfg))
     raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
@@ -158,7 +163,7 @@ def _take(p: dict, prefix: str) -> dict:
 def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     """Random parameters with the reference's paths, shapes, types and key
     order, drawn from ``gen`` (which lives on ``device``)."""
-    _need_lm_family(cfg, "init_params")
+    _need_ported_family(cfg, "init_params")
     dtype = _torch_dtype(cfg.dtype)
     d = cfg.d_model
 
@@ -173,7 +178,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     if cfg.family == "vlm":
         embed["patch_proj"] = normal((d, d))
     params["embed"] = embed
-    params["blocks"] = B.init_stacked(gen, _block_shapes(cfg, "dense"),
+    kind = "ssm" if cfg.family == "ssm" else "dense"
+    params["blocks"] = B.init_stacked(gen, _block_shapes(cfg, kind),
                                       cfg.n_layers, dtype, device)
     params["final_norm"] = torch.zeros((d,), dtype=dtype, device=device)
     if cfg.task == "classification":
@@ -302,7 +308,7 @@ class Model:
         :func:`trainable_slice` dict the caller differentiates).
         """
         cfg, rt = self.cfg, self.runtime
-        _need_lm_family(cfg, "forward_seq")
+        _need_ported_family(cfg, "forward_seq")
         prefix_len = 0
         if cfg.family == "vlm":
             proj = params["embed"]["patch_proj"]
@@ -319,12 +325,19 @@ class Model:
                                  device=x.device)
         causal = cfg.task == "lm"
 
-        def step(h, p):
-            return _dense_block_fwd(p, h, cfg, positions=positions,
-                                    causal=causal, window=cfg.sliding_window,
-                                    prefix_len=prefix_len,
-                                    seq_chunk=rt.seq_chunk,
-                                    remat_chunk=rt.remat_scores)
+        if cfg.family == "ssm":
+            def step(h, p):
+                out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, cfg,
+                                        mode=self.kernel_mode)
+                return h + out
+        else:
+            def step(h, p):
+                return _dense_block_fwd(p, h, cfg, positions=positions,
+                                        causal=causal,
+                                        window=cfg.sliding_window,
+                                        prefix_len=prefix_len,
+                                        seq_chunk=rt.seq_chunk,
+                                        remat_chunk=rt.remat_scores)
 
         blocks_cut = segment_cuts(cut, cfg)["blocks"] if trainable is not None \
             else 0
@@ -384,14 +397,22 @@ class Model:
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, *, window: int = 0,
                    per_slot: bool = False) -> dict:
-        """KV caches for decode; ``window`` caps the cache length.
+        """KV caches (ssm: conv and state caches) for decode, in
+        ``cfg.dtype``; ``window`` caps the KV cache length.
 
         ``per_slot=True`` is the serving layout: ``pos`` is (L, B, W)
-        instead of (L, W), so every slot tracks its own position.
+        instead of (L, W), so every slot tracks its own position (the ssm
+        caches have no positions: every row is one slot already).
         """
         cfg = self.cfg
-        _need_lm_family(cfg, "init_cache")
+        _need_ported_family(cfg, "init_cache")
         dt = _torch_dtype(cfg.dtype)
+        if cfg.family == "ssm":
+            shp = SSD.mamba2_cache_shapes(cfg, batch)
+            return {"blocks": {
+                name: torch.zeros((cfg.n_layers,) + s, dtype=dt,
+                                  device=self.device)
+                for name, s in shp.items()}}
         W = min(window or max_seq, max_seq)
         L, Kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
         shp = (L, batch, W, Kh, hd)
@@ -405,14 +426,18 @@ class Model:
     def reset_slot(self, cache: dict, slot: int, *,
                    stacked: bool = False) -> dict:
         """Invalidate one batch slot of a decode cache (request refill), in
-        place: its position rows become int32-max ("empty"); k/v stay,
-        unreachable until overwritten.  ``stacked`` addresses the dense
-        baseline's per-slot layout (slot axis first)."""
-        pos = cache["blocks"]["pos"]
-        if stacked:
-            pos[slot] = _IMAX
-        else:
-            pos[:, slot] = _IMAX
+        place: its position rows become int32-max ("empty") and ssm conv
+        and state rows are zeroed; k/v stay, unreachable until overwritten.
+        ``stacked`` addresses the dense baseline's per-slot layout (slot
+        axis first)."""
+        fills = {"pos": _IMAX, "conv": 0, "state": 0}
+        for name, leaf in cache["blocks"].items():
+            if name not in fills:
+                continue
+            if stacked:
+                leaf[slot] = fills[name]
+            else:
+                leaf[:, slot] = fills[name]
         return cache
 
     @torch.inference_mode()
@@ -428,7 +453,9 @@ class Model:
         Returns (logits (B, V), cache) — the cache updated in place.
         """
         cfg = self.cfg
-        _need_lm_family(cfg, "decode_step")
+        _need_ported_family(cfg, "decode_step")
+        if delta is not None and not supports_delta_decode(cfg):
+            raise ValueError(f"family {cfg.family!r} has no delta-decode path")
         per_slot = pos.dim() == 1
         x = self._embed_tokens(params, tokens[:, None])
         if cfg.rope_theta == 0.0:
@@ -439,6 +466,15 @@ class Model:
         positions = (pos[:, None] if per_slot else pos[None]).to(torch.int32)
         w = window or cfg.sliding_window
         blocks, kv = params["blocks"], cache["blocks"]
+        if cfg.family == "ssm":
+            for li in range(cfg.n_layers):
+                p = {name: leaf[li] for name, leaf in blocks.items()}
+                c = {name: leaf[li] for name, leaf in kv.items()}
+                out, nc = SSD.mamba2_fwd(_take(p, "ssm_"), x, cfg, cache=c)
+                for name, t in nc.items():
+                    c[name].copy_(t)
+                x = x + out
+            return self._head(params, x)[:, 0], cache
         for li in range(cfg.n_layers):
             p = {name: leaf[li] for name, leaf in blocks.items()}
             kv_l = {name: leaf[li] for name, leaf in kv.items()}
