@@ -25,8 +25,11 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
    times them likewise;
 7. runs three rounds of Algorithm 1 ("ours": probe, (P1) select, masked
    τ-step update, Eq.(5)-(7) aggregate, eval) at full TinyLlama-1.1B width
-   through ``Experiment.run``, counting kernel launches, then replays round
-   0 stage by stage against the plain versions and the dense program;
+   (seq_len 128, the attention through the flash kernels) through
+   ``Experiment.run``, counting kernel launches per round and flash
+   launches per stage, then replays round 0 stage by stage against the
+   plain versions (both probes also held against an f32 probe) and the
+   dense program;
 8. checks, on reduced xlm-roberta in f32, that two rounds on the card and
    on the CPU choose the same cohorts and masks and reach the same params;
 9. holds the training kernels at Mamba2-370M's nine block leaves (L = 48);
@@ -37,11 +40,20 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     against the plain versions, then runs one "top" round (cut 46: the
     mask-aware engine skips a 46-layer prefix);
 11. profiles one full-width Mamba2 client step (fwd+bwd) with
-    ``torch.profiler``: wall time, device busy share, the top kernels;
+    ``torch.profiler``: wall time, device busy share, the top kernels
+    (and, after phase 14, one TinyLlama client step at seq_len 1024);
 12. serves full-width Mamba2-370M in shared and dense mode, and holds the
     f32 sequence forward's logits over a 256-token prompt (the kernel, two
     chunks) against step-by-step decode (the recurrence);
-13. prints one JSON line of per-kernel results, the card's name and power
+13. holds the flash attention forward and backward kernels against their
+    plain versions at one TinyLlama layer on the long round's batch (B 4,
+    S 1024, H 32, K 4, D 64, bf16, causal), with f32 inputs, a 256 window,
+    XLM-R's bidirectional heads, head dims 128 and 256, a ragged S and a
+    head dim of 8, two launches bit for bit; times kernels, plain versions,
+    SDPA and ``blocks.attend_full`` (time and one layer's memory) beside
+    the bound;
+14. runs phase 7 again at seq_len 1024, TinyLlama's own context;
+15. prints one JSON line of per-kernel results, the card's name and power
     limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
@@ -73,6 +85,16 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # Both are held against the same step in f32: the kernel path's error may
 # be at most E2E_ERR_RATIO times the plain path's.
 E2E_ERR_RATIO = 1.5
+# The TinyLlama rounds, kernels vs plain versions on round 0: the flash
+# kernel and its plain version round attention outputs and gradients to
+# bf16 after summing in other orders, and a one-ulp difference in one layer
+# carries through 22 layers of forward and backward.  On an H100 the probe
+# stats parted by 1.07e-3 (seq 128) and 1.22e-3 (seq 1024), while each bf16
+# path sits 1.5e-3 to 3.5e-3 off an f32 probe (PERF.md): the limit is
+# about twice the readings and under the bf16-vs-f32 gap.  Params: a few
+# bf16 ulps of the largest |param| (~0.12, ulp 4.9e-4).
+ROUND_PROBE_RTOL = 2.5e-3
+ROUND_PARAM_ATOL = 2e-3
 REPS = 30
 
 
@@ -526,17 +548,48 @@ def _round_experiment(cfg, task, model=None, strategy="ours", rounds=3, **kw):
                       device="cuda", **kw)
 
 
+def probe_err_vs_f32(cfg, task, params, sampled, stats_k,
+                     stats_p) -> tuple[float, float]:
+    """Largest relative error of two bf16 probes (the kernel path's, the
+    plain versions') against the same probe in f32 (plain versions, the
+    bf16 params cast up).  The flash kernel and its plain version round
+    attention outputs and gradients to bf16 after summing in other orders,
+    so the two bf16 paths part by ~1e-3 over 22 layers; each is held
+    against f32 instead, as the serving logits are."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    ref = _round_experiment(c32, task, model=Model(
+        c32, RuntimeConfig(remat=False, seq_chunk=128), device="cuda",
+        kernel_mode="torch")).build()
+    p32 = tree_map(lambda t: t.float(), params)
+    stats_32 = ref.probe_round(p32, sampled)
+    del ref, p32
+    torch.cuda.empty_cache()
+
+    def err(st):
+        return max(float(np.max(np.abs(st[k] - stats_32[k])
+                                / np.abs(stats_32[k]))) for k in st)
+    return err(stats_k), err(stats_p)
+
+
 def _tree_max_diff(a, b) -> float:
     if isinstance(a, dict):
         return max(_tree_max_diff(a[k], b[k]) for k in a)
     return (a.float() - b.float()).abs().max().item()
 
 
-def phase_round(card: str) -> dict:
+def phase_round(card: str, seq: int = 128) -> dict:
     """Three rounds of Algorithm 1 ("ours") at full TinyLlama-1.1B width in
-    bf16 through Experiment.run, counting kernel launches; then round 0
-    again, stage by stage, against the plain versions and the dense
-    program."""
+    bf16 on sequences of ``seq`` tokens, the attention through the flash
+    kernels, through Experiment.run, counting kernel launches against the
+    round's structure; then round 0 again, stage by stage (flash launches
+    per stage), against the plain versions (each bf16 probe also against
+    an f32 probe) and the dense program."""
     import numpy as np
     import torch
     from repro_torch.configs.base import RuntimeConfig, get_arch
@@ -545,12 +598,16 @@ def phase_round(card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
 
+    tag = "round" if seq == 128 else f"round-{seq}"
     cfg = get_arch("tinyllama_1_1b")
-    task_cfg = FederatedTaskConfig(n_clients=16, vocab_size=cfg.vocab_size,
-                                   seq_len=128, test_samples=32,
-                                   objective="lm", skew="feature", seed=0)
-    exp = _round_experiment(cfg, SyntheticFederatedData(task_cfg))
-    fl, L = exp.fl, cfg.n_layers
+    L = cfg.n_layers
+
+    def task():
+        return SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=16, vocab_size=cfg.vocab_size, seq_len=seq,
+            test_samples=32, objective="lm", skew="feature", seed=0))
+    exp = _round_experiment(cfg, task())
+    fl = exp.fl
     params = exp.init_params()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -567,7 +624,7 @@ def phase_round(card: str) -> dict:
         cut = int(np.flatnonzero(r.mask_matrix.sum(0) > 0)[0]) \
             if r.mask_matrix.any() else L
         cuts.append(cut)
-        log(f"[round] round {r.round}: cohort {r.cohort.tolist()} cut {cut} "
+        log(f"[{tag}] round {r.round}: cohort {r.cohort.tolist()} cut {cut} "
             f"selected {[np.flatnonzero(m).tolist() for m in r.mask_matrix]} "
             f"train_loss {r.train_loss:.6f} test_loss {r.test_loss:.6f} "
             f"{r.wall_s:.3f} s   [{card}]")
@@ -579,73 +636,105 @@ def phase_round(card: str) -> dict:
     want = {"layer_grad_norm": len(hist.records) * fl.cohort_size * 8,
             "masked_update": sum(fl.cohort_size * fl.local_steps * 8
                                  for c in cuts if c < L),
-            "base_delta_matmul": 0, "ssd_scan": 0}
-    log(f"[round] launches {launches}, want {want}")
-    check(launches == want, "the round did not launch the training kernels "
-                            "as often as its path requires")
-    tokens = fl.cohort_size * fl.local_steps * fl.batch_size * 128
-    log(f"[round] {len(hist.records)} rounds in {run_s:.3f} s; per round "
+            "base_delta_matmul": 0, "ssd_scan": 0,
+            **flash_want(fl, L, cuts)}
+    log(f"[{tag}] launches {launches}, want {want}")
+    check(launches == want, "the round did not launch the kernels as often "
+                            "as its path requires")
+    tokens = fl.cohort_size * fl.local_steps * fl.batch_size * seq
+    log(f"[{tag}] {len(hist.records)} rounds in {run_s:.3f} s; per round "
         f"{[round(r.wall_s, 3) for r in hist.records]} s; peak device memory "
         f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)   [{card}]")
 
     # round 0 again, stage by stage: kernels, plain versions, dense program
-    task = SyntheticFederatedData(task_cfg)
-    srv = _round_experiment(cfg, task).build()
-    rt = RuntimeConfig(remat=False, seq_chunk=128)
-    plain = _round_experiment(cfg, task, model=Model(
-        cfg, rt, device="cuda", kernel_mode="torch")).build()
-    dense = _round_experiment(cfg, task, mask_aware=False).build()
-    torch.cuda.synchronize()
-    marks = [time.perf_counter()]
-    plan = srv.plan_round(0)
-    sampled = srv.sample_round(plan)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    stats = srv.probe_round(params, sampled)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    masks = srv.select_round(plan, stats)
-    marks.append(time.perf_counter())
-    new_k, losses = srv.update_round(params, sampled, masks)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    test_loss, _ = srv.client.evaluate(new_k, srv._to_device(task.test_batch()))
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    split = dict(zip(("plan+sample", "probe", "select", "update", "eval"),
-                     np.diff(marks)))
-    log(f"[round] timed round 0 (synchronised at stage boundaries): "
+    t = task()
+    srv = _round_experiment(cfg, t).build()
+    stage = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t1,
+                       (ops.LAUNCHES["flash_attention"],
+                        ops.LAUNCHES["flash_attention_bwd"]))
+        return res
+    plan, sampled = staged("plan+sample", lambda: (
+        lambda pl: (pl, srv.sample_round(pl)))(srv.plan_round(0)))
+    stats = staged("probe", lambda: srv.probe_round(params, sampled))
+    masks = staged("select", lambda: srv.select_round(plan, stats))
+    new_k, losses = staged("update", lambda: srv.update_round(params, sampled,
+                                                              masks))
+    test_loss, _ = staged("eval", lambda: srv.client.evaluate(
+        new_k, srv._to_device(t.test_batch())))
+    split = {k: v[0] for k, v in stage.items()}
+    per_stage = {k: v[1] for k, v in stage.items()}
+    c0 = cuts[0]
+    probe = fl.cohort_size * fl.selection_batches
+    update = fl.cohort_size * fl.local_steps
+    want_stage = {"plan+sample": (0, 0), "probe": (L * probe, L * probe),
+                  "select": (0, 0),
+                  "update": (L * update, update * (L - c0)),
+                  "eval": (L, 0)}
+    log(f"[{tag}] timed round 0 (synchronised at stage boundaries): "
         + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
         + f"; {tokens / split['update']:.0f} trained tokens/s in the update "
-        f"({tokens} tokens), {tokens / sum(split.values()):.0f} per round"
-        f"   [{card}]")
+        f"({tokens} tokens), {tokens / sum(split.values()):.0f} per round; "
+        f"(flash_attention, flash_attention_bwd) launches per stage "
+        f"{per_stage}, want {want_stage}   [{card}]")
+    check(per_stage == want_stage, "flash launches per stage differ from the "
+                                   "round's structure")
     check(np.array_equal(masks, hist.records[0].mask_matrix),
           "round 0 replayed stage by stage chose other masks than the run")
+    del srv
+    torch.cuda.empty_cache()
+
+    plain = _round_experiment(cfg, t, model=Model(
+        cfg, RuntimeConfig(remat=False, seq_chunk=128), device="cuda",
+        kernel_mode="torch")).build()
+    ops.reset_launches()
     stats_p = plain.probe_round(params, sampled)
     masks_p = plain.select_round(plan, stats_p)
     rel = max(float(np.max(np.abs(stats_p[k] - stats[k]) / np.abs(stats[k])))
               for k in stats)
-    log(f"[round] probe stats, kernels vs plain versions: max rel err "
-        f"{rel:.3e} (rtol 1e-4); masks equal: "
-        f"{bool(np.array_equal(masks_p, masks))}")
-    check(rel <= 1e-4, "probe stats: kernel and plain versions disagree")
+    new_p, losses_p = plain.update_round(params, sampled, masks)
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version replay launched kernels: {ops.LAUNCHES}")
+    dp = _tree_max_diff(new_k, new_p)
+    del new_p, plain
+    torch.cuda.empty_cache()
+    err_k, err_p = probe_err_vs_f32(cfg, t, params, sampled, stats, stats_p)
+    log(f"[{tag}] round 0, kernels vs plain versions: probe stats max rel "
+        f"err {rel:.3e} (rtol {ROUND_PROBE_RTOL:g}); against the f32 probe: "
+        f"kernel path {err_k:.3e}, plain path {err_p:.3e} (kernel at most "
+        f"{E2E_ERR_RATIO:g}x plain); masks equal: "
+        f"{bool(np.array_equal(masks_p, masks))}; update with the kernel "
+        f"run's masks: max |Δparams| {dp:.3e} (atol {ROUND_PARAM_ATOL:g}), "
+        f"losses {np.abs(losses - losses_p).max():.3e}")
+    check(rel <= ROUND_PROBE_RTOL, "probe stats: kernel and plain versions "
+                                   "disagree")
+    check(err_k <= E2E_ERR_RATIO * err_p,
+          "probe stats: the kernel path is less accurate than the plain "
+          "versions'")
     check(np.array_equal(masks_p, masks), "plain-version probe stats chose "
                                           "other masks")
-    new_p, losses_p = plain.update_round(params, sampled, masks)
-    dp = _tree_max_diff(new_k, new_p)
-    log(f"[round] update with the kernel run's masks, kernels vs plain "
-        f"versions: max |Δparams| {dp:.3e} (bf16), losses "
-        f"{np.abs(losses - losses_p).max():.3e}")
-    del new_p
-    torch.cuda.empty_cache()
+    check(dp <= ROUND_PARAM_ATOL, "updated params: kernel and plain versions "
+                                  "disagree")
+    dense = _round_experiment(cfg, t, mask_aware=False).build()
     new_d, losses_d = dense.update_round(params, sampled, masks)
-    log(f"[round] dense program (mask_aware=False) vs masked program, round "
+    log(f"[{tag}] dense program (mask_aware=False) vs masked program, round "
         f"0: max |Δparams| {_tree_max_diff(new_k, new_d):.3e} (bf16), "
         f"losses {np.abs(losses - losses_d).max():.3e}, test loss "
         f"{test_loss:.6f}")
+    del new_k, new_d, dense
+    torch.cuda.empty_cache()
     return {"launches": launches, "run_s": run_s,
             "wall_s": [r.wall_s for r in hist.records], "split": split,
-            "peak_gb": peak_gb, "tokens_per_round": tokens}
+            "peak_gb": peak_gb, "tokens_per_round": tokens,
+            "probe_rel_err": rel, "probe_err_vs_f32": (err_k, err_p),
+            "params_max_diff": dp}
 
 
 def phase_round_exact(card: str) -> None:
@@ -888,7 +977,8 @@ def phase_ssm_round(card: str) -> dict:
             "layer_grad_norm": n * probe_fwd * n_leaves,
             "masked_update": sum(update_fwd * n_leaves for c in cuts
                                  if c < L),
-            "base_delta_matmul": 0}
+            "base_delta_matmul": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     log(f"[ssm-round] launches {launches}, want {want} (ssd_scan: one per "
         f"layer per sequence forward: probe {probe_fwd}, update "
         f"{update_fwd}, eval 1 per round)")
@@ -971,7 +1061,8 @@ def phase_ssm_round(card: str) -> dict:
     top_cut = int(np.flatnonzero(rec.mask_matrix.sum(0) > 0)[0])
     want_top = {"ssd_scan": (update_fwd + 1) * L, "layer_grad_norm": 0,
                 "masked_update": update_fwd * n_leaves,
-                "base_delta_matmul": 0}
+                "base_delta_matmul": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0}
     log(f"[ssm-round] top round: cut {top_cut}, train_loss "
         f"{rec.train_loss:.6f} test_loss {rec.test_loss:.6f}, {top_s:.3f} s, "
         f"peak {top_peak:.2f} GB; launches {top_launches}, want {want_top}"
@@ -988,23 +1079,26 @@ def phase_ssm_round(card: str) -> dict:
             "probe_rel_err": rel}
 
 
-def phase_ssm_profile(card: str) -> dict:
-    """Where a Mamba2 training step's time goes: one client step at full
-    width (loss and gradients of all 48 layers' block leaves, batch 4 ×
-    512, bf16) under torch.profiler, after a warm-up step.  Reports the
-    step's wall time, the device's busy time (the kernels' own time; idle =
-    the rest) and the kernels that take most of it."""
+def phase_profile(card: str, arch: str, seq: int, tag: str,
+                  kernels: dict) -> dict:
+    """Where a training step's time goes: one client step at full width
+    (loss and gradients of every layer's block leaves, batch 4 × ``seq``,
+    bf16) under torch.profiler, after a warm-up step.  Reports the step's
+    wall time, the device's busy time (the kernels' own time; idle = the
+    rest) and the kernels that take most of it, grouped by ``kernels``
+    (label → substrings of the port's kernel names), matmuls and the
+    rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RuntimeConfig, get_arch
     from repro_torch.models.model import Model
 
-    cfg = get_arch("mamba2_370m")
+    cfg = get_arch(arch)
     model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
                   device="cuda")
     params = model.init(0)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, SSM_SEQ),
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
                                      generator=gen, device="cuda",
                                      dtype=torch.int32)}
     wrt = {k: v.detach().requires_grad_() for k, v in
@@ -1021,34 +1115,34 @@ def phase_ssm_profile(card: str) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    found = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = (kernels.get(e.key, (0.0, 0))[0]
-                              + e.self_device_time_total / 1e3,
-                              kernels.get(e.key, (0.0, 0))[1] + e.count)
-    busy_ms = sum(v[0] for v in kernels.values())
-    n_launch = sum(v[1] for v in kernels.values())
-    groups = {"ssd_scan (forward kernel)": 0.0, "matmul (cuBLAS/CUTLASS)": 0.0,
-              "other": 0.0}
-    for name, (ms, _) in kernels.items():
+            found[e.key] = (found.get(e.key, (0.0, 0))[0]
+                            + e.self_device_time_total / 1e3,
+                            found.get(e.key, (0.0, 0))[1] + e.count)
+    busy_ms = sum(v[0] for v in found.values())
+    n_launch = sum(v[1] for v in found.values())
+    matmul, other = "matmul (cuBLAS/CUTLASS)", "other"
+    groups = {**{label: 0.0 for label in kernels}, matmul: 0.0, other: 0.0}
+    for name, (ms, _) in found.items():
         low = name.lower()
-        key = ("ssd_scan (forward kernel)" if "ssd_scan" in low
-               else "matmul (cuBLAS/CUTLASS)"
-               if any(w in low for w in ("gemm", "cutlass", "sm90_xmma",
-                                         "cublas", "nvjet"))
-               else "other")
+        key = next((label for label, pats in kernels.items()
+                    if any(pat in low for pat in pats)), None)
+        if key is None:
+            key = matmul if any(w in low for w in (
+                "gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")) else other
         groups[key] += ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"[ssm-profile] one full-width client step (fwd+bwd, "
-        f"{cfg.n_layers} layers, 4 × {SSM_SEQ} tokens): wall {wall_ms:.1f} "
-        f"ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%;"
-        f" idle {100 * (1 - busy_ms / wall_ms):.1f}%), {n_launch} kernel "
-        f"launches   [{card}]")
-    log("[ssm-profile] device time by group: " + ", ".join(
+    top = sorted(found.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[{tag}] one full-width client step (fwd+bwd, {cfg.n_layers} "
+        f"layers, 4 × {seq} tokens): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%; idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%), {n_launch} kernel launches"
+        f"   [{card}]")
+    log(f"[{tag}] device time by group: " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in groups.items()))
     for name, (ms, cnt) in top:
-        log(f"[ssm-profile]   {ms:8.2f} ms  {cnt:5d}x  {name[:110]}")
+        log(f"[{tag}]   {ms:8.2f} ms  {cnt:5d}x  {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": n_launch,
             "groups": groups}
 
@@ -1136,6 +1230,273 @@ def phase_ssm_serve(card: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: flash attention on the dense family's sequence attention
+# ---------------------------------------------------------------------------
+
+LONG_SEQ = 1024          # the long TinyLlama round's seq_len
+# One TinyLlama-1.1B layer's attention on the long round's batch
+FLASH_MAIN = dict(b=4, s=LONG_SEQ, h=32, k=4, d=64, causal=True, window=0)
+
+
+def flash_want(fl, L: int, cuts) -> dict:
+    """flash_attention / flash_attention_bwd launches of dense rounds of
+    Algorithm 1 at the given cuts: one forward per layer per sequence
+    forward (probe, τ update steps, one eval; at cut L the update still
+    computes its losses), one backward per layer per probe and per
+    differentiated layer (those at or above the cut) per update step."""
+    probe = fl.cohort_size * fl.selection_batches
+    update = fl.cohort_size * fl.local_steps
+    return {"flash_attention": len(cuts) * L * (probe + update + 1),
+            "flash_attention_bwd": sum(L * probe + update * (L - c)
+                                       for c in cuts)}
+
+
+def flash_visible_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per head."""
+    i = list(range(s))
+    lo = [max(0, q - window + 1) if window else 0 for q in i]
+    hi = [q if causal else s - 1 for q in i]
+    return sum(h - l + 1 for l, h in zip(lo, hi) if h >= l)
+
+
+def flash_bound(b, s, h, k, d, causal, window, dtype,
+                backward=False) -> tuple[float, str]:
+    """Least time in ms for the forward (or the backward): the larger of
+    its bytes (q, k, v read once and o, lse written once; the backward also
+    reads o, dO and lse and writes dq, dk, dv) over HBM bandwidth and its
+    operations on the visible pairs (forward QKᵀ and PV, 4·d per pair; the
+    backward's five products, 10·d) over the peak rate of the inputs'
+    type."""
+    import torch
+    es = torch.tensor([], dtype=dtype).element_size()
+    qo, kv, lse = b * h * s * d * es, b * k * s * d * es, b * h * s * 4
+    nbytes = (4 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
+    flops = (10 if backward else 4) * b * h * d * flash_visible_pairs(
+        s, causal, window)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S[name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_inputs(b, s, h, k, d, dtype, gen):
+    """q, k, v, dO as the model makes them: (B,S,H,D) / (B,S,K,D) slices of
+    projections (q of a (B,S,H·D) product, k and v of one (B,S,2·K·D)
+    product, so k and v are strided views), standard normal."""
+    import torch
+    q = torch.randn((b, s, h * d), generator=gen, device="cuda").to(dtype)
+    kv = torch.randn((b, s, 2 * k * d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, h * d), generator=gen, device="cuda").to(dtype)
+    return (q.reshape(b, s, h, d), kv[..., :k * d].reshape(b, s, k, d),
+            kv[..., k * d:].reshape(b, s, k, d), do.reshape(b, s, h, d))
+
+
+def _flash_close(got, want, dtype, grad: bool):
+    """(ok, max_abs_err, rtol, atol).  Outputs: bf16 one rounding (1e-2),
+    f32 1e-5.  Gradients sum up to S·H/K terms in another order: f32 within
+    1e-4 relative and 1e-4 of the largest |grad|; bf16 one rounding plus
+    1e-2 of the largest |grad|."""
+    import torch
+    scale = want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        rtol, atol = TOL["bfloat16"], TOL["bfloat16"] * (scale if grad else 1)
+    else:
+        rtol, atol = (1e-4, 1e-4 * scale) if grad else (1e-5, 1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all()) and torch.allclose(
+        got.float(), want.float(), rtol=rtol, atol=atol)
+    return ok, err, rtol, atol
+
+
+def flash_layer_times(q, k, v, do, causal, window, flush) -> dict:
+    """One layer's attention on model-layout (B,S,H,D) inputs through
+    ops.flash_attention (the kernels) and through blocks.attend_full (the
+    path it replaced): forward under no_grad, as eval runs it, and forward
+    plus backward, as the probe and the update run it; ms each."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    pos = torch.arange(q.shape[1], device="cuda")
+    bias = blocks._mask_bias(pos, pos, causal=causal, window=window)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwds = {"kernel": lambda: ops.flash_attention(
+                *ins, causal=causal, window=window, mode="cuda"),
+            "attend_full": lambda: blocks.attend_full(*ins, bias, scale)}
+    out = {}
+    for label, fwd in fwds.items():
+        with torch.no_grad():
+            out[f"{label}_fwd_ms"] = time_ms(fwd, flush)
+        out[f"{label}_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(fwd(), ins, do), flush)
+    return out
+
+
+def phase_flash_kernel(card: str) -> dict:
+    """The flash forward and backward kernels vs their plain versions: the
+    long round's shape (B 4, S 1024, H 32, K 4, D 64, bf16, causal), f32
+    inputs, a 256 window, XLM-R's bidirectional 12 heads, head dims 128 and
+    256, a ragged S, a head dim of 8 (the reduced check's) and the seq-128
+    round's shapes (B 4 in the probe and update, B 32 in eval); two
+    launches must give the same bits.  At the main shape: the kernels, the
+    plain versions, the bound, SDPA (timed only) and the port's own
+    attend_full, time and memory; at the seq-128 shapes, one layer through
+    the kernels against attend_full."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = FLASH_MAIN
+    cases = [("main", m, bf16),
+             ("main/f32", m, f32),
+             ("window_256", dict(m, window=256), bf16),
+             ("xlmr_bidir", dict(m, s=512, h=12, k=12, causal=False), bf16),
+             ("d128", dict(m, b=2, s=512, h=32, k=32, d=128), bf16),
+             ("d256", dict(m, b=2, s=512, h=16, k=16, d=256), bf16),
+             ("ragged_s1000", dict(m, b=2, s=1000), bf16),
+             ("d8_reduced", dict(b=2, s=8, h=4, k=4, d=8, causal=False,
+                                 window=0), f32),
+             ("round128", dict(m, s=128), bf16),
+             ("eval128", dict(m, b=32, s=128), bf16)]
+    out = {"cases": []}
+    for name, shp, dtype in cases:
+        causal, window = shp["causal"], shp["window"]
+        q, k, v, do = flash_inputs(shp["b"], shp["s"], shp["h"], shp["k"],
+                                   shp["d"], dtype, gen)
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+        o2, lse2 = fa.flash_attention(qt, kt, vt, causal=causal,
+                                      window=window)
+        o_p, lse_p = fa.flash_attention_torch(qt, kt, vt, causal=causal,
+                                              window=window)
+        g = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
+                                   window=window)
+        g2 = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
+                                    window=window)
+        g_p = fa.flash_attention_bwd_torch(qt, kt, vt, o, lse, dot,
+                                           causal=causal, window=window)
+        torch.cuda.synchronize()
+        dtn = "bfloat16" if dtype == bf16 else "float32"
+        res = {"case": name, **shp, "dtype": dtn}
+        checks = [("o", o, o_p, False), ("dq", g[0], g_p[0], True),
+                  ("dk", g[1], g_p[1], True), ("dv", g[2], g_p[2], True)]
+        msgs = []
+        for label, got, want, grad in checks:
+            ok, err, rtol, atol = _flash_close(got, want, dtype, grad)
+            res[f"{label}_max_abs_err"] = err
+            msgs.append(f"{label} {err:.3e} (rtol {rtol:g}, atol {atol:.3g})")
+            check(ok, f"flash_attention {label} disagrees with its plain "
+                      f"version at {name}")
+        lse_err = (lse - lse_p).abs().max().item()
+        check(torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-5),
+              f"flash_attention lse disagrees with its plain version at "
+              f"{name}: {lse_err:.3e}")
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(g, g2)))
+        check(same, f"flash_attention is not deterministic at {name}")
+        log(f"[flash-kernel] {name:13s} {shp} {dtn:8s} max_abs_err: "
+            + ", ".join(msgs) + f", lse {lse_err:.3e} (rtol/atol 1e-5); "
+            f"two launches equal bit for bit: {same}")
+        out["cases"].append(res)
+        del o, o2, lse, lse2, o_p, lse_p, g, g2, g_p
+        if name in ("round128", "eval128"):
+            res.update(flash_layer_times(q, k, v, do, causal, window, flush))
+            log(f"[flash-kernel]   {name}: one layer, forward (no_grad) "
+                f"kernel {res['kernel_fwd_ms']:.4f} ms vs attend_full "
+                f"{res['attend_full_fwd_ms']:.4f} ms; forward+backward "
+                f"kernel {res['kernel_fwd_bwd_ms']:.4f} ms vs attend_full "
+                f"{res['attend_full_fwd_bwd_ms']:.4f} ms   [{card}]")
+        if name != "main":
+            continue
+
+        # ---- the main shape: times, bounds, the library, attend_full -------
+        res["bound_ms"], res["bound_by"] = flash_bound(**shp, dtype=dtype)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = flash_bound(
+            **shp, dtype=dtype, backward=True)
+        o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+        res["ms"] = time_ms(lambda: fa.flash_attention(
+            qt, kt, vt, causal=causal, window=window), flush)
+        res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+        res["plain_ms"] = time_ms(lambda: fa.flash_attention_torch(
+            qt, kt, vt, causal=causal, window=window), flush)
+        res["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_torch(
+            qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        res.update(flash_layer_times(q, k, v, do, causal, window, flush))
+        res["fwd_bwd_ms"] = res["kernel_fwd_bwd_ms"]
+        # the yardstick: one PyTorch call, (B,H,S,D) contiguous as it likes
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ldo = dot.contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                  enable_gqa=True)
+        res["library_ms"] = time_ms(sdpa, flush)
+        l_out = sdpa()
+        res["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            l_out, (lq, lk, lv), ldo, retain_graph=True), flush)
+        res["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (lq, lk, lv), ldo), flush)
+        l_err = (l_out.transpose(1, 2).float() - o.transpose(1, 2).float()
+                 ).abs().max().item()
+        del l_out
+        # the port's own dense attention on the same inputs
+        bias = blocks._mask_bias(torch.arange(shp["s"], device="cuda"),
+                                 torch.arange(shp["s"], device="cuda"),
+                                 causal=True, window=0)
+        scale = 1.0 / math.sqrt(shp["d"])
+        for label, fwd in (("kernel", lambda: ops.flash_attention(
+                *ins, causal=causal, mode="cuda")),
+                           ("attend_full", lambda: blocks.attend_full(
+                               *ins, bias, scale))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y = fwd()
+            torch.cuda.synchronize()
+            kept = torch.cuda.memory_allocated() - base - y.numel() \
+                * y.element_size()
+            torch.autograd.grad(y, ins, do)
+            torch.cuda.synchronize()
+            res[f"{label}_kept_mb"] = kept / 1e6
+            res[f"{label}_peak_mb"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 1e6
+            del y
+        log(f"[flash-kernel]   forward {res['ms']:.4f} ms | bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}) | kernel/bound "
+            f"{res['ms'] / res['bound_ms']:.1f} | plain {res['plain_ms']:.4f} "
+            f"ms | SDPA(is_causal, enable_gqa) {res['library_ms']:.4f} ms "
+            f"(kernel/SDPA {res['ms'] / res['library_ms']:.1f}; |Δo| vs "
+            f"kernel {l_err:.3e})   [{card}]")
+        log(f"[flash-kernel]   backward {res['bwd_ms']:.4f} ms | bound "
+            f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}) | "
+            f"kernel/bound {res['bwd_ms'] / res['bwd_bound_ms']:.1f} | plain "
+            f"{res['plain_bwd_ms']:.4f} ms | SDPA backward "
+            f"{res['library_bwd_ms']:.4f} ms   [{card}]")
+        log(f"[flash-kernel]   forward+backward through ops.flash_attention "
+            f"{res['fwd_bwd_ms']:.4f} ms | SDPA {res['library_fwd_bwd_ms']:.4f}"
+            f" ms | blocks.attend_full {res['attend_full_fwd_bwd_ms']:.4f} ms;"
+            f" one layer's memory kept for the backward: kernel "
+            f"{res['kernel_kept_mb']:.1f} MB, attend_full "
+            f"{res['attend_full_kept_mb']:.1f} MB; peak over fwd+bwd: kernel "
+            f"{res['kernel_peak_mb']:.1f} MB, attend_full "
+            f"{res['attend_full_peak_mb']:.1f} MB   [{card}]")
+        out["main"] = res
+        del ins, lq, lk, lv, ldo, o, lse, bias
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1167,8 +1528,15 @@ def main() -> int:
                                         f32_leaves=("ssm_D", "ssm_in_proj"),
                                         ragged=False)
         ssm_rounds = phase_ssm_round(card)
-        phase_ssm_profile(card)
+        phase_profile(card, "mamba2_370m", SSM_SEQ, "ssm-profile",
+                      {"ssd_scan (forward kernel)": ("ssd_scan",)})
         phase_ssm_serve(card)
+        flash = phase_flash_kernel(card)
+        long_rounds = phase_round(card, LONG_SEQ)
+        phase_profile(card, "tinyllama_1_1b", LONG_SEQ, "long-profile", {
+            "flash_attention (forward kernel)": ("flash_fwd",),
+            "flash_attention_bwd (dQ, dK/dV kernels)": ("flash_dq",
+                                                        "flash_dkdv")})
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -1200,6 +1568,7 @@ def main() -> int:
              "step")):
         t, tm = train[name], train_ssm[name]
         by_path = {"tinyllama_round": rounds["launches"][name],
+                   "tinyllama_round_seq1024": long_rounds["launches"][name],
                    "mamba2_round": ssm_rounds["launches"][name],
                    "mamba2_top_round": ssm_rounds["top_launches"][name]}
         line["kernels"].append({
@@ -1233,6 +1602,38 @@ def main() -> int:
         "timed_as": "one Mamba2-370M layer's scan on the round's batch: "
                     "b 4, S 512, H 32, P 64, G 1, N 128, chunk 128, bf16",
         "library_call": None, "shapes": list(ssd.values())})
+    fm = flash["main"]
+    flash_paths = {"tinyllama_round": rounds["launches"],
+                   "tinyllama_round_seq1024": long_rounds["launches"]}
+    flash_shapes = [{k: v for k, v in c.items()} for c in flash["cases"]]
+    for name, key, err_keys, extra in (
+            ("flash_attention", "flash_attention", ("o_max_abs_err",),
+             {"ms": fm["ms"], "plain_ms": fm["plain_ms"],
+              "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+              "library_ms": fm["library_ms"],
+              "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                              "is_causal=True, enable_gqa=True), (B,H,S,D) "
+                              "contiguous bf16"}),
+            ("flash_attention_bwd", "flash_attention_bwd",
+             ("dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err"),
+             {"ms": fm["bwd_ms"], "plain_ms": fm["plain_bwd_ms"],
+              "bound_ms": fm["bwd_bound_ms"], "bound_by": fm["bwd_bound_by"],
+              "library_ms": fm["library_bwd_ms"],
+              "library_call": "torch.autograd.grad of that SDPA call's "
+                              "output (its backward alone)",
+              "fwd_bwd_ms": fm["fwd_bwd_ms"],
+              "library_fwd_bwd_ms": fm["library_fwd_bwd_ms"],
+              "attend_full_fwd_bwd_ms": fm["attend_full_fwd_bwd_ms"]})):
+        by_path = {p: l[key] for p, l in flash_paths.items()}
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:86",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(fm[k] for k in err_keys), **extra,
+            "timed_as": "one TinyLlama-1.1B layer on the seq-1024 round's "
+                        "batch: B 4, S 1024, H 32, K 4, D 64, bf16, causal",
+            "shapes": flash_shapes})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(card)

@@ -1,6 +1,7 @@
 """Model-layout wrappers over the port's kernels (counterpart of
-``repro/kernels/ops.py``: ``ssd`` line 76, ``layer_grad_norms`` line 103,
-``masked_sgd_update`` line 128, ``base_delta_matmul`` line 160).
+``repro/kernels/ops.py``: ``flash_attention`` line 48, ``ssd`` line 76,
+``layer_grad_norms`` line 103, ``masked_sgd_update`` line 128,
+``base_delta_matmul`` line 160).
 
 Dispatch follows the tensor, never ``RuntimeConfig.use_pallas``: a CUDA
 tensor launches the kernel (or the launch raises), a CPU tensor takes the
@@ -14,13 +15,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import delta_matmul as _dmm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import layer_grad_norm as _lgn
 from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ssd_scan as _ssd
 
 # Kernel launches made through this module, by kernel.  Reset it to 0 before
 # a run and read it after to show which kernels the run went through.
-LAUNCHES = {"base_delta_matmul": 0, "layer_grad_norm": 0, "masked_update": 0,
+LAUNCHES = {"base_delta_matmul": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "layer_grad_norm": 0, "masked_update": 0,
             "ssd_scan": 0}
 
 
@@ -45,6 +48,60 @@ def _sorted_leaves(tree):
             yield from _sorted_leaves(tree[k])
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# flash attention (model layout: q (B,S,H,D), k/v (B,S,K,D))
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the ``flash_attention`` kernel (or its plain version),
+    saving q, k, v, O and the per-row lse, never the scores.  Backward: the
+    two backward kernels (or the plain backward) from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, mode):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if mode == "cuda":
+            o, lse = _fa.flash_attention(qt, kt, vt, causal=causal,
+                                         window=window)
+            LAUNCHES["flash_attention"] += 1
+        else:
+            o, lse = _fa.flash_attention_torch(qt, kt, vt, causal=causal,
+                                               window=window)
+        out = o.transpose(1, 2)
+        ctx.causal, ctx.window, ctx.mode = causal, window, mode
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        q, k, v, out, lse = ctx.saved_tensors
+        args = [t.transpose(1, 2) for t in (q, k, v, out)]
+        args += [lse, gout.contiguous().transpose(1, 2)]
+        if ctx.mode == "cuda":
+            grads = _fa.flash_attention_bwd(*args, causal=ctx.causal,
+                                            window=ctx.window)
+            LAUNCHES["flash_attention_bwd"] += 1
+        else:
+            grads = _fa.flash_attention_bwd_torch(*args, causal=ctx.causal,
+                                                  window=ctx.window)
+        dq, dk, dv = (g.transpose(1, 2) for g in grads)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    mode: Optional[str] = None) -> torch.Tensor:
+    """Self-attention over positions 0 … S−1: q (B,S,H,D), k/v (B,S,K,D) →
+    (B,S,H,D) in q's type.  One launch of the forward kernel on the card,
+    the plain blocked version on the CPU (``mode`` forces either).
+    Differentiable: the backward launches the two backward kernels (one
+    ``flash_attention_bwd`` count) or runs the plain backward; under
+    ``torch.no_grad()`` only the forward runs, and under activation
+    checkpointing (``RuntimeConfig.remat``) the backward reruns it."""
+    return _FlashAttention.apply(q, k, v, causal, window,
+                                 _resolve_mode(mode, q))
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,17 @@ reference's parameter layout: stacked ``(L, …)`` leaves in the same key
 order, consumed one layer at a time by a Python loop (``models/model.py``).
 
 Decode writes its token into the KV cache **in place** (the reference
-returns a new cache).  The no-cache full-sequence path (training, prefill)
-attends in one piece, or query chunk by query chunk
-(:func:`attend_chunked`) when the sequence is a multiple of ``seq_chunk``
-longer than it.  Encoder-decoder cross-attention (whisper) is not ported.
+returns a new cache) and attends over it with :func:`attend_full`.  The
+no-cache full-sequence self-attention (training, prefill) goes through
+``kernels.ops.flash_attention``: the Hopper kernels on the card, their
+plain blocked version on the CPU; it never materialises the (S, S) scores.
+That is where the reference's docstring puts its Pallas kernel (it runs
+plain jnp there); the kernel choice follows the tensor's device, never
+``RuntimeConfig.use_pallas``.  Only the vlm prefix-LM (``prefix_len`` > 0),
+which the kernel's mask lacks, keeps the reference's path: in one piece,
+or query chunk by query chunk (:func:`attend_chunked`) when the sequence
+is a multiple of ``seq_chunk`` longer than it.  Encoder-decoder
+cross-attention (whisper) is not ported.
 """
 from __future__ import annotations
 
@@ -249,13 +256,24 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                   remat_chunk: bool = False,
                   delta: Optional[dict] = None,
                   delta_slots: Optional[torch.Tensor] = None,
-                  delta_mode: Optional[str] = None):
+                  kernel_mode: Optional[str] = None):
     """One attention sub-block (pre-norm, residual added by caller).
 
     Without a cache (training, prefill) the block attends over its own
-    sequence: in one piece, or by query chunks of ``seq_chunk`` when the
-    sequence is a longer multiple of it (``remat_chunk`` recomputes each
-    chunk in the backward).  ``cross_kv`` (whisper) is not ported.
+    sequence through :func:`repro_torch.kernels.ops.flash_attention`
+    (``kernel_mode`` as there: ``"torch"`` forces the plain version).  The
+    kernel derives positions from indices, so this branch relies on
+    ``positions`` being ``arange(S)``, as ``Model.forward_seq`` passes
+    them.  It masks with −1e30 and zeroes the masked probabilities where
+    :func:`attend_full` adds a −1e9 bias; with arange positions every
+    causal or windowed row sees its own diagonal, so no row is fully masked
+    and the two agree up to f32 rounding (and the bf16 cast of the softmax
+    weights that :func:`attend_full` makes).  The vlm prefix-LM
+    (``prefix_len`` > 0: the prefix attends bidirectionally, which the
+    kernel's mask cannot say) keeps the reference's path: in one piece, or
+    by query chunks of ``seq_chunk`` when the sequence is a longer multiple
+    of it (``remat_chunk`` recomputes each chunk in the backward).
+    ``cross_kv`` (whisper) is not ported.
 
     cache: {"k": (B,W,Kh,hd), "v": ..., "pos": (W,) int32} — decode writes
     the current token at ring index ``cache_pos % W`` (in place) and attends
@@ -264,7 +282,8 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     delta/delta_slots: this layer's capacity-C overlay entries
     ({leaf_name: (C, *shape)} + (C,) owner slots, -1 = empty); projections
-    then go through :func:`repro_torch.kernels.ops.base_delta_matmul`.
+    then go through :func:`repro_torch.kernels.ops.base_delta_matmul`
+    (``kernel_mode`` likewise).
     """
     if cross_kv is not None:
         raise NotImplementedError(
@@ -277,7 +296,7 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     def proj(h_, name):
         if delta is not None and name in delta:
             return _kops.base_delta_matmul(h_, p[name], delta[name],
-                                           delta_slots, mode=delta_mode)
+                                           delta_slots, mode=kernel_mode)
         return h_ @ p[name]
 
     ln = p["ln"]
@@ -303,7 +322,10 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, cos_q, sin_q)
 
     if cache is None:
-        if S > seq_chunk and S % seq_chunk == 0:
+        if not prefix_len:
+            out = _kops.flash_attention(q, k, v, causal=causal,
+                                        window=window, mode=kernel_mode)
+        elif S > seq_chunk and S % seq_chunk == 0:
             out = attend_chunked(q, k, v, q_positions=positions,
                                  k_positions=positions, causal=causal,
                                  window=window, prefix_len=prefix_len,

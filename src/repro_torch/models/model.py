@@ -192,7 +192,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
 def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                      positions, window, cache=None, cache_pos=None,
                      causal=True, prefix_len=0, seq_chunk=1024,
-                     remat_chunk=False, delta=None, delta_mode=None):
+                     remat_chunk=False, delta=None, kernel_mode=None):
     # delta: (slots (C,), {leaf_name: (C, *shape)}) — this layer's row of
     # the per-slot serving overlay; leaf names are split by sub-block prefix
     dslots = dattn = dmlp = None
@@ -205,9 +205,9 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                             window=window, prefix_len=prefix_len,
                             seq_chunk=seq_chunk, remat_chunk=remat_chunk,
                             delta=dattn, delta_slots=dslots,
-                            delta_mode=delta_mode)
+                            kernel_mode=kernel_mode)
     return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp,
-                         delta_slots=dslots, delta_mode=delta_mode)
+                         delta_slots=dslots, delta_mode=kernel_mode)
 
 
 def _rows(stack: dict) -> dict:
@@ -337,7 +337,8 @@ class Model:
                                         window=cfg.sliding_window,
                                         prefix_len=prefix_len,
                                         seq_chunk=rt.seq_chunk,
-                                        remat_chunk=rt.remat_scores)
+                                        remat_chunk=rt.remat_scores,
+                                        kernel_mode=self.kernel_mode)
 
         blocks_cut = segment_cuts(cut, cfg)["blocks"] if trainable is not None \
             else 0
@@ -484,5 +485,5 @@ class Model:
                       {name: leaf[li] for name, leaf in delta["leaves"].items()})
             x = _dense_block_fwd(p, x, cfg, positions=positions, window=w,
                                  cache=kv_l, cache_pos=pos, delta=dl,
-                                 delta_mode=self.kernel_mode)
+                                 kernel_mode=self.kernel_mode)
         return self._head(params, x)[:, 0], cache
