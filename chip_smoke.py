@@ -31,7 +31,8 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
    plain versions (both probes also held against an f32 probe) and the
    dense program;
 8. checks, on reduced xlm-roberta in f32, that two rounds on the card and
-   on the CPU choose the same cohorts and masks and reach the same params;
+   on the CPU choose the same cohorts and masks and reach the same params
+   (its attention on the flash kernels' exact f32 SIMT route);
 9. holds the training kernels at Mamba2-370M's nine block leaves (L = 48);
 10. runs three "ours" rounds at full Mamba2-370M width (seq_len 512: four
     chunks) through ``Experiment.run``, counting ``ssd_scan``,
@@ -48,11 +49,15 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
 13. holds the flash attention forward and backward kernels against their
     plain versions at one TinyLlama layer on the long round's batch (B 4,
     S 1024, H 32, K 4, D 64, bf16, causal), with f32 inputs, a 256 window,
-    XLM-R's bidirectional heads, head dims 128 and 256, a ragged S and a
-    head dim of 8, two launches bit for bit; times kernels, plain versions,
-    SDPA and ``blocks.attend_full`` (time and one layer's memory) beside
-    the bound;
-14. runs phase 7 again at seq_len 1024, TinyLlama's own context;
+    XLM-R's bidirectional heads, head dims 128 and 256, a ragged S, a head
+    dim of 8 and the seq-128 round's shapes, two launches bit for bit,
+    logging each case's route (bf16 at head dim 64 or 128 must take the
+    tensor-core kernels) and dK/dV grid; times kernels (and each kernel's
+    share), plain versions, the SIMT kernels on the same bf16 inputs, SDPA
+    (its backward read three times) and ``blocks.attend_full`` (time and
+    one layer's memory) beside the bound;
+14. runs phase 7 again at seq_len 1024, TinyLlama's own context (every
+    flash launch on the tensor-core route);
 15. prints one JSON line of per-kernel results, the card's name and power
     limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
@@ -70,6 +75,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -86,13 +92,14 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # be at most E2E_ERR_RATIO times the plain path's.
 E2E_ERR_RATIO = 1.5
 # The TinyLlama rounds, kernels vs plain versions on round 0: the flash
-# kernel and its plain version round attention outputs and gradients to
-# bf16 after summing in other orders, and a one-ulp difference in one layer
-# carries through 22 layers of forward and backward.  On an H100 the probe
-# stats parted by 1.07e-3 (seq 128) and 1.22e-3 (seq 1024), while each bf16
-# path sits 1.5e-3 to 3.5e-3 off an f32 probe (PERF.md): the limit is
-# about twice the readings and under the bf16-vs-f32 gap.  Params: a few
-# bf16 ulps of the largest |param| (~0.12, ulp 4.9e-4).
+# kernels (bf16 P and dS on the tensor cores) and their plain versions (f32
+# inside) round attention outputs and gradients to bf16 after summing in
+# other orders, and a one-ulp difference in one layer carries through 22
+# layers of forward and backward.  On an H100 the probe stats parted by
+# 1.51e-3 (seq 128) and 1.08e-3 (seq 1024), while each bf16 path sits
+# 1.0e-3 to 3.5e-3 off an f32 probe (PERF.md): the limit is under the
+# bf16-vs-f32 gap and well above the readings.  Params: a few bf16 ulps of
+# the largest |param| (~0.12, ulp 4.9e-4).
 ROUND_PROBE_RTOL = 2.5e-3
 ROUND_PARAM_ATOL = 2e-3
 REPS = 30
@@ -770,6 +777,10 @@ def phase_round_exact(card: str) -> None:
     check(lg["layer_grad_norm"] > 0 and lg["masked_update"] > 0
           and lc == {k: 0 for k in lc},
           f"reduced run: launches on the card {lg}, on the CPU {lc}")
+    # f32 attention takes the exact SIMT route, forward and backward
+    check(lg["flash_attention_simt"] == lg["flash_attention"] > 0
+          and lg["flash_attention_bwd_simt"] == lg["flash_attention_bwd"] > 0,
+          f"reduced f32 run: flash launches by route {lg}")
     for rg, rc in zip(hg.records, hc.records):
         check(np.array_equal(rg.cohort, rc.cohort)
               and np.array_equal(rg.mask_matrix, rc.mask_matrix),
@@ -977,8 +988,7 @@ def phase_ssm_round(card: str) -> dict:
             "layer_grad_norm": n * probe_fwd * n_leaves,
             "masked_update": sum(update_fwd * n_leaves for c in cuts
                                  if c < L),
-            "base_delta_matmul": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+            "base_delta_matmul": 0, **FLASH_NONE}
     log(f"[ssm-round] launches {launches}, want {want} (ssd_scan: one per "
         f"layer per sequence forward: probe {probe_fwd}, update "
         f"{update_fwd}, eval 1 per round)")
@@ -1061,8 +1071,7 @@ def phase_ssm_round(card: str) -> dict:
     top_cut = int(np.flatnonzero(rec.mask_matrix.sum(0) > 0)[0])
     want_top = {"ssd_scan": (update_fwd + 1) * L, "layer_grad_norm": 0,
                 "masked_update": update_fwd * n_leaves,
-                "base_delta_matmul": 0, "flash_attention": 0,
-                "flash_attention_bwd": 0}
+                "base_delta_matmul": 0, **FLASH_NONE}
     log(f"[ssm-round] top round: cut {top_cut}, train_loss "
         f"{rec.train_loss:.6f} test_loss {rec.test_loss:.6f}, {top_s:.3f} s, "
         f"peak {top_peak:.2f} GB; launches {top_launches}, want {want_top}"
@@ -1239,17 +1248,24 @@ LONG_SEQ = 1024          # the long TinyLlama round's seq_len
 FLASH_MAIN = dict(b=4, s=LONG_SEQ, h=32, k=4, d=64, causal=True, window=0)
 
 
+# The flash launch counters of ops.LAUNCHES: totals and per route.
+FLASH_NONE = {f"flash_attention{d}{r}": 0 for d in ("", "_bwd")
+              for r in ("", "_mma", "_simt")}
+
+
 def flash_want(fl, L: int, cuts) -> dict:
-    """flash_attention / flash_attention_bwd launches of dense rounds of
-    Algorithm 1 at the given cuts: one forward per layer per sequence
-    forward (probe, τ update steps, one eval; at cut L the update still
-    computes its losses), one backward per layer per probe and per
-    differentiated layer (those at or above the cut) per update step."""
+    """flash_attention / flash_attention_bwd launches of dense bf16 rounds
+    of Algorithm 1 at the given cuts, all on the tensor-core route: one
+    forward per layer per sequence forward (probe, τ update steps, one
+    eval; at cut L the update still computes its losses), one backward per
+    layer per probe and per differentiated layer (those at or above the
+    cut) per update step."""
     probe = fl.cohort_size * fl.selection_batches
     update = fl.cohort_size * fl.local_steps
-    return {"flash_attention": len(cuts) * L * (probe + update + 1),
-            "flash_attention_bwd": sum(L * probe + update * (L - c)
-                                       for c in cuts)}
+    fwd = len(cuts) * L * (probe + update + 1)
+    bwd = sum(L * probe + update * (L - c) for c in cuts)
+    return {**FLASH_NONE, "flash_attention": fwd, "flash_attention_mma": fwd,
+            "flash_attention_bwd": bwd, "flash_attention_bwd_mma": bwd}
 
 
 def flash_visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -1312,26 +1328,73 @@ def _flash_close(got, want, dtype, grad: bool):
 
 def flash_layer_times(q, k, v, do, causal, window, flush) -> dict:
     """One layer's attention on model-layout (B,S,H,D) inputs through
-    ops.flash_attention (the kernels) and through blocks.attend_full (the
-    path it replaced): forward under no_grad, as eval runs it, and forward
-    plus backward, as the probe and the update run it; ms each."""
+    ops.flash_attention (the kernels), through blocks.attend_full (the
+    path it replaced) and, without a window, through SDPA on (B,H,S,D)
+    contiguous copies (the yardstick, timed only): forward under no_grad,
+    as eval runs it, and forward plus backward, as the probe and the update
+    run it; ms each."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.models import blocks
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     pos = torch.arange(q.shape[1], device="cuda")
     bias = blocks._mask_bias(pos, pos, causal=causal, window=window)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    fwds = {"kernel": lambda: ops.flash_attention(
-                *ins, causal=causal, window=window, mode="cuda"),
-            "attend_full": lambda: blocks.attend_full(*ins, bias, scale)}
+    fwds = {"kernel": (lambda: ops.flash_attention(
+                *ins, causal=causal, window=window, mode="cuda"), ins, do),
+            "attend_full": (lambda: blocks.attend_full(*ins, bias, scale),
+                            ins, do)}
+    if not window:
+        lib = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+               for t in (q, k, v)]
+        fwds["sdpa"] = (lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=causal, enable_gqa=True), lib,
+            do.transpose(1, 2).contiguous())
     out = {}
-    for label, fwd in fwds.items():
+    for label, (fwd, wrt, grad) in fwds.items():
         with torch.no_grad():
             out[f"{label}_fwd_ms"] = time_ms(fwd, flush)
         out[f"{label}_fwd_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(fwd(), ins, do), flush)
+            lambda: torch.autograd.grad(fwd(), wrt, grad), flush)
     return out
+
+
+def kernel_ms(fn, flush, n: int = 10) -> dict:
+    """Device time per call of each flash kernel that ``fn`` launches, from
+    torch.profiler over ``n`` calls (cold L2, as time_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_" in e.key):
+            name = next(w for w in e.key.replace("(", " ").replace(
+                "<", " ").split() if "flash_" in w).split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / n
+    return out
+
+
+def flash_plan(shp: dict, dtype) -> dict:
+    """The route of a case and, for the backward, the dK/dV split and grid
+    (``flash_attention.route``, ``dkdv_parts``, ``dkdv_grid``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    route = fa.route(dtype, shp["d"])
+    parts = fa.dkdv_parts(
+        shp["b"], shp["k"], shp["s"], shp["h"] // shp["k"],
+        torch.cuda.get_device_properties(0).multi_processor_count) \
+        if route == "mma" else 1
+    grid = fa.dkdv_grid(route, shp["b"], shp["k"], shp["s"], shp["d"], parts)
+    return {"route": route, "dkdv_parts": parts, "dkdv_grid": list(grid),
+            "dkdv_blocks": math.prod(grid)}
 
 
 def phase_flash_kernel(card: str) -> dict:
@@ -1340,10 +1403,12 @@ def phase_flash_kernel(card: str) -> dict:
     inputs, a 256 window, XLM-R's bidirectional 12 heads, head dims 128 and
     256, a ragged S, a head dim of 8 (the reduced check's) and the seq-128
     round's shapes (B 4 in the probe and update, B 32 in eval); two
-    launches must give the same bits.  At the main shape: the kernels, the
-    plain versions, the bound, SDPA (timed only) and the port's own
-    attend_full, time and memory; at the seq-128 shapes, one layer through
-    the kernels against attend_full."""
+    launches must give the same bits, and every bf16 case at head dim 64 or
+    128 must take the tensor-core route.  At the main shape: the kernels
+    (and each kernel's share), the plain versions, the bound, SDPA (timed
+    only; its backward read three times), the SIMT kernels on the same bf16
+    inputs, and the port's own attend_full, time and memory; at the seq-128
+    shapes, one layer through the kernels against attend_full and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1352,6 +1417,7 @@ def phase_flash_kernel(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     bf16, f32 = torch.bfloat16, torch.float32
     m = FLASH_MAIN
     cases = [("main", m, bf16),
@@ -1368,6 +1434,11 @@ def phase_flash_kernel(card: str) -> dict:
     out = {"cases": []}
     for name, shp, dtype in cases:
         causal, window = shp["causal"], shp["window"]
+        plan = flash_plan(shp, dtype)
+        if dtype == bf16 and shp["d"] in (64, 128):
+            check(plan["route"] == "mma", f"flash_attention {name}: bf16 at "
+                                          f"head dim {shp['d']} took the "
+                                          f"{plan['route']} route")
         q, k, v, do = flash_inputs(shp["b"], shp["s"], shp["h"], shp["k"],
                                    shp["d"], dtype, gen)
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -1384,7 +1455,7 @@ def phase_flash_kernel(card: str) -> dict:
                                            causal=causal, window=window)
         torch.cuda.synchronize()
         dtn = "bfloat16" if dtype == bf16 else "float32"
-        res = {"case": name, **shp, "dtype": dtn}
+        res = {"case": name, **shp, "dtype": dtn, **plan}
         checks = [("o", o, o_p, False), ("dq", g[0], g_p[0], True),
                   ("dk", g[1], g_p[1], True), ("dv", g[2], g_p[2], True)]
         msgs = []
@@ -1401,18 +1472,36 @@ def phase_flash_kernel(card: str) -> dict:
         same = (torch.equal(o, o2) and torch.equal(lse, lse2)
                 and all(torch.equal(x, y) for x, y in zip(g, g2)))
         check(same, f"flash_attention is not deterministic at {name}")
-        log(f"[flash-kernel] {name:13s} {shp} {dtn:8s} max_abs_err: "
-            + ", ".join(msgs) + f", lse {lse_err:.3e} (rtol/atol 1e-5); "
-            f"two launches equal bit for bit: {same}")
+        log(f"[flash-kernel] {name:13s} {shp} {dtn:8s} route "
+            f"{plan['route']}, dK/dV grid {tuple(plan['dkdv_grid'])} "
+            f"({plan['dkdv_blocks']} blocks, group split in "
+            f"{plan['dkdv_parts']}); max_abs_err: " + ", ".join(msgs)
+            + f", lse {lse_err:.3e} (rtol/atol 1e-5); two launches equal "
+            f"bit for bit: {same}")
         out["cases"].append(res)
         del o, o2, lse, lse2, o_p, lse_p, g, g2, g_p
         if name in ("round128", "eval128"):
+            if name == "round128":
+                check(plan["dkdv_blocks"] >= sms, f"the seq-128 round's dK/dV"
+                      f" pass has {plan['dkdv_blocks']} blocks for {sms} SMs")
             res.update(flash_layer_times(q, k, v, do, causal, window, flush))
+            # the kernels alone, without ops.flash_attention's host work
+            o, lse = fa.flash_attention(qt, kt, vt, causal=causal,
+                                        window=window)
+            res["ms"] = time_ms(lambda: fa.flash_attention(
+                qt, kt, vt, causal=causal, window=window), flush)
+            res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+                qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+            del o, lse
             log(f"[flash-kernel]   {name}: one layer, forward (no_grad) "
                 f"kernel {res['kernel_fwd_ms']:.4f} ms vs attend_full "
-                f"{res['attend_full_fwd_ms']:.4f} ms; forward+backward "
-                f"kernel {res['kernel_fwd_bwd_ms']:.4f} ms vs attend_full "
-                f"{res['attend_full_fwd_bwd_ms']:.4f} ms   [{card}]")
+                f"{res['attend_full_fwd_ms']:.4f} ms vs SDPA "
+                f"{res['sdpa_fwd_ms']:.4f} ms; forward+backward kernel "
+                f"{res['kernel_fwd_bwd_ms']:.4f} ms vs attend_full "
+                f"{res['attend_full_fwd_bwd_ms']:.4f} ms vs SDPA "
+                f"{res['sdpa_fwd_bwd_ms']:.4f} ms; the kernels alone: "
+                f"forward {res['ms']:.4f} ms, backward {res['bwd_ms']:.4f} ms"
+                f"   [{card}]")
         if name != "main":
             continue
 
@@ -1421,10 +1510,21 @@ def phase_flash_kernel(card: str) -> dict:
         res["bwd_bound_ms"], res["bwd_bound_by"] = flash_bound(
             **shp, dtype=dtype, backward=True)
         o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
-        res["ms"] = time_ms(lambda: fa.flash_attention(
-            qt, kt, vt, causal=causal, window=window), flush)
-        res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
-            qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+
+        def fwd():
+            return fa.flash_attention(qt, kt, vt, causal=causal,
+                                      window=window)
+
+        def bwd():
+            return fa.flash_attention_bwd(qt, kt, vt, o, lse, dot,
+                                          causal=causal, window=window)
+        res["ms"], res["bwd_ms"] = time_ms(fwd, flush), time_ms(bwd, flush)
+        res["kernel_split_ms"] = {**kernel_ms(fwd, flush),
+                                  **kernel_ms(bwd, flush)}
+        # the SIMT kernels (the f32 route's) on the same bf16 inputs
+        with mock.patch.object(fa, "route", lambda dtype_, d: "simt"):
+            res["simt_ms"] = time_ms(fwd, flush)
+            res["simt_bwd_ms"] = time_ms(bwd, flush)
         res["plain_ms"] = time_ms(lambda: fa.flash_attention_torch(
             qt, kt, vt, causal=causal, window=window), flush)
         res["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_torch(
@@ -1442,8 +1542,11 @@ def phase_flash_kernel(card: str) -> dict:
                                                   enable_gqa=True)
         res["library_ms"] = time_ms(sdpa, flush)
         l_out = sdpa()
-        res["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        reads = [time_ms(lambda: torch.autograd.grad(
             l_out, (lq, lk, lv), ldo, retain_graph=True), flush)
+            for _ in range(3)]
+        res["library_bwd_reads_ms"] = reads
+        res["library_bwd_ms"] = statistics.median(reads)
         res["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
             sdpa(), (lq, lk, lv), ldo), flush)
         l_err = (l_out.transpose(1, 2).float() - o.transpose(1, 2).float()
@@ -1454,14 +1557,14 @@ def phase_flash_kernel(card: str) -> dict:
                                  torch.arange(shp["s"], device="cuda"),
                                  causal=True, window=0)
         scale = 1.0 / math.sqrt(shp["d"])
-        for label, fwd in (("kernel", lambda: ops.flash_attention(
+        for label, layer in (("kernel", lambda: ops.flash_attention(
                 *ins, causal=causal, mode="cuda")),
-                           ("attend_full", lambda: blocks.attend_full(
-                               *ins, bias, scale))):
+                             ("attend_full", lambda: blocks.attend_full(
+                                 *ins, bias, scale))):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            y = fwd()
+            y = layer()
             torch.cuda.synchronize()
             kept = torch.cuda.memory_allocated() - base - y.numel() \
                 * y.element_size()
@@ -1471,17 +1574,31 @@ def phase_flash_kernel(card: str) -> dict:
             res[f"{label}_peak_mb"] = (torch.cuda.max_memory_allocated()
                                        - base) / 1e6
             del y
+        split = ", ".join(f"{k} {v:.4f}" for k, v in
+                          res["kernel_split_ms"].items())
         log(f"[flash-kernel]   forward {res['ms']:.4f} ms | bound "
             f"{res['bound_ms']:.4f} ms ({res['bound_by']}) | kernel/bound "
             f"{res['ms'] / res['bound_ms']:.1f} | plain {res['plain_ms']:.4f} "
             f"ms | SDPA(is_causal, enable_gqa) {res['library_ms']:.4f} ms "
-            f"(kernel/SDPA {res['ms'] / res['library_ms']:.1f}; |Δo| vs "
-            f"kernel {l_err:.3e})   [{card}]")
+            f"(kernel/SDPA {res['ms'] / res['library_ms']:.2f}; |Δo| vs "
+            f"kernel {l_err:.3e}) | SIMT kernel {res['simt_ms']:.4f} ms   "
+            f"[{card}]")
         log(f"[flash-kernel]   backward {res['bwd_ms']:.4f} ms | bound "
             f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}) | "
             f"kernel/bound {res['bwd_ms'] / res['bwd_bound_ms']:.1f} | plain "
-            f"{res['plain_bwd_ms']:.4f} ms | SDPA backward "
-            f"{res['library_bwd_ms']:.4f} ms   [{card}]")
+            f"{res['plain_bwd_ms']:.4f} ms | SDPA backward, three reads "
+            f"{', '.join(f'{x:.4f}' for x in reads)} ms (median "
+            f"{res['library_bwd_ms']:.4f}; kernel/SDPA "
+            f"{res['bwd_ms'] / res['library_bwd_ms']:.2f}) | SIMT kernels "
+            f"{res['simt_bwd_ms']:.4f} ms   [{card}]")
+        log(f"[flash-kernel]   device time per kernel (ms, torch.profiler): "
+            f"{split}")
+        log(f"[flash-kernel]   against the targets: forward "
+            f"{res['ms'] / res['library_ms']:.2f}x SDPA (at most 2), backward "
+            f"{res['bwd_ms'] / res['library_bwd_ms']:.2f}x SDPA's median (at "
+            f"most 3); {res['simt_ms'] / res['ms']:.1f}x and "
+            f"{res['simt_bwd_ms'] / res['bwd_ms']:.1f}x faster than the SIMT "
+            f"kernels (at least 5)")
         log(f"[flash-kernel]   forward+backward through ops.flash_attention "
             f"{res['fwd_bwd_ms']:.4f} ms | SDPA {res['library_fwd_bwd_ms']:.4f}"
             f" ms | blocks.attend_full {res['attend_full_fwd_bwd_ms']:.4f} ms;"
@@ -1535,8 +1652,8 @@ def main() -> int:
         long_rounds = phase_round(card, LONG_SEQ)
         phase_profile(card, "tinyllama_1_1b", LONG_SEQ, "long-profile", {
             "flash_attention (forward kernel)": ("flash_fwd",),
-            "flash_attention_bwd (dQ, dK/dV kernels)": ("flash_dq",
-                                                        "flash_dkdv")})
+            "flash_attention_bwd (dQ, dK/dV kernels, the split's sum)": (
+                "flash_dq", "flash_dkdv")})
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -1610,7 +1727,7 @@ def main() -> int:
             ("flash_attention", "flash_attention", ("o_max_abs_err",),
              {"ms": fm["ms"], "plain_ms": fm["plain_ms"],
               "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
-              "library_ms": fm["library_ms"],
+              "library_ms": fm["library_ms"], "simt_ms": fm["simt_ms"],
               "library_call": "F.scaled_dot_product_attention(q, k, v, "
                               "is_causal=True, enable_gqa=True), (B,H,S,D) "
                               "contiguous bf16"}),
@@ -1619,17 +1736,24 @@ def main() -> int:
              {"ms": fm["bwd_ms"], "plain_ms": fm["plain_bwd_ms"],
               "bound_ms": fm["bwd_bound_ms"], "bound_by": fm["bwd_bound_by"],
               "library_ms": fm["library_bwd_ms"],
+              "library_reads_ms": fm["library_bwd_reads_ms"],
+              "simt_ms": fm["simt_bwd_ms"],
               "library_call": "torch.autograd.grad of that SDPA call's "
-                              "output (its backward alone)",
+                              "output (its backward alone; the median of "
+                              "three reads)",
               "fwd_bwd_ms": fm["fwd_bwd_ms"],
               "library_fwd_bwd_ms": fm["library_fwd_bwd_ms"],
               "attend_full_fwd_bwd_ms": fm["attend_full_fwd_bwd_ms"]})):
         by_path = {p: l[key] for p, l in flash_paths.items()}
+        by_route = {r: sum(l[f"{key}_{r}"] for l in flash_paths.values())
+                    for r in ("mma", "simt")}
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:86",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_by_kernel_route": by_route,
+            "kernel_split_ms": fm["kernel_split_ms"],
             "max_abs_err": max(fm[k] for k in err_keys), **extra,
             "timed_as": "one TinyLlama-1.1B layer on the seq-1024 round's "
                         "batch: B 4, S 1024, H 32, K 4, D 64, bf16, causal",

@@ -4,8 +4,10 @@ JAX package's kernels are Pallas and compile inside ``jax.jit``).
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
 repository root on first use, from the repository's sources alone, and
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source never loads a stale library.  Nothing here runs at import.
+loaded with ``ctypes``.  The hash covers the source, every shared header
+``csrc/*.cuh`` (a source may include any of them) and the flags, so an
+edited source or header never loads a stale library.  Nothing here runs at
+import.
 """
 from __future__ import annotations
 
@@ -39,9 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -7,17 +7,34 @@ if i − j < window); f32 running max, normaliser and accumulator; masked
 scores are −1e30 and their probabilities are zeroed, so a fully masked row
 outputs 0.  Positions are the indices 0 … S−1.
 
-:func:`flash_attention` launches the hand-written Hopper forward kernel
-(``csrc/flash_attention.cu``) and returns (O, lse), lse = m + log l per row
-in f32, which the backward needs; :func:`flash_attention_bwd` launches the
-two backward kernels (FlashAttention-2's split: dQ by query block, dK/dV by
-key block, P recomputed from Q, K and lse; no atomics).  Both take the
-reference's (B,H,S,D) layout as strided views, so the model's (B,S,H,D)
-projections are read in place, and return their outputs as (B,H,S,D)
-views of (B,S,H,D) memory.  :func:`flash_attention_torch` is the plain
-forward, replaying ``flash_attention_jnp``'s blocked streaming softmax in
-f32 (any S: the ragged last block is masked); :func:`flash_attention_bwd_torch`
-is the plain backward, dense f32 math from lse.
+Two routes, chosen by :func:`route` from the type and the head dim alone:
+
+* ``"mma"`` — bf16 with D ≤ 128 and D % 8 == 0 (TinyLlama, SmolLM, XLM-R
+  and CLIP at 64; Llama-2, CodeQwen and Grok at 128): the tensor-core
+  kernels (bf16 ``mma.sync`` with f32 accumulation, ``cp.async`` staging).
+  P and dS are rounded to bf16 as operands of the next product, as SDPA's
+  kernels round them.  The inputs' base addresses must be 16-byte aligned
+  and their (b, h, s) strides multiples of 8 elements (:func:`check_aligned`).
+  The dK/dV pass splits each kv head's group of q heads over
+  :func:`dkdv_parts` blocks when the card would otherwise idle, with a
+  second, fixed-order pass over f32 partial sums.
+* ``"simt"`` — f32 at any D ≤ 256, and bf16 above D 128 (Gemma and
+  PaliGemma at 256) or at a D that is not a multiple of 8: the f32 SIMT
+  kernels, exact in f32 (the reduced card-vs-CPU round relies on them).
+
+Anything else raises; a CUDA tensor never falls back to another route or
+to the plain version.  :func:`flash_attention` launches the forward and
+returns (O, lse), lse = m + log l per row in f32 (natural log), which the
+backward needs; :func:`flash_attention_bwd` launches the backward
+(FlashAttention-2's split: dQ and Δ by query block, dK/dV by key block, P
+recomputed from Q, K and lse; no atomics, the same bits on every launch).
+Both take the reference's (B,H,S,D) layout as strided views, so the
+model's (B,S,H,D) projections are read in place, and return their outputs
+as (B,H,S,D) views of (B,S,H,D) memory.  :func:`flash_attention_torch` is
+the plain forward, replaying ``flash_attention_jnp``'s blocked streaming
+softmax in f32 (any S: the ragged last block is masked);
+:func:`flash_attention_bwd_torch` is the plain backward, dense f32 math
+from lse.
 
 The TPU kernel this replaces, ``repro/kernels/flash_attention.py::
 flash_attention`` (line 86; body ``_flash_kernel`` line 27), has no
@@ -38,6 +55,9 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _FLOAT_TYPES = (torch.bfloat16, torch.float32)
 MAX_D = 256              # the widest head dim the kernels take (kMaxD)
+ROUTES = ("simt", "mma")      # the launch functions' route argument: 0, 1
+MMA_MAX_D = 128          # the widest head dim of the tensor-core route
+DKDV_BLOCK_K = 64        # keys per dK/dV block on the tensor-core route
 
 
 def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor, S: int, causal: bool,
@@ -132,14 +152,69 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
 # The Hopper kernels
 # ---------------------------------------------------------------------------
 
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernels that take inputs of this type and head dim: ``"mma"``
+    (bf16, D ≤ 128, D % 8 == 0) or ``"simt"`` (f32 to D 256; bf16 above D
+    128 or at a D that is not a multiple of 8).  Raises on anything else."""
+    if dtype not in _FLOAT_TYPES or not 1 <= d <= MAX_D:
+        raise ValueError(f"flash_attention: no kernel takes {dtype} at head "
+                         f"dim {d} (bf16 or f32, 1 <= D <= {MAX_D})")
+    if dtype == torch.bfloat16 and d <= MMA_MAX_D and d % 8 == 0:
+        return "mma"
+    return "simt"
+
+
+def dkdv_parts(B: int, K: int, S: int, group: int, sms: int) -> int:
+    """How many blocks share one (key block, kv head) of the tensor-core
+    dK/dV pass: the smallest divisor p of the group of q heads per kv head
+    with B·K·⌈S/64⌉·p ≥ 2·``sms`` (two dK/dV blocks are resident on an SM,
+    and under a causal mask the heaviest key block does ⌈S/64⌉ times the
+    lightest one's work, so a grid that only just fills the resident slots
+    waits on its heaviest blocks), else the whole group.  Each part sums
+    its q heads; a second pass adds the parts in order."""
+    blocks = B * K * -(-S // DKDV_BLOCK_K)
+    for p in range(1, group + 1):
+        if group % p == 0 and blocks * p >= 2 * sms:
+            return p
+    return group
+
+
+def dkdv_grid(route_: str, B: int, K: int, S: int, d: int,
+              parts: int = 1) -> tuple:
+    """The dK/dV kernel's grid: on the tensor-core route (parts × kv heads
+    × batch, key blocks), the heaviest key blocks dispatched first; on the
+    SIMT route (key blocks, kv heads, batch)."""
+    if route_ == "mma":
+        return (parts * K * B, -(-S // DKDV_BLOCK_K))
+    return (-(-S // (64 if d <= 128 else 32)), K, B)
+
+
+def check_aligned(name: str, shape, strides, addr: int) -> None:
+    """The tensor-core route copies 16-byte rows with ``cp.async``: the
+    base address must be 16-byte aligned and each (b, h, s) stride of a
+    bf16 (B,H,S,D) view a multiple of 8 elements (size-1 axes aside).
+    Raises ValueError otherwise."""
+    bad = [s for n, s in zip(shape[:3], strides[:3]) if n > 1 and s % 8]
+    if addr % 16 or bad:
+        raise ValueError(f"flash_attention: {name} is not aligned for the "
+                         f"tensor-core kernels (address {addr:#x} must be a "
+                         f"multiple of 16 bytes, strides {tuple(strides)} "
+                         f"multiples of 8 elements)")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _lib():
     lib = _build.load_library("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd_launch.argtypes = (
-        [ptr] * 5 + [i32] * 8 + [f32, ptr, ptr])
+        [ptr] * 5 + [i32] * 9 + [f32, ptr, ptr])
     lib.flash_attention_bwd_launch.argtypes = (
-        [ptr] * 10 + [i32] * 8 + [f32, ptr, ptr])
+        [ptr] * 12 + [i32] * 10 + [f32, ptr, ptr])
     lib.flash_attention_fwd_launch.restype = i32
     lib.flash_attention_bwd_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
@@ -147,7 +222,8 @@ def _lib():
     return lib
 
 
-def _check(q, k, v, window: int, **more) -> None:
+def _check(q, k, v, window: int, **more) -> str:
+    """Raise on anything the kernels do not take; return the route."""
     ts = {"q": q, "k": k, "v": v, **more}
     for name, t in ts.items():
         if not t.is_cuda or t.device != q.device:
@@ -167,13 +243,15 @@ def _check(q, k, v, window: int, **more) -> None:
         raise ValueError(f"flash_attention: want q (B,H,S,D), k/v (B,K,S,D) "
                          f"with H % K == 0; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype not in _FLOAT_TYPES:
-        raise ValueError(f"flash_attention: bf16 or f32 only, got {q.dtype}")
-    if not (1 <= D <= MAX_D and S >= 1 and 1 <= B <= 65535
-            and 1 <= H <= 65535 and window >= 0):
-        raise ValueError(f"flash_attention: the kernel takes head dim "
-                         f"1..{MAX_D}, S >= 1, B and H <= 65535, window >= 0;"
-                         f" got D {D}, S {S}, B {B}, H {H}, window {window}")
+    route_ = route(q.dtype, D)
+    if not (S >= 1 and 1 <= B <= 65535 and 1 <= H <= 65535 and window >= 0):
+        raise ValueError(f"flash_attention: the kernel takes S >= 1, B and H "
+                         f"<= 65535, window >= 0; got S {S}, B {B}, H {H}, "
+                         f"window {window}")
+    if route_ == "mma":
+        for name, t in ts.items():
+            check_aligned(name, t.shape, t.stride(), t.data_ptr())
+    return route_
 
 
 def _model_layout_empty(B, H, S, D, like) -> torch.Tensor:
@@ -196,19 +274,19 @@ def _raise_if(err: int, what: str) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0):
-    """Launch the forward kernel on the current stream: q (B,H,S,D), k/v
-    (B,K,S,D) CUDA views, bf16 or f32, last axis contiguous.  Returns (o,
-    lse): o (B,H,S,D) in q's type (a view of (B,S,H,D) memory), lse (B,H,S)
-    f32.  Raises on anything the kernel does not take, and if the launch
-    fails."""
-    _check(q, k, v, window)
+    """Launch the forward kernel of :func:`route`'s route on the current
+    stream: q (B,H,S,D), k/v (B,K,S,D) CUDA views, bf16 or f32, last axis
+    contiguous.  Returns (o, lse): o (B,H,S,D) in q's type (a view of
+    (B,S,H,D) memory), lse (B,H,S) f32.  Raises on anything the route does
+    not take, and if the launch fails."""
+    route_ = _check(q, k, v, window)
     B, H, S, D = q.shape
     o = _model_layout_empty(B, H, S, D, q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     err = _lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, H, k.shape[1], S, D, causal, window,
-        q.dtype == torch.bfloat16, 1.0 / math.sqrt(D),
+        q.dtype == torch.bfloat16, ROUTES.index(route_), 1.0 / math.sqrt(D),
         _strides(q, k, v, o), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "forward")
     return o, lse
@@ -217,12 +295,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
-    """Launch the two backward kernels (dQ, then dK/dV) on the current
-    stream.  o and lse are the forward's; do is dL/do, (B,H,S,D) like q.
-    Returns (dq, dk, dv) in the inputs' type, as (B,H,S,D) / (B,K,S,D)
-    views of model-layout memory.  The dQ kernel writes Δ = rowsum(dO ⊙ O)
-    to a (B,H,S) f32 scratch that the dK/dV kernel reads."""
-    _check(q, k, v, window, o=o, do=do)
+    """Launch the backward kernels of :func:`route`'s route (dQ, then
+    dK/dV, then on the tensor-core route the sum of the split's parts) on
+    the current stream.  o and lse are the forward's; do is dL/do, (B,H,S,D)
+    like q.  Returns (dq, dk, dv) in the inputs' type, as (B,H,S,D) /
+    (B,K,S,D) views of model-layout memory.  The dQ kernel writes Δ =
+    rowsum(dO ⊙ O) to a (B,H,S) f32 scratch that the dK/dV kernel reads."""
+    route_ = _check(q, k, v, window, o=o, do=do)
     B, H, S, D = q.shape
     K = k.shape[1]
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
@@ -230,16 +309,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: lse must be contiguous (B,H,S) "
                          f"f32 on q's device, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    parts = 1
+    if route_ == "mma":
+        parts = dkdv_parts(B, K, S, H // K, _sm_count(q.device.index
+                                                      or 0))
     delta = torch.empty_like(lse)
     dq = _model_layout_empty(B, H, S, D, q)
     dk = _model_layout_empty(B, K, S, D, k)
     dv = _model_layout_empty(B, K, S, D, v)
+    part_dk = part_dv = None
+    if parts > 1:
+        part_dk, part_dv = (torch.empty((parts, B, K, S, D),
+                                        dtype=torch.float32, device=q.device)
+                            for _ in range(2))
     err = _lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, K, S, D, causal, window,
-        q.dtype == torch.bfloat16, 1.0 / math.sqrt(D),
-        _strides(q, k, v, o, do, dq, dk, dv),
+        dv.data_ptr(), part_dk.data_ptr() if parts > 1 else None,
+        part_dv.data_ptr() if parts > 1 else None, B, H, K, S, D, causal,
+        window, q.dtype == torch.bfloat16, ROUTES.index(route_), parts,
+        1.0 / math.sqrt(D), _strides(q, k, v, o, do, dq, dk, dv),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "backward")
     return dq, dk, dv

@@ -20,11 +20,15 @@ from repro_torch.kernels import layer_grad_norm as _lgn
 from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ssd_scan as _ssd
 
-# Kernel launches made through this module, by kernel.  Reset it to 0 before
-# a run and read it after to show which kernels the run went through.
+# Kernel launches made through this module, by kernel; the flash forward and
+# backward also by route (``flash_attention.route``: "mma" tensor cores,
+# "simt").  Reset it to 0 before a run and read it after to show which
+# kernels the run went through.
 LAUNCHES = {"base_delta_matmul": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "layer_grad_norm": 0, "masked_update": 0,
-            "ssd_scan": 0}
+            "flash_attention_mma": 0, "flash_attention_simt": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+            "flash_attention_bwd_simt": 0, "layer_grad_norm": 0,
+            "masked_update": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -55,9 +59,10 @@ def _sorted_leaves(tree):
 # ---------------------------------------------------------------------------
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the ``flash_attention`` kernel (or its plain version),
-    saving q, k, v, O and the per-row lse, never the scores.  Backward: the
-    two backward kernels (or the plain backward) from them."""
+    """Forward: the ``flash_attention`` kernel of the inputs' route (or its
+    plain version), saving q, k, v, O and the per-row lse, never the
+    scores.  Backward: the backward kernels of the same route (or the plain
+    backward) from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, mode):
@@ -66,6 +71,7 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = _fa.flash_attention(qt, kt, vt, causal=causal,
                                          window=window)
             LAUNCHES["flash_attention"] += 1
+            LAUNCHES["flash_attention_" + _fa.route(q.dtype, q.shape[-1])] += 1
         else:
             o, lse = _fa.flash_attention_torch(qt, kt, vt, causal=causal,
                                                window=window)
@@ -83,6 +89,8 @@ class _FlashAttention(torch.autograd.Function):
             grads = _fa.flash_attention_bwd(*args, causal=ctx.causal,
                                             window=ctx.window)
             LAUNCHES["flash_attention_bwd"] += 1
+            LAUNCHES["flash_attention_bwd_" + _fa.route(q.dtype,
+                                                        q.shape[-1])] += 1
         else:
             grads = _fa.flash_attention_bwd_torch(*args, causal=ctx.causal,
                                                   window=ctx.window)
