@@ -1,8 +1,9 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a), shared by the
 // port's hand-written kernels: bf16 mma.sync m16n8k16 with f32
-// accumulation, ldmatrix (plain and transposed) and 16-byte cp.async with
-// zero fill.  Inline PTX only; no CUTLASS/CuTe, so a source that includes
-// this compiles in seconds.
+// accumulation, ldmatrix (plain and transposed), 16-byte cp.async with
+// zero fill, and the two halves of programmatic dependent launch.  Inline
+// PTX only; no CUTLASS/CuTe, so a source that includes this compiles in
+// seconds.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane l, g = l / 4,
 // t = l % 4), each register two bf16 (low half first) or one f32:
@@ -112,6 +113,18 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the grid before it has called grid_dependents_launch (or ended),
+// and grid_dependency_wait blocks until that grid has finished and its
+// writes are visible.
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace mma_sm90

@@ -8,15 +8,18 @@ entries for one layer; slots (C,) int32 owner slot per entry, -1 = empty.
 Sums are f32 and the result is (B, f) in x's type.
 
 :func:`base_delta_matmul_2d` launches the hand-written Hopper kernel
-(``csrc/delta_matmul.cu``); :func:`base_delta_matmul_2d_torch` is the plain
-PyTorch version of the same function, which the CPU tests and the on-card
-comparison use.  Unlike the TPU wrapper, neither makes f32 copies of x, w
-or dw up front: the kernel widens bf16 in registers.
+(``csrc/delta_matmul.cu``: a grid of column tiles × d-splits, as
+:func:`plan` lays it out, then a fixed-order fold of the splits);
+:func:`base_delta_matmul_2d_torch` is the plain PyTorch version of the same
+function, which the CPU tests and the on-card comparison use.  Unlike the
+TPU wrapper, neither makes f32 copies of x, w or dw up front: the kernel
+widens bf16 in registers.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +27,50 @@ from repro_torch.kernels import _build
 
 MAX_BATCH = 16          # the kernel's largest decode batch (csrc MAXB)
 _FLOAT_TYPES = (torch.bfloat16, torch.float32)
+
+# The grid's planning constants (csrc/delta_matmul.cu): blocks aimed for
+# (twice an H100's 132 SMs, a constant so that the split, and with it the
+# bits, is the same on every card), the fewest rows of d a block should
+# read before the column tile narrows, the most a block stages (kMaxRows),
+# columns a lane reads (kVec) and lanes per row segment, widest first.
+BLOCK_TARGET = 264
+MIN_ROWS = 16
+MAX_ROWS = 512
+LANE_COLS = 8
+LANES_PER_ROW = (32, 16, 8)
+
+
+class Plan(NamedTuple):
+    """The kernel's grid: ``col_tiles`` tiles of ``col_tile`` columns (a row
+    segment read by ``lanes_per_row`` lanes) × ``splits`` ranges of
+    ``rows`` rows of d (the last may be shorter)."""
+    lanes_per_row: int
+    col_tile: int
+    col_tiles: int
+    rows: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.splits
+
+
+@functools.cache
+def plan(B: int, d: int, f: int) -> Plan:
+    """The grid for x (B, d) @ w (d, f), from the shape alone: the widest
+    column tile whose d-split reaches ``BLOCK_TARGET`` blocks with at least
+    ``MIN_ROWS`` rows a block (else the narrowest), at most ``MAX_ROWS``
+    rows a block."""
+    if not (1 <= B <= MAX_BATCH and d >= 1 and f >= 1):
+        raise ValueError(f"delta_matmul.plan: takes 1 <= B <= {MAX_BATCH} "
+                         f"and d, f >= 1; got B={B}, d={d}, f={f}")
+    for lpr in LANES_PER_ROW:
+        tile = lpr * LANE_COLS
+        tiles = -(-f // tile)
+        rows = max(1, min(MAX_ROWS, d // -(-BLOCK_TARGET // tiles)))
+        if rows >= MIN_ROWS:
+            break
+    return Plan(lpr, tile, tiles, rows, -(-d // rows))
 
 
 def base_delta_matmul_2d_torch(x: torch.Tensor, w: torch.Tensor,
@@ -46,7 +93,7 @@ def base_delta_matmul_2d_torch(x: torch.Tensor, w: torch.Tensor,
 @functools.cache
 def _launcher():
     fn = _build.load_library("delta_matmul").base_delta_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -60,13 +107,18 @@ def _error_string(err: int) -> str:
 
 
 def _check(x, w, dw, slots) -> None:
+    # one decode step calls this 132 times: the common case costs a few
+    # attribute reads, the messages are built only on a fault
+    if not (x.is_cuda and x.device == w.device == dw.device == slots.device):
+        for name, t in (("x", x), ("w", w), ("dw", dw), ("slots", slots)):
+            if not t.is_cuda:
+                raise ValueError(f"base_delta_matmul_2d: {name} is on "
+                                 f"{t.device}, the kernel takes CUDA tensors "
+                                 f"only")
+        raise ValueError(f"base_delta_matmul_2d: x, w, dw and slots are on "
+                         f"{x.device}, {w.device}, {dw.device}, "
+                         f"{slots.device}: want one device")
     for name, t in (("x", x), ("w", w), ("dw", dw), ("slots", slots)):
-        if not t.is_cuda:
-            raise ValueError(f"base_delta_matmul_2d: {name} is on {t.device}, "
-                             f"the kernel takes CUDA tensors only")
-        if t.device != x.device:
-            raise ValueError(f"base_delta_matmul_2d: {name} is on {t.device}, "
-                             f"x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"base_delta_matmul_2d: {name} is not contiguous")
     if x.dim() != 2 or w.dim() != 2 or dw.dim() != 3 or slots.dim() != 1:
@@ -94,17 +146,22 @@ def _check(x, w, dw, slots) -> None:
 
 def base_delta_matmul_2d(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
                          slots: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream; CUDA tensors only.
-    Raises on anything the kernel does not take, and if the launch fails."""
+    """Launch the Hopper kernel (and the fold of its d-splits) on the
+    current stream; CUDA tensors only.  Raises on anything the kernel does
+    not take, and if the launch fails."""
     _check(x, w, dw, slots)
     B, d = x.shape
     f = w.shape[1]
+    p = plan(B, d, f)
     out = torch.empty((B, f), dtype=x.dtype, device=x.device)
+    part = (torch.empty((p.splits, B, f), dtype=torch.float32,
+                        device=x.device) if p.splits > 1 else None)
     err = _launcher()(x.data_ptr(), w.data_ptr(), dw.data_ptr(),
-                      slots.data_ptr(), out.data_ptr(), B, d, f,
+                      slots.data_ptr(), out.data_ptr(),
+                      None if part is None else part.data_ptr(), B, d, f,
                       dw.shape[0], x.dtype == torch.bfloat16,
-                      w.dtype == torch.bfloat16,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      w.dtype == torch.bfloat16, p.lanes_per_row, p.rows,
+                      torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"base_delta_matmul kernel launch failed: "
                            f"{_error_string(err)} (cudaError {err})")

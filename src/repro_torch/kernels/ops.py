@@ -21,14 +21,15 @@ from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ssd_scan as _ssd
 
 # Kernel launches made through this module, by kernel; the flash forward and
-# backward also by route (``flash_attention.route``: "mma" tensor cores,
-# "simt").  Reset it to 0 before a run and read it after to show which
-# kernels the run went through.
+# backward and ssd_scan also by route (``flash_attention.route``,
+# ``ssd_scan.route``: "mma" tensor cores, "simt").  Reset it to 0 before a
+# run and read it after to show which kernels the run went through.
 LAUNCHES = {"base_delta_matmul": 0, "flash_attention": 0,
             "flash_attention_mma": 0, "flash_attention_simt": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
             "flash_attention_bwd_simt": 0, "layer_grad_norm": 0,
-            "masked_update": 0, "ssd_scan": 0}
+            "masked_update": 0, "ssd_scan": 0, "ssd_scan_mma": 0,
+            "ssd_scan_simt": 0}
 
 
 def reset_launches() -> None:
@@ -122,6 +123,8 @@ def _ssd_forward(x, dt, A_log, Bmat, Cmat, D, chunk: int, mode: str):
         y = _ssd.ssd_scan(x, dt.float(), A.contiguous(), Bmat, Cmat,
                           D.float().contiguous(), chunk=chunk)
         LAUNCHES["ssd_scan"] += 1
+        LAUNCHES["ssd_scan_" + _ssd.route(x.dtype, x.shape[-1],
+                                          Bmat.shape[-1])] += 1
         return y
     # the plain version on the reference wrapper's per-head layout
     b, s, h, p = x.shape

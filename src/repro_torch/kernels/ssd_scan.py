@@ -6,11 +6,14 @@ i ≥ j, the inter-chunk term ``C·stateᵀ ⊙ exp(cs)``, the carried (P, N)
 state update, plus ``x·D`` on the undiscretised x; f32 inside, y in x's
 type.
 
-:func:`ssd_scan` launches the hand-written Hopper kernel
+:func:`ssd_scan` launches a hand-written Hopper kernel
 (``csrc/ssd_scan.cu``: one block per (batch, head), the chunks looped
-inside the block, the state in shared memory) on the model layout — x
-(B,S,H,P), dt (B,S,H) f32, A (H,) f32, B/C (B,S,G,N) read per group, D (H,)
-f32 — strided views included.  :func:`ssd_scan_torch` is the plain PyTorch
+inside the block) on the model layout — x (B,S,H,P), dt (B,S,H) f32, A
+(H,) f32, B/C (B,S,G,N) read per group, D (H,) f32 — strided views
+included.  :func:`route` picks the kernel: bf16 at P and N multiples of 16
+takes the tensor-core kernel (the chunk products on bf16 ``mma.sync``, each
+f32 factor as a bf16 hi + lo pair, the state in registers), anything else
+the f32 SIMT kernel (the state in shared memory).  :func:`ssd_scan_torch` is the plain PyTorch
 version on the reference's per-head layout, replaying ``ssd_scan_jnp``: the
 same chunking and the same (P, N) state carried across chunks.
 """
@@ -24,6 +27,19 @@ import torch
 from repro_torch.kernels import _build
 
 _FLOAT_TYPES = (torch.bfloat16, torch.float32)
+# The kernels of ``csrc/ssd_scan.cu``, by the launch function's route number.
+ROUTES = ("simt", "mma")
+
+
+def route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The kernel that x, B and C of ``dtype`` with head dim P and state N
+    take: ``"mma"`` (bf16 tensor cores) for bf16 at P % 16 == 0 and
+    N % 16 == 0, else ``"simt"`` (f32 arithmetic, exact to ~1e-6)."""
+    if dtype not in _FLOAT_TYPES:
+        raise ValueError(f"ssd_scan: no kernel takes {dtype}")
+    if dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0:
+        return "mma"
+    return "simt"
 
 
 def ssd_scan_torch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -70,7 +86,7 @@ def _lib():
     lib = _build.load_library("ssd_scan")
     lib.ssd_scan_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-        + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+        + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
     lib.ssd_scan_launch.restype = ctypes.c_int
     for name in ("ssd_scan_max_q", "ssd_scan_max_p", "ssd_scan_max_n"):
         getattr(lib, name).argtypes = []
@@ -128,10 +144,10 @@ def _check_limits(x, Bm, Q: int, lib) -> None:
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream; CUDA tensors only,
-    model layout (see the module docstring), A = −exp(A_log).  Returns y
-    (B,S,H,P) contiguous in x's type.  Raises on anything the kernel does
-    not take, and if the launch fails."""
+    """Launch the Hopper kernel of ``route(x.dtype, P, N)`` on the current
+    stream; CUDA tensors only, model layout (see the module docstring), A =
+    −exp(A_log).  Returns y (B,S,H,P) contiguous in x's type.  Raises on
+    anything the kernel does not take, and if the launch fails."""
     _check(x, dt, A, Bmat, Cmat, D)
     lib = _lib()
     Q = min(chunk, x.shape[1])
@@ -144,8 +160,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Cmat.data_ptr(), D.data_ptr(), y.data_ptr(),
         b, s, h, p, g, n, Q, x.dtype == torch.bfloat16,
         *x.stride()[:3], *dt.stride(), *Bmat.stride()[:3],
-        *Cmat.stride()[:3],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *Cmat.stride()[:3], ROUTES.index(route(x.dtype, p, n)),
+        torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()} "
