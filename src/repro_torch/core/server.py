@@ -5,10 +5,17 @@ A round is composed of explicit stages:
 
     plan → sample → probe → select → update → eval
 
-:meth:`FLServer.run_round` executes them synchronously, and
-:meth:`FLServer.run` loops over rounds.  Plan, sample and select are numpy
-on the host and byte-identical to the reference (same rng streams, same
-(P1) solver); probe, update and eval run on the model's device.
+:meth:`FLServer.run_round` executes them synchronously; the default
+:meth:`FLServer.run` path for the vectorized engine streams them instead
+(``pipeline=True``) through :class:`repro_torch.core.scheduler.RoundScheduler`,
+a depth-k lookahead (``pipeline_depth``, default 1): rounds t+1..t+k are
+planned and sampled on the host while round t's kernels run, the (P1)
+solve runs on a background thread, and round t+1's probe is queued right
+behind round t's update on the updated params.  Plan, sample and select are
+numpy on the host and byte-identical to the reference (same rng streams,
+same (P1) solver); probe, update and eval run on the model's device.
+Sampled batches reach the card through pinned memory with ``non_blocking``
+copies, so sampling ahead never waits for queued kernels.
 
 Two round engines (``FLServer(..., engine=...)``):
 
@@ -28,10 +35,15 @@ current cohort's stats and budgets, the (P1) solve is warm-started from
 each member's previous masks (unseen members greedily filled), and an
 identical (cohort, budgets, stats, init) round skips the solve.
 
-Not ported yet (ROADMAP.md, 'Slice 5'): the streaming ``RoundScheduler``
-that ``run`` uses by default for the vectorized engine (``pipeline=True``
-raises; pass ``pipeline=False``), round-boundary checkpoints
-(``checkpoint_dir``) and fault injection (``faults``).
+Round-boundary checkpoints (``checkpoint_dir``, every
+``checkpoint_every`` rounds and at the end of a run) hold params, the
+client-state store, the server rng and the task's streams in the
+reference's format (``ckpt/checkpoint.py``), so a run resumes bit-exactly
+on masks (:meth:`FLServer.restore_state`, ``run(start=, history=)``), in
+either package.
+
+Not ported yet (ROADMAP.md, 'Slice 5', item 5): fault injection
+(``faults`` raises).
 """
 from __future__ import annotations
 
@@ -42,15 +54,15 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch.api.strategy import SelectionContext, Strategy, get_strategy
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import aggregation as agg
 from repro_torch.core import masks as M
-from repro_torch.core.client import Client
+from repro_torch.core.client import Client, host_to_device
 from repro_torch.core.solver import greedy_rows
-from repro_torch.core.state import ClientStateStore
+from repro_torch.core.state import (ClientStateStore, rng_state_from_arrays,
+                                    rng_state_to_arrays, sub_state)
 from repro_torch.core.strategies import ProbeReport
 from repro_torch.models.model import Model, supports_prefix_cut
 
@@ -100,6 +112,38 @@ class History:
         """(T, L) count of clients selecting each layer — Figure 2 analogue."""
         return np.stack([r.mask_matrix.sum(0) for r in self.records])
 
+    def to_json(self) -> dict:
+        """JSON-serialisable dict, the reference's layout (a checkpoint's
+        manifest carries it)."""
+        return {
+            "summary": self.summary(),
+            "records": [{
+                "round": r.round, "test_loss": r.test_loss,
+                "test_acc": r.test_acc, "train_loss": r.train_loss,
+                "mask_matrix": np.asarray(r.mask_matrix).astype(int).tolist(),
+                "cohort": np.asarray(r.cohort).astype(int).tolist(),
+                "union_frac": r.union_frac,
+                "uploaded_params": r.uploaded_params,
+                "wall_s": r.wall_s,
+            } for r in self.records]}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "History":
+        """Inverse of :meth:`to_json`: masks and cohorts come back in the
+        engine's dtypes, so a resumed history equals an uninterrupted one."""
+        hist = cls()
+        for r in d["records"]:
+            hist.records.append(RoundRecord(
+                round=int(r["round"]), test_loss=float(r["test_loss"]),
+                test_acc=float(r["test_acc"]),
+                train_loss=float(r["train_loss"]),
+                mask_matrix=np.asarray(r["mask_matrix"], np.float32),
+                cohort=np.asarray(r["cohort"], np.int64),
+                union_frac=float(r["union_frac"]),
+                uploaded_params=int(r["uploaded_params"]),
+                wall_s=float(r["wall_s"])))
+        return hist
+
 
 @dataclass
 class RoundPlan:
@@ -128,15 +172,23 @@ class FLServer:
                  rng: Optional[np.random.RandomState] = None,
                  engine: str = "vectorized",
                  pipeline: Optional[bool] = None,
+                 pipeline_depth: int = 1,
                  strategy: "Optional[Strategy | str]" = None,
                  mask_aware: Optional[bool] = None,
                  checkpoint_dir: Optional[str] = None,
-                 faults: Optional[object] = None):
+                 checkpoint_every: int = 10,
+                 faults: Optional[object] = None,
+                 solver_deadline_s: Optional[float] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "round-boundary checkpoints " + _NOT_PORTED.format(4))
+        if solver_deadline_s is not None and solver_deadline_s <= 0:
+            raise ValueError(
+                f"solver_deadline_s must be > 0, got {solver_deadline_s}")
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
         if faults is not None:
             raise NotImplementedError(
                 "fault injection " + _NOT_PORTED.format(5))
@@ -153,9 +205,10 @@ class FLServer:
         self.client = Client(model)
         self.rng = rng or np.random.RandomState(fl.seed)
         self.engine = engine
-        # the reference streams the vectorized engine through its round
-        # scheduler by default; run() raises while that is not ported
+        # the streaming scheduler (vectorized engine only), pipeline_depth
+        # rounds ahead; the same results as the synchronous loop
         self.pipeline = (engine == "vectorized") if pipeline is None else pipeline
+        self.pipeline_depth = pipeline_depth
         self.mask_aware = (engine == "vectorized"
                            and supports_prefix_cut(model.cfg)
                            if mask_aware is None else bool(mask_aware))
@@ -183,17 +236,30 @@ class FLServer:
         # (inputs-key, masks) of the last host solve: an identical round
         # skips the solve (byte-compared inputs, deterministic solver)
         self._select_memo: Optional[tuple] = None
+        # the reference's full counter set, so a checkpoint's manifest
+        # means the same in both packages (the fault counters stay 0 until
+        # fault injection is ported)
         self.select_stats = {"solves": 0, "memo_hits": 0,
                              "partial_warm_starts": 0,
-                             "all_straggler_rounds": 0}
+                             "all_straggler_rounds": 0,
+                             "quarantined_rows": 0, "dead_clients": 0,
+                             "solver_timeouts": 0, "dispatch_retries": 0,
+                             "ckpt_fallbacks": 0}
         self._straggler_warned = False
+        # a real wall-clock deadline on the scheduler's background (P1)
+        # solve (None = wait for it)
+        self.solver_deadline_s = solver_deadline_s
+        # round-boundary checkpointing (None = off): every checkpoint_every
+        # completed rounds and at the end of run()
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
 
     @property
     def needs_probe(self) -> bool:
         return bool(self._probe_reqs)
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v, device=self.model.device)
+        return {k: host_to_device(v, self.model.device)
                 for k, v in batch.items()}
 
     # -- stage 1: plan ---------------------------------------------------
@@ -360,6 +426,15 @@ class FLServer:
         self.state.set_warm_rows(plan.cohort, masks, t=plan.t)
         return masks
 
+    def _fallback_rows(self, plan: RoundPlan) -> np.ndarray:
+        """Masks for a round whose (P1) solve missed ``solver_deadline_s``:
+        warm rows where valid, zeros elsewhere.  Touches no store or memo
+        state: the late solve is still running on the solver thread and
+        stays the single writer."""
+        self.select_stats["solver_timeouts"] += 1
+        rows, _ = self.state.warm_rows(plan.cohort)
+        return rows
+
     # -- stage 5: update (device) ----------------------------------------
     def _cut_for(self, masks: np.ndarray) -> Optional[int]:
         """The round's prefix cut for the mask-aware engine (None = the
@@ -418,22 +493,117 @@ class FLServer:
                                 test_loss, test_acc, time.time() - t0)  # repro: allow[nondeterminism] -- wall_s telemetry only
         return params, rec
 
+    # -- round-boundary checkpointing ------------------------------------
+    def _is_ckpt_round(self, t_next: int, T: int) -> bool:
+        """Save once ``t_next`` rounds have completed?  Every
+        ``checkpoint_every`` rounds and at the end of the run."""
+        if self.checkpoint_dir is None:
+            return False
+        return t_next % self.checkpoint_every == 0 or t_next == T
+
+    def save_state(self, params: dict, t_next: int, history: History) -> str:
+        """Checkpoint the resumable state after ``t_next`` completed rounds:
+        params, the client-state store, the server rng and (when the task
+        has ``state_dict``) the task's streams as one tree; History and
+        select_stats ride the manifest."""
+        from repro_torch.ckpt import save_checkpoint
+        tree = {"params": params,
+                "client": self.state.state_dict(),
+                "server_rng": rng_state_to_arrays(self.rng)}
+        task_sd = getattr(self.data, "state_dict", None)
+        if callable(task_sd):
+            tree["task"] = task_sd()
+        extra = {"round": t_next, "history": history.to_json(),
+                 "select_stats": dict(self.select_stats)}
+        return save_checkpoint(self.checkpoint_dir, t_next, tree, extra=extra)
+
+    def restore_state(self, params_template: dict,
+                      step: Optional[int] = None
+                      ) -> Optional[tuple[dict, int, History]]:
+        """Restore the latest (or ``step``) checkpoint into this server.
+
+        Returns ``(params, completed_rounds, history)``, or None when the
+        checkpoint dir is unset or holds nothing intact.  Params restore
+        against the template (shape-checked, its dtypes and device); the
+        store, rng and task restore byte-exact, so ``run(params,
+        start=completed_rounds, history=history)`` continues with the
+        uninterrupted run's masks.  With no ``step``, checkpoints are
+        verified newest first and the latest intact one is taken; a
+        fallback past a corrupt one warns and counts in
+        ``select_stats["ckpt_fallbacks"]``."""
+        from repro_torch.ckpt import latest_intact_step, load_checkpoint_arrays
+        from repro_torch.ckpt.checkpoint import restore_tree
+        if self.checkpoint_dir is None:
+            return None
+        fell_back = False
+        if step is None:
+            step, skipped = latest_intact_step(self.checkpoint_dir)
+            if skipped:
+                fell_back = True
+                detail = "; ".join(f"step {s}: {why}" for s, why in skipped)
+                warnings.warn(
+                    f"skipping corrupt checkpoint(s) [{detail}]; resuming "
+                    f"from {'step %d' % step if step is not None else 'scratch'}",
+                    RuntimeWarning, stacklevel=2)
+        if step is None:
+            return None
+        flat, manifest = load_checkpoint_arrays(self.checkpoint_dir, step)
+        restored, _, _ = restore_tree(flat, manifest,
+                                      {"params": params_template},
+                                      source=self.checkpoint_dir)
+        self.state.load_state_dict(sub_state(flat, "client/"))
+        rng_state_from_arrays(sub_state(flat, "server_rng/"), self.rng)
+        task_state = sub_state(flat, "task/")
+        task_ld = getattr(self.data, "load_state_dict", None)
+        if task_state and callable(task_ld):
+            task_ld(task_state)
+        self._select_memo = None         # a hit needs byte-equal inputs
+        extra = manifest["extra"]
+        self.select_stats.update(extra.get("select_stats", {}))
+        if fell_back:                    # after the update, which would
+            self.select_stats["ckpt_fallbacks"] += 1   # overwrite it
+        return (restored["params"], int(extra["round"]),
+                History.from_json(extra["history"]))
+
     def run(self, params: dict, rounds: Optional[int] = None,
-            verbose: bool = False) -> tuple[dict, History]:
-        """Run rounds ``0..rounds-1`` on the synchronous loop."""
+            verbose: bool = False, *, start: int = 0,
+            history: Optional[History] = None) -> tuple[dict, History]:
+        """Run rounds ``start..rounds-1`` (``start``/``history`` come from
+        :meth:`restore_state` on resume), checkpointing at boundaries when
+        ``checkpoint_dir`` is set.  The vectorized engine streams through
+        :class:`~repro_torch.core.scheduler.RoundScheduler` unless
+        ``pipeline=False``."""
         T = rounds if rounds is not None else self.fl.rounds
-        if self.engine == "vectorized" and self.pipeline and T > 0:
-            raise NotImplementedError(
-                "the streaming round scheduler (pipeline=True, the "
-                "reference's default for the vectorized engine) "
-                + _NOT_PORTED.format(1) + "; pass pipeline=False")
-        hist = History()
-        for t in range(T):
+        if self.engine == "vectorized" and self.pipeline and T > start:
+            from repro_torch.core.scheduler import RoundScheduler
+            return RoundScheduler(self, depth=self.pipeline_depth).run(
+                params, T, verbose, start=start, history=history)
+        hist = history if history is not None else History()
+        for t in range(start, T):
             params, rec = self.run_round(params, t)
             hist.records.append(rec)
             if verbose:
                 self._print_round(rec)
+            if self._is_ckpt_round(t + 1, T):
+                self.save_state(params, t + 1, hist)
         return params, hist
+
+    # -- streaming pipeline (repro_torch.core.scheduler.RoundScheduler) ----
+    @staticmethod
+    def _stats_np(stats) -> Optional[dict[str, np.ndarray]]:
+        """Materialise a probe result on its way to the host (a
+        :class:`~repro_torch.core.client.HostCopy`, or None): waits for its
+        copy only, not for the kernels queued behind it."""
+        return None if stats is None else stats.to_numpy()
+
+    def _finalize(self, entry: tuple) -> RoundRecord:
+        """A pipelined round's record from its pending entry (plan, masks,
+        the HostCopy of losses / test loss / test acc, wall_s)."""
+        plan, masks, vals, wall_s = entry
+        v = vals.to_numpy()
+        # repro: allow[host-sync] -- the round boundary: host numpy already copied off the card
+        return self._make_record(plan, masks, float(np.mean(v["losses"])),
+                                 float(v["loss"]), float(v["acc"]), wall_s)  # repro: allow[host-sync] -- host numpy scalars
 
     @staticmethod
     def _print_round(rec: RoundRecord) -> None:

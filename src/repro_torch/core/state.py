@@ -17,8 +17,7 @@ O(cohort) per-round access (DESIGN.md §8):
 
 Both serialize to flat ``{name: np.ndarray}`` dicts (``state_dict`` /
 ``load_state_dict``) consumed by the round-boundary checkpoints
-(``ckpt/checkpoint.py`` via ``FLServer.save_state`` in the reference;
-the port's checkpoints are not ported yet): restoring them is
+(``ckpt/checkpoint.py`` via ``FLServer.save_state``): restoring them is
 byte-exact, which is what makes kill-at-round-t + resume reproduce the
 uninterrupted run bit-identically on masks (tests/test_checkpoint.py).
 

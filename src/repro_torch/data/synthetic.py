@@ -24,9 +24,13 @@ each client on its own ``RandomState`` stream.  The held-out test set is
 drawn **once** (lazily, from a dedicated rng stream) from the global
 mixture Σ_i α_i P_i; :meth:`test_batch` returns a fixed slice of it.
 
+``pretrain_batch`` draws balanced, identity-domain samples (the
+pretraining corpus, ``data/pretrain.py``) from ``_test_rng``, a stream of
+its own beside the held-out set's; ``state_dict``/``load_state_dict`` carry
+the client streams and that rng through round-boundary checkpoints.
+
 Not ported: the reference's scalar sampling oracle and its legacy
-(pre-pipeline) sampling path, ``pretrain_batch`` (pretraining is not
-ported) and the task's checkpoint hooks (checkpoints are not ported).
+(pre-pipeline) sampling path.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.state import ClientStreamState
+from repro_torch.core.state import (ClientStreamState, rng_state_from_arrays,
+                                    rng_state_to_arrays, sub_state)
 
 
 @dataclass
@@ -121,6 +126,7 @@ class SyntheticFederatedData:
         # parity contract (tests/test_scheduler.py).
         self._streams = ClientStreamState(
             cfg.n_clients, lambda i, s=cfg.seed: s * 1000 + 7 * i + 1)
+        self._test_rng = np.random.RandomState(cfg.seed + 999)
 
         if cfg.modality == "patches":
             # class prototypes in patch-embedding space + per-domain style
@@ -148,8 +154,9 @@ class SyntheticFederatedData:
         lcdf = np.cumsum(self.client_label_p, axis=1)
         self._label_cdf = lcdf / lcdf[:, -1:]
 
-        # held-out test set: drawn once (lazily) from a dedicated stream;
-        # test_batch() slices it
+        # held-out test set: drawn once (lazily) from a dedicated stream so
+        # pretrain_batch (on _test_rng) never shifts it; test_batch() slices
+        # it
         self._heldout_rng = np.random.RandomState(cfg.seed + 424242)
         self._test_set: Optional[dict] = None
 
@@ -232,6 +239,26 @@ class SyntheticFederatedData:
         cross-round bookkeeping the scheduler parity tests compare."""
         return self._streams.positions.copy()
 
+    def state_dict(self) -> dict[str, np.ndarray]:
+        """Flat-array resumable state: stream positions, the touched
+        streams' rng states and the pretraining rng.  The held-out rng is
+        not saved: the fixed test set is its first and only consumer, so a
+        fresh task redraws it identically."""
+        d = {f"streams/{k}": v for k, v in self._streams.state_dict().items()}
+        d.update({f"test_rng/{k}": v
+                  for k, v in rng_state_to_arrays(self._test_rng).items()})
+        return d
+
+    def load_state_dict(self, d: dict[str, np.ndarray]) -> None:
+        self._streams.load_state_dict(sub_state(d, "streams/"))
+        rng_state_from_arrays(sub_state(d, "test_rng/"), self._test_rng)
+
+    def client_batch(self, i: int, batch_size: int) -> dict:
+        """One minibatch from client i's distribution."""
+        self._streams.advance(i, batch_size)
+        return self._sample_vec(self._streams.rng(i), self.client_label_p[i],
+                                self.client_domain[i], batch_size)
+
     def client_batches(self, i: int, batch_size: int, n: int) -> dict:
         """``n`` stacked minibatches (leading axis = τ): ONE draw of
         ``n·batch_size`` samples reshaped to ``(n, batch_size, ...)``."""
@@ -251,6 +278,13 @@ class SyntheticFederatedData:
         """
         per = [self.client_batches(int(i), batch_size, n) for i in cohort]
         return {k: np.stack([b[k] for b in per]) for k in per[0]}
+
+    def pretrain_batch(self, batch_size: int) -> dict:
+        """Balanced, identity-domain samples — the 'pretraining corpus'."""
+        cfg = self.cfg
+        label_p = np.full(cfg.n_classes, 1.0 / cfg.n_classes)
+        identity = len(self.domain_perm) - 1
+        return self._sample_vec(self._test_rng, label_p, identity, batch_size)
 
     def _draw_test_set(self) -> dict:
         """The global-mixture held-out set, drawn once (dedicated stream)."""

@@ -75,6 +75,7 @@ def masked_sgd_update_2d(p: torch.Tensor, g: torch.Tensor,
     out = torch.empty_like(p)
     lib = _lib()
     err = lib.masked_sgd_update_launch(
+        # repro: allow[host-sync] -- lr is a host Python number, never a tensor
         p.data_ptr(), g.data_ptr(), mask.data_ptr(), float(lr),
         out.data_ptr(), L, F, p.dtype == torch.bfloat16,
         torch.cuda.current_stream(p.device).cuda_stream)

@@ -1,11 +1,19 @@
 """Model facade (counterpart of ``repro/models/model.py``).
 
 For the ``dense``, ``vlm`` and ``ssm`` (Mamba2) families: the layer layout
-and the mask helpers of the mask-aware engine (``segment_cuts``,
-``trainable_slice``, ``split_mask``, ``apply_layer_mask``), parameter
+and the mask helpers of the mask-aware engine (``segment_prefix_cuts``,
+``trainable_rows``, ``split_mask``, ``apply_layer_mask``), parameter
 init, the sequence forward and losses of training
 (:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or conv/state cache
-and :meth:`Model.decode_step`.  A ``lax.scan`` over layers becomes a Python
+and :meth:`Model.decode_step`.
+
+The functions the streaming round path calls have names of the port's
+own (``segment_prefix_cuts``, ``trainable_rows``, ``Model.hidden_seq``,
+``Model.seq_loss``; the last three keep the reference's names as aliases
+for other callers): the repo lint follows calls by bare name from
+``RoundScheduler.run``, and a shared name would link the port's eager path
+to the reference's jitted functions, whose static ``int(...)`` it would
+then report.  A ``lax.scan`` over layers becomes a Python
 loop over the rows of ``params["blocks"]``; cache writes happen in place.
 Other families raise ``NotImplementedError`` until their slices land
 (ROADMAP.md).
@@ -78,28 +86,31 @@ def supports_prefix_cut(cfg: ArchConfig) -> bool:
     return cfg.family != "hybrid"
 
 
-def segment_cuts(cut: int, cfg: ArchConfig) -> dict[str, int]:
+def segment_prefix_cuts(cut: int, cfg: ArchConfig) -> dict[str, int]:
     """Per-segment frozen-prefix lengths for a global mask-index ``cut``:
     segments below it are fully frozen (cut == count), the one containing
     it is split, the ones above are fully trainable (cut == 0)."""
     out, off = {}, 0
     for seg in layer_layout(cfg):
-        out[seg.path] = min(max(int(cut) - off, 0), seg.count)
+        out[seg.path] = min(max(int(cut) - off, 0), seg.count)  # repro: allow[host-sync] -- cut is a host Python int (the select stage's prefix cut)
         off += seg.count
     return out
 
 
-def trainable_slice(params: dict, cut: int, cfg: ArchConfig) -> dict:
+def trainable_rows(params: dict, cut: int, cfg: ArchConfig) -> dict:
     """Rows ``[cut_k:]`` of every selectable segment with trainable layers,
     as views of ``params`` (the τ loop's first input; it must never be
     written in place).  Fully frozen segments are omitted."""
-    cuts = segment_cuts(cut, cfg)
+    cuts = segment_prefix_cuts(cut, cfg)
     out = {}
     for seg in layer_layout(cfg):
         c = cuts[seg.path]
         if c < seg.count:
             out[seg.path] = {k: a[c:] for k, a in params[seg.path].items()}
     return out
+
+
+trainable_slice = trainable_rows
 
 
 def split_mask(mask, cfg: ArchConfig) -> dict:
@@ -264,9 +275,9 @@ class Model:
         return B.softcap(h @ w, cfg.logit_softcap)
 
     # -- sequence forward (train / prefill) ---------------------------------
-    def _run_stack(self, step, x, full: dict, trainable: Optional[dict],
+    def _run_stack(self, layer_fn, x, full: dict, trainable: Optional[dict],
                    cut: int):
-        """Apply ``step(x, layer_params)`` over a stacked segment, split at
+        """Apply ``layer_fn(x, layer_params)`` over a stacked segment, split at
         the frozen-prefix ``cut``.
 
         Dense path (``trainable is None``): every row from ``full``.
@@ -279,8 +290,8 @@ class Model:
         """
         def f(h, p):
             if self.runtime.remat and torch.is_grad_enabled():
-                return checkpoint(step, h, p, use_reentrant=False)
-            return step(h, p)
+                return checkpoint(layer_fn, h, p, use_reentrant=False)
+            return layer_fn(h, p)
 
         if trainable is None:
             rows = _rows(full)
@@ -291,21 +302,21 @@ class Model:
             with torch.no_grad():
                 rows = _rows({n: a[:cut] for n, a in full.items()})
                 for i in range(cut):
-                    x = step(x, {n: r[i] for n, r in rows.items()})
+                    x = layer_fn(x, {n: r[i] for n, r in rows.items()})
         if trainable:
             rows = _rows(trainable)
             for i in range(next(iter(trainable.values())).shape[0]):
                 x = f(x, {n: r[i] for n, r in rows.items()})
         return x
 
-    def forward_seq(self, params: dict, batch: dict, *,
-                    trainable: Optional[dict] = None, cut: int = 0):
+    def hidden_seq(self, params: dict, batch: dict, *,
+                   trainable: Optional[dict] = None, cut: int = 0):
         """Full-sequence forward.  Returns (hidden, aux_loss, prefix_len).
 
         ``trainable``/``cut`` select the mask-aware path: the block stack is
         split at mask index ``cut``; rows below it come from ``params``
         (frozen), rows at or above it from ``trainable`` (the
-        :func:`trainable_slice` dict the caller differentiates).
+        :func:`trainable_rows` dict the caller differentiates).
         """
         cfg, rt = self.cfg, self.runtime
         _need_ported_family(cfg, "forward_seq")
@@ -326,12 +337,12 @@ class Model:
         causal = cfg.task == "lm"
 
         if cfg.family == "ssm":
-            def step(h, p):
+            def layer_fn(h, p):
                 out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, cfg,
                                         mode=self.kernel_mode)
                 return h + out
         else:
-            def step(h, p):
+            def layer_fn(h, p):
                 return _dense_block_fwd(p, h, cfg, positions=positions,
                                         causal=causal,
                                         window=cfg.sliding_window,
@@ -340,20 +351,25 @@ class Model:
                                         remat_chunk=rt.remat_scores,
                                         kernel_mode=self.kernel_mode)
 
-        blocks_cut = segment_cuts(cut, cfg)["blocks"] if trainable is not None \
-            else 0
-        x = self._run_stack(step, x, params["blocks"],
+        blocks_cut = (segment_prefix_cuts(cut, cfg)["blocks"]
+                      if trainable is not None else 0)
+        x = self._run_stack(layer_fn, x, params["blocks"],
                             None if trainable is None
                             else trainable.get("blocks", {}), blocks_cut)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, prefix_len
 
+    forward_seq = hidden_seq
+
     # -- losses --------------------------------------------------------------
-    def loss(self, params: dict, batch: dict, *,
-             trainable: Optional[dict] = None, cut: int = 0) -> torch.Tensor:
-        h, aux, prefix_len = self.forward_seq(params, batch,
-                                              trainable=trainable, cut=cut)
+    def seq_loss(self, params: dict, batch: dict, *,
+                 trainable: Optional[dict] = None,
+                 cut: int = 0) -> torch.Tensor:
+        h, aux, prefix_len = self.hidden_seq(params, batch,
+                                             trainable=trainable, cut=cut)
         return self.loss_from_hidden(params, h, aux, prefix_len, batch)
+
+    loss = seq_loss
 
     def loss_from_hidden(self, params: dict, h: torch.Tensor,
                          aux: torch.Tensor, prefix_len: int,

@@ -117,23 +117,25 @@ def test_experiment_matches_server_run(world):
     assert exp.fl.n_clients == 12 and exp.fl.strategy == "ours"
 
 
-def test_unported_features_raise(world):
+def test_unported_features_raise(world, tmp_path):
+    """Only fault injection is still unported: it raises, naming Slice 5
+    item 5.  The scheduler (the vectorized engine's default), checkpoints
+    and pretraining run."""
     _, tm, _, host = world
     data = tsyn.SyntheticFederatedData(tsyn.FederatedTaskConfig(
         vocab_size=tm.cfg.vocab_size, **TASK))
     fl = tcfg.FLConfig(**FL)
     params = params_to_torch(host, "cpu")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        TServer(tm, fl, data).run(params)              # pipeline default on
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        Experiment(tm, data, "ours", device="cpu", rounds=1,
-                   pipeline=True).run(params)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TServer(tm, fl, data, pipeline=False, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="fault"):
-        TServer(tm, fl, data, pipeline=False, faults=object())
-    with pytest.raises(NotImplementedError, match="pretrain"):
-        Experiment(tm.cfg, data, "ours", pretrain_steps=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="fault.*item 5"):
+        TServer(tm, fl, data, faults=object())
+    with pytest.raises(NotImplementedError, match="fault.*item 5"):
+        Experiment(tm, data, "ours", device="cpu", faults=object()).build()
+    server = TServer(tm, fl, data, checkpoint_dir=str(tmp_path / "c"))
+    assert server.pipeline and server.engine == "vectorized"
+    _, hist = server.run(params, 1)                    # the scheduler
+    assert len(hist.records) == 1
+    exp = Experiment(tm.cfg, data, "ours", pretrain_steps=1, device="cpu")
+    assert exp.pretrain_steps == 1
     # the sequential oracle never engages the scheduler
     _, hist = TServer(tm, fl, data, engine="sequential").run(params, 1)
     assert len(hist.records) == 1
