@@ -77,8 +77,21 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     step before it: the same cohorts and masks, params within
     ROUND_PARAM_ATOL, ``ckpt_fallbacks`` 1; bytes and save, verify and
     restore times (the directory is deleted afterwards);
-18. prints one JSON line of per-kernel results, the card's name and power
-    limit, and a last JSON line ``{"ok": true, "device": {...}}``.
+18. injects faults (``phase_faults``): three guarded TinyLlama rounds at
+    seq_len 1024 under client death, NaN/Inf/exploding deltas, solver
+    stalls and dispatch failures, synchronous and pipelined, against the
+    injector's host replay (ok rows, counters, equal params, launches,
+    at most one main-thread sync a round); round 0's inputs through the
+    guarded step directly (no fault: bit-equal to the dense step; one dead
+    row; all NaN: params unchanged; peak memory, the guard's time); a
+    reduced f32 guarded run on card and CPU; a disabled injector against
+    none (bit-equal params, s/round ratio); two guarded Mamba2-370M rounds
+    at seq_len 512; delta-mode serving under upload failures and slot
+    strikes (every request finishes with the fault-free tokens) and with
+    every upload failing (no half-admitted user, requests dropped);
+19. prints one JSON line of per-kernel results (launches per path, the
+    fault paths among them), the card's name and power limit, and a last
+    JSON line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 card, or when the port's sources are missing.
@@ -92,6 +105,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -1821,7 +1835,8 @@ class SyncCounter:
     waits on a ``HostCopy`` event (the probe stats' and the records'
     copies, which the sync-debug mode does not see).  ``arm`` is called
     after each round's eval is queued (``Client.evaluate_raw``), ``stop``
-    when the run returns."""
+    when the run returns.  ``main_waits`` holds, for each event wait on
+    the main thread, the number of rounds queued before it."""
 
     def __init__(self):
         import warnings
@@ -1830,6 +1845,7 @@ class SyncCounter:
         self.armed = False
         self.syncs: list = []        # "file:line" of each sync
         self.waits: list = []        # seconds of each event wait
+        self.main_waits: list = []   # rounds_seen at each main-thread wait
         self.other_warnings = 0
 
     def __enter__(self):
@@ -1847,6 +1863,8 @@ class SyncCounter:
             out = orig(hc)
             if counter.armed:
                 counter.waits.append(time.perf_counter() - t0)
+                if threading.current_thread() is threading.main_thread():
+                    counter.main_waits.append(counter.rounds_seen)
             return out
         self._patch = mock.patch.object(HostCopy, "to_numpy", to_numpy)
         self._patch.start()
@@ -1879,12 +1897,14 @@ class SyncCounter:
         return False
 
 
-def _run_way(cfg, task, params, way: dict, profile=False) -> dict:
+def _run_way(cfg, task, params, way: dict, profile=False,
+             prepare=None) -> dict:
     """One 3-round run of "ours" through Experiment.run, the round
-    scheduler or the synchronous loop as ``way`` says.  Returns the run,
-    its launches, the host time at each round's queued eval, the host
-    syncs after round 0 and, with ``profile``, the device's busy time from
-    a CUDA-only trace."""
+    scheduler or the synchronous loop as ``way`` says (``prepare`` is
+    called with the built server first).  Returns the run, its launches,
+    the host time at each round's queued eval, the host syncs after round
+    0, the peak device memory and, with ``profile``, the device's busy time
+    from a CUDA-only trace."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1892,6 +1912,8 @@ def _run_way(cfg, task, params, way: dict, profile=False) -> dict:
 
     exp = _round_experiment(cfg, task, **way)
     srv = exp.build()
+    if prepare is not None:
+        prepare(srv)
     marks = []
     orig = srv.client.evaluate_raw
     with SyncCounter() as counter:
@@ -1902,6 +1924,7 @@ def _run_way(cfg, task, params, way: dict, profile=False) -> dict:
             return out
         srv.client.evaluate_raw = evaluate_raw
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         prof = torch_profile(activities=[ProfilerActivity.CUDA]) \
             if profile else None
@@ -1916,7 +1939,9 @@ def _run_way(cfg, task, params, way: dict, profile=False) -> dict:
             prof.__exit__(None, None, None)
     out = {"final": final, "hist": hist, "run_s": run_s,
            "launches": dict(ops.LAUNCHES), "syncs": counter.syncs,
-           "waits": counter.waits, "other_warnings": counter.other_warnings,
+           "waits": counter.waits, "main_waits": counter.main_waits,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "other_warnings": counter.other_warnings,
            "marks": [t - t0 for t, _ in marks],
            "per_round": [{k: v - (marks[i - 1][1][k] if i else 0)
                           for k, v in m.items() if v}
@@ -2245,6 +2270,647 @@ def phase_checkpoint(card: str) -> dict:
             "bytes": sizes, "times": times, "params_max_diff": dp}
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: fault injection and graceful degradation
+# ---------------------------------------------------------------------------
+
+# The guarded TinyLlama rounds' plan (seed picked by replay, fault_seed):
+# client death, every corruption kind, a finite norm threshold (so an
+# exploded row is quarantined by the threshold), solver stalls and
+# dispatch failures.
+TINY_FAULTS = dict(death_rate=0.25, corrupt_rate=0.5,
+                   corrupt_kinds=("nan", "inf", "explode"), max_delta_sq=1e12,
+                   stall_rate=0.3, dispatch_fail_rate=0.5)
+MAMBA_FAULTS = dict(death_rate=0.25, corrupt_rate=0.5,
+                    corrupt_kinds=("nan", "inf", "explode"),
+                    max_delta_sq=1e12)
+SERVE_FAULTS = dict(upload_fail_rate=0.3, slot_fault_rate=0.05)
+
+
+def replay_faults(kw: dict, seed: int, rounds: int, n: int):
+    """A plan's round schedule replayed on the host with a fresh injector:
+    per round the survivors, codes, stall and dispatch failures, and the
+    ``select_stats`` counters the guarded rounds must reach."""
+    import numpy as np
+    from repro_torch.faults import FaultInjector, FaultPlan
+    inj = FaultInjector(FaultPlan(seed=seed, **kw))
+    rows = []
+    for t in range(rounds):
+        surv, codes = inj.round_faults(t, n)
+        rows.append({"survivors": surv, "codes": codes,
+                     "stall": inj.solver_stalls(t),
+                     "dispatch": inj.dispatch_failures(t)})
+    alive = [r["survivors"] > 0 for r in rows]
+    counters = {
+        "dead_clients": int(sum((~a).sum() for a in alive)),
+        "quarantined_rows": int(sum((a & (r["codes"] != 0)).sum()
+                                    for a, r in zip(alive, rows))),
+        "solver_timeouts": sum(r["stall"] for r in rows),
+        "dispatch_retries": sum(r["dispatch"] for r in rows)}
+    return rows, counters
+
+
+def fault_seed(kw: dict, rounds: int, n: int) -> int:
+    """The smallest seed whose schedule holds a dead row, each corruption
+    kind on a live row, a live clean row in every round, and a stall and a
+    dispatch failure when the plan has them."""
+    import numpy as np
+    from repro_torch.faults import CORRUPT_CODES
+    want_kinds = {CORRUPT_CODES[k] for k in kw["corrupt_kinds"]}
+    for seed in range(100_000):
+        rows, _ = replay_faults(kw, seed, rounds, n)
+        kinds = {int(c) for r in rows
+                 for s, c in zip(r["survivors"], r["codes"]) if s > 0 and c}
+        if (any((r["survivors"] <= 0).any() for r in rows)
+                and kinds == want_kinds
+                and all(((r["survivors"] > 0) & (r["codes"] == 0)).any()
+                        for r in rows)
+                and (not kw.get("stall_rate") or any(r["stall"]
+                                                     for r in rows))
+                and (not kw.get("dispatch_fail_rate")
+                     or any(r["dispatch"] for r in rows))):
+            return seed
+    raise SmokeFailure(f"no seed covers every fault of {kw}")
+
+
+def record_faults(srv) -> list:
+    """Wrap a server's fault hooks: per round the drawn survivors and codes
+    and the guard's ``ok`` rows, as the round step saw them."""
+    import numpy as np
+    rec: list = []
+    draw, account = srv._injector.round_faults, srv._account_faults
+
+    def round_faults(t, n):
+        surv, codes = draw(t, n)
+        rec.append({"t": t, "survivors": surv.copy(), "codes": codes.copy()})
+        return surv, codes
+
+    def account_faults(survivors, ok):
+        rec[-1]["ok"] = np.asarray(ok).copy()
+        return account(survivors, ok)
+    srv._injector.round_faults = round_faults
+    srv._account_faults = account_faults
+    return rec
+
+
+def check_fault_log(tag, rec, rows, stats, counters):
+    """The rounds' draws, ``ok`` rows and counters against the replay: a
+    row aggregates iff it is alive and clean (every corruption kind is
+    quarantined under the finite threshold)."""
+    import numpy as np
+    check(len(rec) == len(rows), f"[{tag}] {len(rec)} guarded rounds, want "
+                                 f"{len(rows)}")
+    for got, want in zip(rec, rows):
+        check(np.array_equal(got["survivors"], want["survivors"])
+              and np.array_equal(got["codes"], want["codes"]),
+              f"[{tag}] round {got['t']}: the injector drew other faults "
+              f"than its host replay")
+        ok = ((want["survivors"] > 0) & (want["codes"] == 0)).astype(
+            np.float32)
+        check(np.array_equal(got["ok"], ok),
+              f"[{tag}] round {got['t']}: ok rows {got['ok'].tolist()}, "
+              f"want {ok.tolist()}")
+    got = {k: stats[k] for k in counters}
+    check(got == counters, f"[{tag}] select_stats {got}, replayed "
+                           f"{counters}")
+
+
+def _all_finite(tree) -> bool:
+    import torch
+    from repro_torch.tree import tree_leaves
+    return all(torch.isfinite(x).all().item() for x in tree_leaves(tree))
+
+
+def _params_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def guarded_want(cfg, fl, rounds: int) -> dict:
+    """Kernel launches of guarded rounds: the dense program differentiates
+    every layer of every client (cut 0) and applies its τ steps without
+    the ``masked_update`` kernel; the probe and eval are the fault-free
+    ones."""
+    return dict(round_want(cfg, fl, [0] * rounds), masked_update=0)
+
+
+def phase_faults(card: str, pipe: dict) -> dict:
+    """Fault injection at full width (DESIGN.md §12), through the entry
+    points a user calls: (a) three guarded TinyLlama-1.1B rounds at seq
+    1024 under client death, every corruption kind, stalls and dispatch
+    failures, synchronous and pipelined (depth 1), held against the
+    injector's host replay, with launches and main-thread syncs counted;
+    (b) round 0's inputs through the guarded step directly: no fault, one
+    dead row, all rows NaN, peak memory and the guard's cost; (c) a
+    reduced f32 guarded run on the card and on the CPU; (d) a disabled
+    injector against none, in turns; (e) two guarded Mamba2-370M rounds at
+    seq 512; (f) delta-mode TinyLlama serving under upload failures and
+    slot strikes, and with every upload failing."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.faults import FaultPlan
+
+    out = {"launches": {}}
+    # (c) first: a reduced f32 guarded run on the card and on the CPU
+    out["reduced"] = faults_reduced(card)
+
+    cfg = get_arch("tinyllama_1_1b")
+    L = cfg.n_layers
+    tag = f"faults {cfg.name}"
+
+    def task():
+        return SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=16, vocab_size=cfg.vocab_size, seq_len=LONG_SEQ,
+            test_samples=32, objective="lm", skew="feature", seed=0))
+    exp = _round_experiment(cfg, task())
+    fl, params = exp.fl, exp.init_params()
+    del exp
+    seed = fault_seed(TINY_FAULTS, 3, fl.cohort_size)
+    rows, counters = replay_faults(TINY_FAULTS, seed, 3, fl.cohort_size)
+    log(f"[{tag}] plan {TINY_FAULTS}, seed {seed} (the first whose replay "
+        f"covers every fault): survivors "
+        f"{[r['survivors'].astype(int).tolist() for r in rows]}, codes "
+        f"{[r['codes'].tolist() for r in rows]}, stalls "
+        f"{[r['stall'] for r in rows]}, dispatch failures "
+        f"{[r['dispatch'] for r in rows]}; counters {counters}")
+    want = guarded_want(cfg, fl, 3)
+
+    # (a) the guarded rounds, synchronous and pipelined
+    runs = {}
+    for name, way in (("synchronous", dict(pipeline=False)),
+                      ("depth 1", dict(pipeline=True, pipeline_depth=1))):
+        held = {}
+
+        def prepare(srv, held=held):
+            held["srv"], held["rec"] = srv, record_faults(srv)
+        r = _run_way(cfg, task(), params, dict(
+            way, faults=FaultPlan(seed=seed, **TINY_FAULTS)),
+            prepare=prepare)
+        srv, hist = held["srv"], r["hist"]
+        check_fault_log(f"{tag}, {name}", held["rec"], rows,
+                        srv.select_stats, counters)
+        check(r["launches"] == want, f"[{tag}] {name}: launches "
+                                     f"{r['launches']}, want {want}")
+        check(_all_finite(r["final"]), f"[{tag}] {name}: non-finite params")
+        for rec in hist.records:
+            check(math.isfinite(rec.test_loss),
+                  f"[{tag}] {name}, round {rec.round}: non-finite test loss")
+        n = len(hist.records)
+        window = [w for w in r["main_waits"] if 1 <= w <= n - 1]
+        per_round = {t: window.count(t) for t in range(1, n)}
+        r.update(rec=held["rec"], select_stats=dict(srv.select_stats),
+                 injector=dict(srv._injector.stats),
+                 s_per_round=r["run_s"] / n, per_round_waits=per_round)
+        log(f"[{tag}] {name}: {n} guarded rounds in {r['run_s']:.3f} s = "
+            f"{r['s_per_round']:.4f} s/round, peak {r['peak_gb']:.2f} GB; "
+            f"ok rows {[x['ok'].astype(int).tolist() for x in held['rec']]}; "
+            f"train losses {[rec.train_loss for rec in hist.records]}, test "
+            f"losses {[round(rec.test_loss, 6) for rec in hist.records]}; "
+            f"select_stats {r['select_stats']}; injector {r['injector']}; "
+            f"launches {r['launches']}; host syncs after round 0: "
+            f"{len(r['syncs'])} sync-debug warnings at {r['syncs']}, "
+            f"main-thread event waits per round {per_round}, all event "
+            f"waits {len(r['waits'])}   [{card}]")
+        runs[name] = r
+        del srv, held
+    sync, d1 = runs["synchronous"], runs["depth 1"]
+    for ra, rb in zip(sync["hist"].records, d1["hist"].records):
+        check(np.array_equal(ra.cohort, rb.cohort)
+              and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+              f"[{tag}] round {ra.round}: the two ways chose other cohorts "
+              f"or masks")
+    check(all(np.array_equal(x["ok"], y["ok"])
+              for x, y in zip(sync["rec"], d1["rec"])),
+          f"[{tag}] the two ways kept other rows")
+    dp = _tree_max_diff(sync.pop("final"), d1.pop("final"))
+    check(dp == 0.0, f"[{tag}] pipelined params differ from the "
+                     f"synchronous loop's by {dp:.3e}")
+    n = len(d1["hist"].records)
+    check(len(d1["syncs"]) == 0
+          and all(v <= 1 for v in d1["per_round_waits"].values()),
+          f"[{tag}] depth 1: more than one host sync a round on the main "
+          f"thread: {d1['syncs']}, {d1['per_round_waits']}")
+    log(f"[{tag}] synchronous vs depth 1: cohorts, masks and ok rows equal, "
+        f"max |Δparams| {dp:.3e}; s/round {sync['s_per_round']:.4f} / "
+        f"{d1['s_per_round']:.4f}")
+    out["launches"]["faults_round_tinyllama"] = {
+        k: sync["launches"][k] + d1["launches"][k] for k in want}
+    out["round"] = {name: {k: r[k] for k in (
+        "s_per_round", "run_s", "peak_gb", "select_stats", "injector",
+        "per_round_waits", "syncs", "launches")}
+        for name, r in runs.items()}
+    del runs, sync, d1
+    torch.cuda.empty_cache()
+
+    # (b) round 0's inputs through the guarded step, called directly
+    out["step"] = faults_step(card, cfg, task, params, seed)
+    # (d) the harness's cost: a disabled injector against none
+    out["disabled"] = faults_disabled(card, cfg, task, params)
+    fault_free = pipe["tinyllama_1_1b"]["depth 1"]["s_per_round"]
+    guarded = out["round"]["depth 1"]
+    none = out["disabled"]
+    log(f"[{tag}] guarded depth-1 rounds {guarded['s_per_round']:.4f} "
+        f"s/round, peak {guarded['peak_gb']:.2f} GB; fault-free depth-1 "
+        f"rounds {none['none_s_per_round']:.4f} s/round, peak "
+        f"{none['none_peak_gb']:.2f} GB (this phase), "
+        f"{[round(x, 4) for x in fault_free]} s/round (phase_pipeline); "
+        f"guarded / fault-free "
+        f"{guarded['s_per_round'] / none['none_s_per_round']:.4f}   "
+        f"[{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) Mamba2-370M
+    out["mamba2"] = faults_mamba2(card)
+    out["launches"]["faults_round_mamba2"] = out["mamba2"].pop("launches")
+    # (f) serving
+    out["serve"] = faults_serve(card)
+    out["launches"]["faults_serve"] = out["serve"].pop("launches")
+    return out
+
+
+def faults_reduced(card: str) -> dict:
+    """(c) Reduced xlm-roberta in f32, 3 guarded rounds (the synchronous
+    loop) on the card and on the CPU: the same cohorts, masks and ok rows,
+    counters as replayed, params within 1e-5."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.faults import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("xlm_roberta_base"), n_layers=4, d_model=32)
+    seed = fault_seed(TINY_FAULTS, 3, 4)
+    rows, counters = replay_faults(TINY_FAULTS, seed, 3, 4)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        task = SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=12, n_classes=10, vocab_size=cfg.vocab_size, seq_len=8,
+            samples_per_client=16, skew="label", objective="classification"))
+        exp = Experiment(cfg, task, "ours", cohort_size=4, rounds=3,
+                         local_steps=2, lr=0.01, batch_size=4, budget=2,
+                         lam=1.0, seed=3, pipeline=False, device=dev,
+                         runtime=RuntimeConfig(remat=False, seq_chunk=16),
+                         faults=FaultPlan(seed=seed, **TINY_FAULTS))
+        srv = exp.build()
+        rec = record_faults(srv)
+        params = tree_map(lambda t: t.to(dev),
+                          Experiment(cfg, task, device="cpu").init_params())
+        ops.reset_launches()
+        final, hist = exp.run(params)
+        check_fault_log(f"faults-reduced {dev}", rec, rows, srv.select_stats,
+                        counters)
+        runs[dev] = (tree_map(lambda t: t.cpu(), final), hist, rec,
+                     dict(ops.LAUNCHES))
+    (pg, hg, rg, lg), (pc, hc, rc, lc) = runs["cuda"], runs["cpu"]
+    check(lg["layer_grad_norm"] > 0 and lc == {k: 0 for k in lc}
+          and lg["flash_attention_simt"] == lg["flash_attention"] > 0,
+          f"[faults-reduced] launches on the card {lg}, on the CPU {lc}")
+    for a, b in zip(hg.records, hc.records):
+        check(np.array_equal(a.cohort, b.cohort)
+              and np.array_equal(a.mask_matrix, b.mask_matrix),
+              f"[faults-reduced] round {a.round}: card and CPU chose other "
+              f"cohorts or masks")
+    err = _tree_max_diff(pg, pc)
+    log(f"[faults-reduced] reduced xlm-r f32, 3 guarded rounds (seed "
+        f"{seed}): cohorts, masks and ok rows "
+        f"{[x['ok'].astype(int).tolist() for x in rg]} equal on card and "
+        f"CPU, counters {counters}; max |Δparams| {err:.3e} (atol 1e-5); "
+        f"card launches {lg}")
+    check(err <= 1e-5, "[faults-reduced] card and CPU params differ")
+    return {"params_max_diff": err, "seed": seed}
+
+
+def faults_step(card, cfg, task, params, seed) -> dict:
+    """(b) Round 0 of the guarded TinyLlama run, stage by stage, then its
+    sampled inputs through the guarded step directly: no fault
+    (bit-equal to the dense step), one dead row (against the dense step
+    over the survivors), every row NaN (params unchanged); peak memory of
+    each call and the guard's own time on the stacked deltas."""
+    import numpy as np
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.faults import FaultPlan
+    from repro_torch.tree import tree_leaves
+
+    tag = f"faults-step {cfg.name}"
+    t = task()
+    srv = _round_experiment(cfg, t, faults=FaultPlan(seed=seed,
+                                                     **TINY_FAULTS)).build()
+    split = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t1
+        return res
+    plan, sampled = staged("plan+sample", lambda: (
+        lambda pl: (pl, srv.sample_round(pl)))(srv.plan_round(0)))
+    stats = staged("probe", lambda: srv.probe_round(params, sampled))
+    masks = staged("select", lambda: srv.select_round(plan, stats))
+    new, _ = staged("update (guarded)", lambda: srv.update_round(
+        params, sampled, masks))
+    staged("eval", lambda: srv.client.evaluate(new, srv._to_device(
+        t.test_batch())))
+    del new
+    log(f"[{tag}] round 0 synchronised at stage boundaries: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+        + f"   [{card}]")
+
+    client, fl = srv.client, srv.fl
+    n, b, sizes = fl.cohort_size, sampled.update_batches, plan.sizes
+    ones, zeros = np.ones(n, np.float32), np.zeros(n, np.int32)
+
+    def call(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t1, \
+            torch.cuda.max_memory_allocated() / 1e9
+    (dense, _), dense_s, dense_gb = call(lambda: client.cohort_update_raw(
+        params, b, masks, sizes, fl.lr, cut=None))
+    (guard, _, ok), guard_s, guard_gb = call(
+        lambda: client.cohort_update_guarded(params, b, masks, sizes, fl.lr,
+                                             ones, zeros, 1e30, 1e12))
+    same = _params_equal(guard, dense)
+    check(same and np.array_equal(ok, ones),
+          f"[{tag}] no fault: the guarded step differs from the dense step "
+          f"(max |Δ| {_tree_max_diff(guard, dense):.3e}, ok {ok})")
+    del guard, dense
+    surv = ones.copy()
+    surv[1] = 0.0
+    idx = np.flatnonzero(surv > 0)
+    (dead, _, ok), _, _ = call(lambda: client.cohort_update_guarded(
+        params, b, masks, sizes, fl.lr, surv, zeros, 1e30, 1e12))
+    sub = {k: v[idx] for k, v in b.items()}
+    subd, _ = client.cohort_update_raw(params, sub, masks[idx], sizes[idx],
+                                       fl.lr, cut=None)
+    d_dead = _tree_max_diff(dead, subd)
+    check(np.array_equal(ok, surv) and d_dead <= ROUND_PARAM_ATOL,
+          f"[{tag}] one dead row: ok {ok}, max |Δ| {d_dead:.3e} against "
+          f"the dense step over the survivors")
+    del dead, subd, sub
+    (nan, _, ok), _, _ = call(lambda: client.cohort_update_guarded(
+        params, b, masks, sizes, fl.lr, ones, np.ones(n, np.int32), 1e30,
+        1e12))
+    check(_params_equal(nan, params) and not ok.any(),
+          f"[{tag}] every row NaN: params moved or rows kept ({ok})")
+    del nan
+    torch.cuda.empty_cache()
+
+    # the guard alone on the round's stacked deltas
+    mt = client._device_f32(masks)
+    deltas, _ = client._stacked_deltas(
+        lambda i: client._local_update_impl(
+            params, {k: v[i] for k, v in b.items()}, mt[i], fl.lr), n)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(deltas))
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        agg.corrupt_delta_rows(deltas, zeros, 1e30)
+        okd = agg.finite_row_mask(deltas, 1e12)
+        agg.zero_delta_rows(deltas, okd)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    guard_ms = statistics.median(times)
+    del deltas
+    torch.cuda.empty_cache()
+    log(f"[{tag}] guarded step without faults: bit-equal to the dense step "
+        f"({same}); {guard_s:.4f} s, peak {guard_gb:.2f} GB against the "
+        f"dense step's {dense_s:.4f} s, peak {dense_gb:.2f} GB; one dead "
+        f"row: max |Δparams| {d_dead:.3e} against the dense step over the "
+        f"survivors (atol {ROUND_PARAM_ATOL:g}, bf16 params); every row "
+        f"NaN: params unchanged; the guard alone (finite_row_mask + "
+        f"zero_delta_rows, no codes) on {nbytes / 1e9:.2f} GB of stacked f32 "
+        f"deltas: {guard_ms:.3f} ms median of 3, "
+        f"{nbytes / guard_ms / 1e6:.0f} GB/s read   [{card}]")
+    del srv
+    return {"split": split, "dense_s": dense_s, "dense_peak_gb": dense_gb,
+            "guarded_s": guard_s, "guarded_peak_gb": guard_gb,
+            "dead_row_max_diff": d_dead, "guard_ms": guard_ms,
+            "delta_bytes": nbytes}
+
+
+def faults_disabled(card, cfg, task, params) -> dict:
+    """(d) Three pipelined seq-1024 rounds with no injector and with a
+    disabled one, in turns (none, disabled, disabled, none): the same
+    cohorts and masks and bit-equal params; the s/round ratio."""
+    import numpy as np
+    from repro_torch.faults import FaultPlan
+    tag = f"faults-disabled {cfg.name}"
+    runs = {"none": [], "disabled": []}
+    base = None
+    for name in ("none", "disabled", "disabled", "none"):
+        plan = None if name == "none" else FaultPlan(enabled=False,
+                                                     **TINY_FAULTS)
+        r = _run_way(cfg, task(), params, dict(pipeline=True,
+                                               pipeline_depth=1,
+                                               faults=plan))
+        if base is None:
+            base, base_final = r, r["final"]
+        for ra, rb in zip(r["hist"].records, base["hist"].records):
+            check(np.array_equal(ra.cohort, rb.cohort)
+                  and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+                  f"[{tag}] {name}: other cohorts or masks")
+        check(_params_equal(r.pop("final"), base_final),
+              f"[{tag}] {name}: params differ from the first run's")
+        n = len(r["hist"].records)
+        runs[name].append((r["run_s"] / n, r["peak_gb"]))
+        log(f"[{tag}] {name}: {n} rounds in {r['run_s']:.3f} s = "
+            f"{r['run_s'] / n:.4f} s/round, peak {r['peak_gb']:.2f} GB, "
+            f"launches {r['launches']}   [{card}]")
+    del base_final
+    none = statistics.mean(x for x, _ in runs["none"])
+    off = statistics.mean(x for x, _ in runs["disabled"])
+    log(f"[{tag}] disabled / none s/round: {off:.4f} / {none:.4f} = "
+        f"{off / none:.4f} (the reference's relation: a disabled injector "
+        f"costs at most 1.05x); params bit-equal   [{card}]")
+    return {"none_s_per_round": none, "disabled_s_per_round": off,
+            "ratio": off / none, "none_peak_gb": runs["none"][0][1],
+            "runs": runs}
+
+
+def faults_mamba2(card: str) -> dict:
+    """(e) Two guarded Mamba2-370M rounds at seq 512 (pipelined, depth 1)
+    under client death and every corruption kind: every ``ssd_scan``
+    launch on the tensor-core route, finite params, ok rows and counters
+    as replayed."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.faults import FaultPlan
+
+    cfg = get_arch("mamba2_370m")
+    tag = f"faults {cfg.name}"
+    exp = _round_experiment(cfg, _ssm_task(cfg), rounds=2, pipeline=True,
+                            pipeline_depth=1)
+    fl, params = exp.fl, exp.init_params()
+    del exp
+    seed = fault_seed(MAMBA_FAULTS, 2, fl.cohort_size)
+    rows, counters = replay_faults(MAMBA_FAULTS, seed, 2, fl.cohort_size)
+    held = {}
+
+    def prepare(srv):
+        held["srv"], held["rec"] = srv, record_faults(srv)
+    r = _run_way(cfg, _ssm_task(cfg), params, dict(
+        rounds=2, pipeline=True, pipeline_depth=1,
+        faults=FaultPlan(seed=seed, **MAMBA_FAULTS)), prepare=prepare)
+    srv = held["srv"]
+    check_fault_log(tag, held["rec"], rows, srv.select_stats, counters)
+    want = guarded_want(cfg, fl, 2)
+    check(r["launches"] == want, f"[{tag}] launches {r['launches']}, want "
+                                 f"{want}")
+    check(_all_finite(r.pop("final")), f"[{tag}] non-finite params")
+    n = len(r["hist"].records)
+    log(f"[{tag}] seed {seed}: {n} guarded rounds (seq {SSM_SEQ}) in "
+        f"{r['run_s']:.3f} s = {r['run_s'] / n:.4f} s/round, peak "
+        f"{r['peak_gb']:.2f} GB; ok rows "
+        f"{[x['ok'].astype(int).tolist() for x in held['rec']]}; counters "
+        f"{counters}; launches {r['launches']}   [{card}]")
+    del params, srv, held
+    torch.cuda.empty_cache()
+    return {"launches": r["launches"], "s_per_round": r["run_s"] / n,
+            "peak_gb": r["peak_gb"], "seed": seed}
+
+
+def serve_fault_seed(slots: int, first_steps: int, first_writes: int) -> int:
+    """The smallest seed of SERVE_FAULTS whose slot lane strikes within
+    the first ``first_steps`` decode steps (every slot busy then) and whose
+    upload lane fails one of the first ``first_writes`` entry writes."""
+    from repro_torch.faults import FaultInjector, FaultPlan, TransientFault
+    for seed in range(100_000):
+        inj = FaultInjector(FaultPlan(seed=seed, **SERVE_FAULTS))
+        strikes = any(inj.slot_faults(s, slots).any()
+                      for s in range(1, first_steps + 1))
+        fails = 0
+        for q in range(first_writes):
+            try:
+                inj.maybe_fail_upload(q)
+            except TransientFault:
+                fails += 1
+        if strikes and fails:
+            return seed
+    raise SmokeFailure("no serving seed covers both faults")
+
+
+def faults_serve(card: str) -> dict:
+    """(f) Delta-mode TinyLlama-1.1B serving (4 slots, 8 requests of prompt
+    8 and 16 new tokens, 4 users × 2 delta layers): under upload failures
+    and slot strikes with generous retries every request finishes with the
+    fault-free run's tokens; with every upload failing no user is ever
+    half-admitted and the requests are dropped within ``admit_retries``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.faults import FaultInjector, FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("tinyllama_1_1b")
+    tag = f"faults-serve {cfg.name}"
+    model = Model(cfg, RuntimeConfig(remat=False), device="cuda")
+    params = model.init(0)
+    store = synthetic_store(model, users=4, layers_per_user=2, seed=0)
+    slots, n_req, plen, max_new = 4, 8, 8, 16
+    max_seq = plen + max_new + 1
+
+    clean, _ = serve.SlotServer(model, params, slots, max_seq, mode="delta",
+                                store=store, device="cuda").run(
+        requests(cfg, n_req, plen, max_new, 4))
+    want_tokens = {r.rid: r.generated for r in clean}
+    seed = serve_fault_seed(slots, 16, 8)
+    inj = FaultInjector(FaultPlan(seed=seed, **SERVE_FAULTS))
+    srv = serve.SlotServer(model, params, slots, max_seq, mode="delta",
+                           store=store, injector=inj, max_slot_retries=50,
+                           device="cuda")
+    srv.overlay.max_upload_retries = 50
+    hits = [0]
+    draw = inj.slot_faults
+
+    def slot_faults(step, n):
+        hit = draw(step, n)
+        hits[0] += sum(srv.active[i] is not None
+                       for i in np.flatnonzero(hit).tolist())
+        return hit
+    inj.slot_faults = slot_faults
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    done, stats = srv.run(requests(cfg, n_req, plen, max_new, 4))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    got = {r.rid: r.generated for r in done}
+    check(sorted(got) == list(range(n_req))
+          and all(len(v) == max_new for v in got.values()),
+          f"[{tag}] {len(done)} of {n_req} requests finished")
+    same = sum(got[r] == want_tokens[r] for r in got)
+    check(same == n_req, f"[{tag}] {n_req - same} requests generated other "
+                         f"tokens than the fault-free run")
+    check(srv.overlay.stats["upload_retries"] == inj.stats["upload_faults"]
+          > 0 and srv.overlay.stats["failed_admits"] == 0,
+          f"[{tag}] overlay {srv.overlay.stats}, injector {inj.stats}")
+    check(stats["slot_failures"] == hits[0] > 0,
+          f"[{tag}] slot_failures {stats['slot_failures']}, strikes on busy "
+          f"slots {hits[0]}")
+    want_mm = stats["steps"] * cfg.n_layers * 6
+    check(launches["base_delta_matmul"] == want_mm,
+          f"[{tag}] {launches['base_delta_matmul']} delta_matmul launches "
+          f"over {stats['steps']} steps, want {want_mm}")
+    log(f"[{tag}] seed {seed}, {SERVE_FAULTS}: {len(done)} of {n_req} "
+        f"requests finished in {stats['steps']} steps, each with the "
+        f"fault-free run's tokens; slot_failures {stats['slot_failures']} "
+        f"(strikes on busy slots {hits[0]}, injector {inj.stats}); overlay "
+        f"{srv.overlay.stats}; {launches['base_delta_matmul']} delta_matmul "
+        f"launches; {stats['wall_s'] * 1e3 / stats['steps']:.2f} ms/step   "
+        f"[{card}]")
+    del srv
+
+    # every upload fails: admits roll back whole, requests are dropped
+    inj = FaultInjector(FaultPlan(seed=0, upload_fail_rate=1.0))
+    srv = serve.SlotServer(model, params, slots, max_seq, mode="delta",
+                           store=store, injector=inj, admit_retries=2,
+                           device="cuda")
+    admits = {"failed": 0, "half": 0}
+    try_admit = srv.overlay.try_admit
+
+    def checked_admit(slot, record):
+        ok = try_admit(slot, record)
+        if not ok:
+            admits["failed"] += 1
+            admits["half"] += srv.overlay.n_entries != 0
+        return ok
+    srv.overlay.try_admit = checked_admit
+    done, stats2 = srv.run(requests(cfg, n_req, plen, max_new, 4))
+    check(not done and len(srv.dropped) == n_req and admits["half"] == 0
+          and admits["failed"] == n_req * (srv.admit_retries + 1)
+          == srv.overlay.stats["failed_admits"],
+          f"[{tag}] every upload failing: done {len(done)}, dropped "
+          f"{len(srv.dropped)}, admits {admits}, overlay "
+          f"{srv.overlay.stats}")
+    log(f"[{tag}] every upload failing: {admits['failed']} admits failed "
+        f"and rolled back whole (n_entries 0 after each), {len(srv.dropped)}"
+        f" of {n_req} requests dropped within admit_retries "
+        f"{srv.admit_retries}; injector {inj.stats}   [{card}]")
+    del srv, params, model, store
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats, "seed": seed,
+            "slot_hits": hits[0]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2288,15 +2954,21 @@ def main() -> int:
         pipe = phase_pipeline(card)
         pre = phase_pretrain(card)
         ckp = phase_checkpoint(card)
+        faults = phase_faults(card, pipe)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
     total = kern["total"]
+    fault_paths = faults["launches"]
+    delta_paths = {"serve": served["delta"]["launches"],
+                   **{p: l["base_delta_matmul"]
+                      for p, l in fault_paths.items()}}
     line = {"kernels": [{
         "name": "base_delta_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_matmul.cu",
         "replaces": "src/repro/kernels/delta_matmul.py:89",
-        "launches": served["delta"]["launches"],
+        "launches": sum(delta_paths.values()),
+        "launches_by_path": delta_paths,
         "max_abs_err": kern["max_abs_err"],
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
@@ -2306,7 +2978,7 @@ def main() -> int:
         "no_live_ms": total["no_live_ms"],
         "library_no_live_ms": total["library_no_live_ms"],
         "no_live_bound_ms": total["no_live_bound_ms"],
-        "launches_by_kernel_route": {"cuda": served["delta"]["launches"]},
+        "launches_by_kernel_route": {"cuda": sum(delta_paths.values())},
         "delta_over_shared_step": served["delta_over_shared"],
         "timed_as": "sum over one layer's six projections at B=4, 2 live "
                     "entries of 4 (no_live_ms: none live)",
@@ -2332,7 +3004,8 @@ def main() -> int:
                    "tinyllama_pipeline_seq1024":
                        pipe["tinyllama_1_1b"]["launches"][name],
                    "mamba2_pipeline": pipe["mamba2_370m"]["launches"][name],
-                   "tinyllama_checkpoint_resume": ckp["launches"][name]}
+                   "tinyllama_checkpoint_resume": ckp["launches"][name],
+                   **{p: l[name] for p, l in fault_paths.items()}}
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -2349,21 +3022,18 @@ def main() -> int:
             "mamba2_370m": {**tm["total"], "timed_as": timed_ssm,
                             "shapes": tm["rows"]}})
     main_ssd = ssd["main"]
+    ssd_paths = {"mamba2_round": ssm_rounds["launches"],
+                 "mamba2_top_round": ssm_rounds["top_launches"],
+                 "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
+                 **fault_paths}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:72",
-        "launches": ssm_rounds["launches"]["ssd_scan"]
-        + ssm_rounds["top_launches"]["ssd_scan"]
-        + pipe["mamba2_370m"]["launches"]["ssd_scan"],
-        "launches_by_path": {
-            "mamba2_round": ssm_rounds["launches"]["ssd_scan"],
-            "mamba2_top_round": ssm_rounds["top_launches"]["ssd_scan"],
-            "mamba2_pipeline": pipe["mamba2_370m"]["launches"]["ssd_scan"]},
+        "launches": sum(l["ssd_scan"] for l in ssd_paths.values()),
+        "launches_by_path": {p: l["ssd_scan"] for p, l in ssd_paths.items()},
         "launches_by_kernel_route": {
-            r: ssm_rounds["launches"][f"ssd_scan_{r}"]
-            + ssm_rounds["top_launches"][f"ssd_scan_{r}"]
-            + pipe["mamba2_370m"]["launches"][f"ssd_scan_{r}"]
+            r: sum(l[f"ssd_scan_{r}"] for l in ssd_paths.values())
             for r in ("mma", "simt")},
         "max_abs_err": main_ssd["max_abs_err"], "ms": main_ssd["ms"],
         "plain_ms": main_ssd["plain_ms"], "bound_ms": main_ssd["bound_ms"],
@@ -2378,7 +3048,8 @@ def main() -> int:
                    "tinyllama_pipeline_seq1024":
                        pipe["tinyllama_1_1b"]["launches"],
                    "tinyllama_pretrain": pre["launches"],
-                   "tinyllama_checkpoint_resume": ckp["launches"]}
+                   "tinyllama_checkpoint_resume": ckp["launches"],
+                   **fault_paths}
     flash_shapes = [{k: v for k, v in c.items()} for c in flash["cases"]]
     for name, key, err_keys, extra in (
             ("flash_attention", "flash_attention", ("o_max_abs_err",),

@@ -17,10 +17,11 @@ streams through the round scheduler (``pipeline_depth`` rounds ahead)
 unless ``pipeline=False``; ``pretrain_steps > 0`` pretrains the initial
 params with AdamW on the task's ``pretrain_batch`` (``data/pretrain.py``);
 ``checkpoint_dir`` saves round-boundary checkpoints and ``run`` resumes
-from the latest one.  The model runs on ``device`` (the card unless
-``device="cpu"``).
-
-Not ported yet (ROADMAP.md, 'Slice 5', item 5): ``faults`` raises.
+from the latest one; ``faults`` (a ``repro_torch.faults.FaultPlan`` or
+``FaultInjector``) injects client death, delta corruption, solver stalls,
+dispatch failures and checkpoint damage, and ``solver_deadline_s`` puts a
+wall-clock deadline on the scheduler's (P1) solve (DESIGN.md §12).  The
+model runs on ``device`` (the card unless ``device="cpu"``).
 """
 from __future__ import annotations
 

@@ -1,6 +1,5 @@
 """Task protocol: the datasource seam of the federation API (counterpart of
-``repro/api/task.py``; its ``ChaosTask`` waits for the faults slice,
-ROADMAP.md).
+``repro/api/task.py``).
 
 A *Task* is anything the round engines can federate over.  The required
 surface (structural — no inheritance needed) is:
@@ -27,7 +26,9 @@ state as flat arrays, consumed by ``FLServer.save_state`` /
 :class:`DirichletTokenMixtureTask` is a second implementation beside
 ``SyntheticFederatedData``: a Dirichlet-partitioned topic-mixture text
 task with built-in availability windows and stragglers, a numpy copy of
-the reference's (the same seed gives the same bytes).
+the reference's (the same seed gives the same bytes).  :class:`ChaosTask`
+wraps any task and forces its plan-stage hooks to the worst case on chosen
+rounds (DESIGN.md §12).
 """
 from __future__ import annotations
 
@@ -227,3 +228,50 @@ class DirichletTokenMixtureTask:
         if self.cfg.straggler_rate <= 0.0:
             return np.ones(len(cohort), bool)
         return rng.random_sample(len(cohort)) >= self.cfg.straggler_rate
+
+
+class ChaosTask:
+    """Wrap any Task and force its plan-stage hooks to the worst case on
+    chosen rounds: the adversarial fixture of the degradation contracts.
+
+    ``empty_pool_rounds``: rounds whose availability pool is empty;
+    ``all_straggler_rounds``: rounds where every drawn cohort member fails
+    to report.  Everything else (data streams, sizes, checkpoint hooks)
+    delegates verbatim to ``inner``, so outside the listed rounds a
+    ChaosTask run is bit-identical to the inner task's.
+    """
+
+    def __init__(self, inner, *, empty_pool_rounds=(),
+                 all_straggler_rounds=()):
+        self.inner = inner
+        self.empty_pool_rounds = frozenset(int(t) for t in empty_pool_rounds)
+        self.all_straggler_rounds = frozenset(
+            int(t) for t in all_straggler_rounds)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return self.inner.sizes
+
+    def cohort_batches(self, cohort, batch_size: int, n: int) -> dict:
+        return self.inner.cohort_batches(cohort, batch_size, n)
+
+    def test_batch(self, batch_size: Optional[int] = None) -> dict:
+        return self.inner.test_batch(batch_size)
+
+    def available_clients(self, t: int, rng: np.random.RandomState):
+        if t in self.empty_pool_rounds:
+            return np.zeros(0, np.int64)
+        hook = getattr(self.inner, "available_clients", None)
+        return hook(t, rng) if callable(hook) else None
+
+    def drop_stragglers(self, t: int, cohort: np.ndarray,
+                        rng: np.random.RandomState) -> np.ndarray:
+        if t in self.all_straggler_rounds:
+            return np.zeros(len(cohort), bool)
+        hook = getattr(self.inner, "drop_stragglers", None)
+        if callable(hook):
+            return hook(t, cohort, rng)
+        return np.ones(len(cohort), bool)

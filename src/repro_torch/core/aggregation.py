@@ -21,13 +21,19 @@ reference's (``models/model.py``).
 Every selectable segment is a stacked (count, …) segment here: the hybrid
 family's unstacked shared block is not ported.
 
-The fault helpers (``corrupt_delta_rows``, ``finite_row_mask``,
-``zero_delta_rows``) are not ported yet (ROADMAP.md, Queue 1 item 9).
+* :func:`corrupt_delta_rows`, :func:`finite_row_mask`,
+  :func:`zero_delta_rows` — the fault path's injected corruption and
+  finite guard on a stacked (n, …) delta tree (DESIGN.md §12).  The
+  reference's are out of place; these write into the stacked buffer the
+  round owns (the same values), so a full-width cohort's deltas are never
+  copied.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.masks import aggregation_weights
@@ -53,6 +59,63 @@ def scale_by_layer(tree: dict, scale_vec: torch.Tensor, cfg) -> dict:
             out[key] = tree_map(lambda x, s=parts[key]: x * _row_scale(s, x),
                                 sub)
     return out
+
+
+def corrupt_delta_rows(deltas: dict, codes, explode_scale) -> dict:
+    """Apply per-row injected corruption to a stacked (n, …) delta tree, in
+    place, and return it.
+
+    ``codes`` (n,) int, a host array (the injector draws it on the host),
+    uses :data:`repro_torch.faults.CORRUPT_CODES`: 0 clean, 1 NaN-fill,
+    2 Inf-fill, 3 ×``explode_scale`` in the leaf's dtype.  A corrupted row
+    is filled in every leaf, the zero rows of unselected layers included;
+    clean rows are not touched.
+    """
+    codes = np.asarray(codes, np.int32)
+    for x in tree_leaves(deltas):
+        # the scale rounded to the leaf's dtype, on the host
+        scale = torch.tensor(explode_scale, dtype=x.dtype).item()
+        for i in np.flatnonzero(codes).tolist():
+            if codes[i] == 3:
+                x[i].mul_(scale)
+            else:
+                x[i].fill_(math.inf if codes[i] == 2 else math.nan)
+    return deltas
+
+
+def finite_row_mask(deltas: dict, max_sq) -> torch.Tensor:
+    """(n,) f32 quarantine mask over a stacked delta tree: 1 where every
+    entry of the row is finite AND the row's Δ sq-norm, summed in f32, is
+    at most ``max_sq``.  The two predicates stay apart: with ``max_sq =
+    inf`` a finite row whose square sum overflows to inf is kept (inf ≤
+    inf), as in the reference.  Row by row, in two reads of each row and
+    no row-sized transient: a row is all finite iff its min and max are
+    (``aminmax`` propagates NaN)."""
+    leaves = tree_leaves(deltas)
+    fin, sq = [], []
+    for i in range(leaves[0].shape[0]):
+        f = s = None
+        for x in leaves:
+            r = x[i].reshape(-1).float()
+            lo, hi = torch.aminmax(r)
+            fi, si = torch.isfinite(lo) & torch.isfinite(hi), torch.dot(r, r)
+            f = fi if f is None else f & fi
+            s = si if s is None else s + si
+        fin.append(f)
+        sq.append(s)
+    limit = float(np.float32(max_sq))     # compared in f32
+    return (torch.stack(fin) & (torch.stack(sq) <= limit)).float()
+
+
+def zero_delta_rows(deltas: dict, ok: torch.Tensor) -> dict:
+    """Zero, in place, the rows ``ok`` marks dead or quarantined, and
+    return the tree.  Needed before the Eq.(5) contraction: a zero Eq.(7)
+    weight does not cancel a NaN/Inf row (0·NaN = NaN), so the rows are
+    filled with zeros, never multiplied by ``ok``."""
+    dead = ok <= 0
+    for x in tree_leaves(deltas):
+        x.masked_fill_(dead.reshape((-1,) + (1,) * (x.dim() - 1)), 0.0)
+    return deltas
 
 
 def aggregate(deltas: Sequence[dict], mask_matrix, sizes, cfg) -> dict:

@@ -29,7 +29,9 @@ be queued while earlier ones run.  ``cohort_update``, ``probe_cohort`` and
 ``probe_update_cohort_raw`` is the update followed by the next cohort's
 probe on the updated params: the reference fuses them into one XLA
 program, here they are queued one after the other (the same math).
-``cohort_update_guarded`` (faults) is not ported yet (ROADMAP.md).
+``cohort_update_guarded_raw`` is the fault path's round step: the dense
+program for every row, then the injected corruption, the finite guard and
+the survivor-reweighted Eq.(5)-(7) aggregation (DESIGN.md §12).
 """
 from __future__ import annotations
 
@@ -80,24 +82,28 @@ class HostCopy:
     into pinned memory ``non_blocking`` behind the work already queued, and
     an event is recorded after the copies: :meth:`to_numpy` waits for that
     event alone, never for kernels queued later, and can run on another
-    thread (the scheduler's solver thread)."""
+    thread (the scheduler's solver thread).  Host arrays pass through."""
 
-    def __init__(self, tensors: dict[str, torch.Tensor]):
-        tensors = {k: v.detach() for k, v in tensors.items()}
+    def __init__(self, tensors: dict):
         self._event = None
-        if next(iter(tensors.values())).is_cuda:
-            tensors = {k: torch.empty(v.shape, dtype=v.dtype,
-                                      pin_memory=True).copy_(
-                                          v, non_blocking=True)
-                       for k, v in tensors.items()}
-            self._event = torch.cuda.Event()
+        self._host = {}
+        for k, v in tensors.items():
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+                if v.is_cuda:
+                    v = torch.empty(v.shape, dtype=v.dtype,
+                                    pin_memory=True).copy_(v,
+                                                           non_blocking=True)
+                    self._event = torch.cuda.Event()
+            self._host[k] = v
+        if self._event is not None:
             self._event.record()
-        self._host = tensors
 
     def to_numpy(self) -> dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
-        return {k: v.numpy() for k, v in self._host.items()}
+        return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in self._host.items()}
 
 
 def probe_stats_dict(stats: dict) -> dict[str, np.ndarray]:
@@ -253,6 +259,51 @@ class Client:
         new_params, losses = self.cohort_update_raw(params, batches, masks,
                                                     sizes, lr, cut)
         return new_params, losses.cpu().numpy()
+
+    # -- fault-guarded cohort round: survivor reweighting + finite guard ----
+    def cohort_update_guarded_raw(self, params: dict, batches: dict, masks,
+                                  sizes, lr: float, survivors, codes,
+                                  explode_scale, max_delta_sq
+                                  ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+        """The fault path's round step, nothing copied to the host: the
+        dense program for every row (dead rows too, as the reference
+        computes them), then the injected corruption (``codes``, host
+        int32), the finite guard, the dead and quarantined rows zeroed in
+        place, and Eq.(5)-(7) with the sizes of those rows zeroed.  A
+        no-fault call (survivors 1, codes 0) computes exactly
+        ``cohort_update_raw(cut=None)``'s params; a layer all of whose
+        selectors died gets weight 0 and passes through (θ − η·0 = θ).
+
+        Returns ``(new_params, losses, ok)``: ``ok`` (n,) f32 on the device
+        marks the rows that aggregated (alive, finite and under
+        ``max_delta_sq``).
+        """
+        cfg = self.cfg
+        mt = self._device_f32(masks)
+        deltas, losses = self._stacked_deltas(
+            lambda i: self._local_update_impl(params, _row(batches, i),
+                                              mt[i], lr), mt.shape[0])
+        agg.corrupt_delta_rows(deltas, codes, explode_scale)
+        ok = agg.finite_row_mask(deltas, max_delta_sq) \
+            * self._device_f32(survivors)
+        agg.zero_delta_rows(deltas, ok)
+        weights = M.aggregation_weights(mt, self._device_f32(sizes) * ok)
+        update = agg.aggregate_stacked(deltas, weights, cfg)
+        del deltas
+        return agg.apply_suffix_update(params, update, lr, 0, cfg), losses, ok
+
+    def cohort_update_guarded(self, params: dict, batches: dict, masks, sizes,
+                              lr: float, survivors, codes, explode_scale,
+                              max_delta_sq
+                              ) -> tuple[dict, np.ndarray, np.ndarray]:
+        """:meth:`cohort_update_guarded_raw` with losses and ``ok`` on the
+        host: one wait, for their copy."""
+        new_params, losses, ok = self.cohort_update_guarded_raw(
+            params, batches, masks, sizes, lr, survivors, codes,
+            explode_scale, max_delta_sq)
+        # repro: allow[host-sync] -- fault accounting is a sanctioned round-boundary sync (DESIGN.md §12)
+        host = HostCopy({"losses": losses, "ok": ok}).to_numpy()
+        return new_params, host["losses"], host["ok"]
 
     # -- selection probe: layer-wise gradient stats on one batch ------------
     def _probe_one(self, params: dict, batch: dict,

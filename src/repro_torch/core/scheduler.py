@@ -42,9 +42,11 @@ synchronous loop.
 dispatch complete, the prefetch inside it included), not device latency:
 the end-of-run drain is excluded, so ``sum(wall_s)`` ≤ the elapsed time.
 ``verbose=True`` prints round t at the end of iteration t+1, once its
-record has come down.  Fault injection (the reference's guarded round
-step) is not ported: ``FLServer`` rejects ``faults`` (ROADMAP.md,
-'Slice 5', item 5).
+record has come down.  With faults active the guarded round step
+(``FLServer._update_round_faulty``) replaces the update and round t+1's
+probe is queued behind it; its fault accounting waits once a round for the
+guard's ``ok`` rows and losses (the reference's sanctioned round-boundary
+sync), and those host losses ride the round's pending record.
 """
 from __future__ import annotations
 
@@ -204,7 +206,14 @@ class RoundScheduler:
                 cut = srv._cut_for(masks)
                 nxt = self._queue[0] if self._queue else None
                 nstats = None
-                if fuse and nxt is not None and \
+                if srv._faults_active:
+                    # the guarded round step (host losses), then round
+                    # t+1's probe on the updated params
+                    params, losses = srv._update_round_faulty(
+                        params, sampled, masks)
+                    if nxt is not None:
+                        nstats = self._probe(params, nxt)
+                elif fuse and nxt is not None and \
                         nxt.probe_batches is not None:
                     # round t+1's probe, queued right behind round t's
                     # update on the updated params

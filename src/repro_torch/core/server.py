@@ -42,8 +42,15 @@ reference's format (``ckpt/checkpoint.py``), so a run resumes bit-exactly
 on masks (:meth:`FLServer.restore_state`, ``run(start=, history=)``), in
 either package.
 
-Not ported yet (ROADMAP.md, 'Slice 5', item 5): fault injection
-(``faults`` raises).
+Fault injection and graceful degradation (``faults=FaultPlan(...)``,
+DESIGN.md §12) follow the reference: client death and delta corruption
+run the guarded round step (``Client.cohort_update_guarded``, the dense
+program with the finite guard and survivor-reweighted Eq.(5)-(7); the
+sequential engine's oracle does the same on the host), solver stalls fall
+back to warm/greedy masks, injected dispatch failures retry boundedly and
+re-raise once the retries are spent, and a saved checkpoint may be damaged
+after the write (restore then falls back to the newest intact one).  A
+disabled injector changes nothing.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.api.strategy import SelectionContext, Strategy, get_strategy
 from repro_torch.configs.base import FLConfig
@@ -64,9 +72,9 @@ from repro_torch.core.solver import greedy_rows
 from repro_torch.core.state import (ClientStateStore, rng_state_from_arrays,
                                     rng_state_to_arrays, sub_state)
 from repro_torch.core.strategies import ProbeReport
+from repro_torch.faults.injector import TransientFault, coerce_injector
 from repro_torch.models.model import Model, supports_prefix_cut
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, 'Slice 5', item {})"
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -189,9 +197,6 @@ class FLServer:
         if checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection " + _NOT_PORTED.format(5))
         if mask_aware and not supports_prefix_cut(model.cfg):
             raise ValueError(
                 f"mask_aware=True but family {model.cfg.family!r} has no "
@@ -236,9 +241,8 @@ class FLServer:
         # (inputs-key, masks) of the last host solve: an identical round
         # skips the solve (byte-compared inputs, deterministic solver)
         self._select_memo: Optional[tuple] = None
-        # the reference's full counter set, so a checkpoint's manifest
-        # means the same in both packages (the fault counters stay 0 until
-        # fault injection is ported)
+        # the reference's counter set, so a checkpoint's manifest means
+        # the same in both packages
         self.select_stats = {"solves": 0, "memo_hits": 0,
                              "partial_warm_starts": 0,
                              "all_straggler_rounds": 0,
@@ -246,6 +250,9 @@ class FLServer:
                              "solver_timeouts": 0, "dispatch_retries": 0,
                              "ckpt_fallbacks": 0}
         self._straggler_warned = False
+        # fault injection (None = no injector); a wired but disabled
+        # injector never touches the round path
+        self._injector = coerce_injector(faults)
         # a real wall-clock deadline on the scheduler's background (P1)
         # solve (None = wait for it)
         self.solver_deadline_s = solver_deadline_s
@@ -261,6 +268,32 @@ class FLServer:
     def _to_device(self, batch: dict) -> dict:
         return {k: host_to_device(v, self.model.device)
                 for k, v in batch.items()}
+
+    # -- fault machinery (DESIGN.md §12) ---------------------------------
+    @property
+    def _faults_active(self) -> bool:
+        return self._injector is not None and self._injector.enabled
+
+    def _dispatch(self, t: int, fn, *args):
+        """Run a round step with bounded retry and backoff over injected
+        :class:`TransientFault` only; any other exception propagates.  Once
+        ``max_dispatch_retries`` retries are spent the fault re-raises: a
+        dispatch that keeps failing ends the run."""
+        if not self._faults_active:
+            return fn(*args)
+        plan = self._injector.plan
+        attempt = 0
+        while True:
+            try:
+                self._injector.maybe_fail_dispatch(t, attempt)
+                return fn(*args)
+            except TransientFault:
+                attempt += 1
+                self.select_stats["dispatch_retries"] += 1
+                if attempt > plan.max_dispatch_retries:
+                    raise
+                if plan.retry_backoff_s > 0:
+                    time.sleep(plan.retry_backoff_s * (2 ** (attempt - 1)))
 
     # -- stage 1: plan ---------------------------------------------------
     def _budgets(self, cohort: np.ndarray) -> np.ndarray:
@@ -412,6 +445,10 @@ class FLServer:
                                                     plan.budgets))
         if not self.strategy.host:
             return self.strategy.select(probe, plan.budgets, ctx)
+        if self._faults_active and self._injector.solver_stalls(plan.t):
+            # injected stall: the (P1) solve missed its deadline — degrade
+            # to warm/greedy masks instead of waiting
+            return self._select_fallback(plan, probe)
         memoizable = getattr(self.strategy, "memoizable_select", False)
         key = self._memo_key(plan, probe, ctx.init) if memoizable else None
         if memoizable and self._select_memo is not None \
@@ -425,6 +462,26 @@ class FLServer:
                 self._select_memo = (key, masks.copy())
         self.state.set_warm_rows(plan.cohort, masks, t=plan.t)
         return masks
+
+    def _select_fallback(self, plan: RoundPlan,
+                         probe: Optional[ProbeReport]) -> np.ndarray:
+        """Masks for an injected solver stall: each member's warm row where
+        one exists, a greedy solve on this round's utilities for unseen
+        members, zeros (a forward-only row) when neither is there.  The
+        memo is cleared (fallback masks are no solve output) and the rows
+        become the next round's warm start, as solved masks do."""
+        self.select_stats["solver_timeouts"] += 1
+        rows, valid = self.state.warm_rows(plan.cohort)
+        if not valid.all() and probe is not None \
+                and probe.grad_sq_norms is not None:
+            G = np.asarray(probe.grad_sq_norms)
+            budgets = np.broadcast_to(np.asarray(plan.budgets), (len(rows),))
+            missing = np.flatnonzero(~valid)
+            rows[missing] = greedy_rows(G[missing], budgets[missing],
+                                        costs=self.layer_costs)
+        self._select_memo = None
+        self.state.set_warm_rows(plan.cohort, rows, t=plan.t)
+        return rows
 
     def _fallback_rows(self, plan: RoundPlan) -> np.ndarray:
         """Masks for a round whose (P1) solve missed ``solver_deadline_s``:
@@ -444,19 +501,106 @@ class FLServer:
     def update_round(self, params: dict, sampled: SampledRound,
                      masks: np.ndarray) -> tuple[dict, np.ndarray]:
         fl, plan = self.fl, sampled.plan
+        if self._faults_active:
+            return self._update_round_faulty(params, sampled, masks)
         if self.engine == "vectorized":
             return self.client.cohort_update(params, sampled.update_batches,
                                              masks, plan.sizes, fl.lr,
                                              cut=self._cut_for(masks))
-        deltas, losses = [], []
-        for row in range(len(plan.cohort)):
-            batches = {k: v[row] for k, v in sampled.update_batches.items()}
-            delta, loss = self.client.local_update(params, batches,
-                                                   masks[row], fl.lr)
-            deltas.append(delta)
-            losses.append(loss)
+        deltas, losses = self._local_updates(params, sampled, masks)
         update = agg.aggregate(deltas, masks, plan.sizes, self.model.cfg)
         return agg.apply_update(params, update, fl.lr), np.asarray(losses)
+
+    def _local_updates(self, params: dict, sampled: SampledRound,
+                       masks: np.ndarray) -> tuple[list, list]:
+        """The sequential engine's per-client τ steps: full Δ trees and
+        mean losses, in cohort order."""
+        deltas, losses = [], []
+        for row in range(len(sampled.plan.cohort)):
+            batches = {k: v[row] for k, v in sampled.update_batches.items()}
+            delta, loss = self.client.local_update(params, batches,
+                                                   masks[row], self.fl.lr)
+            deltas.append(delta)
+            losses.append(loss)
+        return deltas, losses
+
+    # -- stage 5, fault path (DESIGN.md §12) ------------------------------
+    def _update_round_faulty(self, params: dict, sampled: SampledRound,
+                             masks: np.ndarray) -> tuple[dict, np.ndarray]:
+        """The round step with the injector live: client death (survivor-
+        reweighted Eq.(7)), injected delta corruption and the finite guard
+        that quarantines poisoned rows before they reach the params.  The
+        vectorized engine runs ``Client.cohort_update_guarded``; the
+        sequential engine runs the host oracle.  The returned losses cover
+        the rows that aggregated (``[nan]`` when none did, so the record
+        shows the poisoned round)."""
+        fl, plan = self.fl, sampled.plan
+        fp = self._injector.plan
+        survivors, codes = self._injector.round_faults(plan.t,
+                                                       len(plan.cohort))
+        if self.engine == "vectorized":
+            params, losses, ok = self._dispatch(
+                plan.t, self.client.cohort_update_guarded, params,
+                sampled.update_batches, masks, plan.sizes, fl.lr,
+                survivors, codes, fp.explode_scale, fp.max_delta_sq)
+        else:
+            params, losses, ok = self._dispatch(
+                plan.t, self._sequential_guarded, params, sampled, masks,
+                survivors, codes)
+        self._account_faults(survivors, ok)
+        kept = np.asarray(losses)[np.asarray(ok) > 0]
+        return params, (kept if kept.size
+                        else np.asarray([np.nan], np.float32))
+
+    def _sequential_guarded(self, params: dict, sampled: SampledRound,
+                            masks: np.ndarray, survivors: np.ndarray,
+                            codes: np.ndarray
+                            ) -> tuple[dict, np.ndarray, np.ndarray]:
+        """The fault path's sequential oracle: per-client updates, the
+        corruption and the finite guard on the host, then Eq.(5)-(7) over
+        exactly the surviving finite rows."""
+        fl, plan = self.fl, sampled.plan
+        fp = self._injector.plan
+        deltas, losses = self._local_updates(params, sampled, masks)
+        ok = np.asarray(survivors, np.float32).copy()
+        for i, code in enumerate(np.asarray(codes, np.int32).tolist()):
+            if code:
+                deltas[i] = self._corrupt_host(deltas[i], code,
+                                               fp.explode_scale)
+            finite, sq = True, np.float32(0.0)
+            for leaf in tree_leaves(deltas[i]):
+                # repro: allow[host-sync] -- the sequential oracle is host-side by definition
+                a = leaf.detach().float().cpu().numpy().ravel()
+                finite = finite and bool(np.isfinite(a).all())
+                sq = np.float32(sq + a.dot(a))
+            if not finite or not sq <= fp.max_delta_sq:
+                ok[i] = 0.0
+        idx = np.flatnonzero(ok > 0)
+        if idx.size:                     # all quarantined: θ unchanged
+            update = agg.aggregate([deltas[i] for i in idx],
+                                   np.asarray(masks)[idx], plan.sizes[idx],
+                                   self.model.cfg)
+            params = agg.apply_update(params, update, fl.lr)
+        return params, np.asarray(losses), ok
+
+    @staticmethod
+    def _corrupt_host(delta: dict, code: int, scale: float) -> dict:
+        """One client's Δ tree under corruption ``code`` (the sequential
+        oracle's twin of ``aggregation.corrupt_delta_rows``)."""
+        if code == 3:
+            return tree_map(lambda x: x.float() * torch.tensor(
+                scale, dtype=torch.float32, device=x.device), delta)
+        fill = math.nan if code == 1 else math.inf
+        return tree_map(lambda x: torch.full_like(x, fill,
+                                                  dtype=torch.float32),
+                        delta)
+
+    def _account_faults(self, survivors: np.ndarray, ok: np.ndarray) -> None:
+        survivors = np.asarray(survivors)
+        ok = np.asarray(ok)  # repro: allow[host-sync] -- fault accounting at the round boundary (sanctioned sync)
+        self.select_stats["dead_clients"] += int((survivors <= 0).sum())
+        self.select_stats["quarantined_rows"] += int(
+            ((ok <= 0) & (survivors > 0)).sum())
 
     # -- stage 6: eval + record ------------------------------------------
     def _ensure_layer_params(self, params: dict) -> None:
@@ -515,7 +659,10 @@ class FLServer:
             tree["task"] = task_sd()
         extra = {"round": t_next, "history": history.to_json(),
                  "select_stats": dict(self.select_stats)}
-        return save_checkpoint(self.checkpoint_dir, t_next, tree, extra=extra)
+        path = save_checkpoint(self.checkpoint_dir, t_next, tree, extra=extra)
+        if self._faults_active:          # media damage after the save
+            self._injector.maybe_corrupt_checkpoint(path, t_next)
+        return path
 
     def restore_state(self, params_template: dict,
                       step: Optional[int] = None

@@ -15,8 +15,10 @@ Three personalization modes (DESIGN.md §9):
   full-parameter copy (materialised on refill), decoded slot by slot with
   batch-1 caches (the reference vmaps over slots).
 
-The fault-injection hooks of the reference (slot strikes, upload retries)
-come with the faults slice.
+With an ``injector`` (``repro_torch.faults``) decode slots may be struck
+after a step: the slot is freed, its request loses its progress and is
+requeued, and is dropped after ``max_slot_retries`` strikes; in delta mode
+the overlay's entry writes may fail and are retried (DESIGN.md §12).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --arch tinyllama-1.1b --slots 4 --requests 10 --mode delta
@@ -55,14 +57,16 @@ class SlotServer:
 
     ``mode``: "shared" | "delta" | "dense" (see module docstring); the
     latter two look requests' ``user_id`` up in ``store``.  A request that
-    cannot be admitted after ``admit_retries`` attempts is dropped
+    cannot be admitted after ``admit_retries`` attempts, or whose slot is
+    struck more than ``max_slot_retries`` times, is dropped
     (``self.dropped``) instead of livelocking the loop.
     """
 
     def __init__(self, model: Model, params: dict, slots: int, max_seq: int,
                  window: int = 0, *, mode: str = "shared",
                  store: Optional[DeltaStore] = None, capacity: int = 0,
-                 admit_retries: int = 16, device="cuda"):
+                 admit_retries: int = 16, max_slot_retries: int = 2,
+                 injector=None, device="cuda"):
         self.device = check_device(model, device)
         if mode not in ("shared", "delta", "dense"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -78,9 +82,13 @@ class SlotServer:
         self.active: list[Request | None] = [None] * slots
         self.pos = np.zeros(slots, np.int32)        # per-slot position
         self.admit_retries = int(admit_retries)
+        self.max_slot_retries = int(max_slot_retries)
+        self.injector = injector
         self.dropped: list[Request] = []
         self._admit_attempts: dict[int, int] = {}   # rid -> failed admits
+        self._fail_counts: dict[int, int] = {}      # rid -> slot strikes
         self._dropped_requests = 0
+        self._slot_failures = 0
         if mode == "dense":
             # per-slot state: private params + a batch-1 cache per slot
             self.bank = stack_tree(params, slots)
@@ -91,6 +99,7 @@ class SlotServer:
             self.cache = model.init_cache(slots, max_seq, window=window,
                                           per_slot=True)
             self.overlay = (DeltaOverlay(model, capacity or slots,
+                                         injector=injector,
                                          device=self.device)
                             if mode == "delta" else None)
 
@@ -108,6 +117,7 @@ class SlotServer:
         self.dropped.append(req)
         self._dropped_requests += 1
         self._admit_attempts.pop(req.rid, None)
+        self._fail_counts.pop(req.rid, None)
         print(f"  dropping request {req.rid} (user {req.user_id}): {why}")
 
     def _admit(self, queue: list[Request]):
@@ -197,6 +207,24 @@ class SlotServer:
                 if r.done or self.pos[i] >= self.max_seq - 1:
                     done.append(r)
                     self._free(i)
+            if self.injector is not None and self.injector.enabled:
+                # injected slot failures: the struck request loses its
+                # progress and reruns from its prompt (admit resets the
+                # position and cache), until its strikes run out
+                struck = self.injector.slot_faults(steps, self.slots)
+                for i in np.flatnonzero(struck).tolist():
+                    r = self.active[i]
+                    if r is None:
+                        continue
+                    self._slot_failures += 1
+                    self._free(i)
+                    n = self._fail_counts.get(r.rid, 0) + 1
+                    self._fail_counts[r.rid] = n
+                    if n > self.max_slot_retries:
+                        self._drop(r, f"slot failed {n} times")
+                    else:
+                        r.generated.clear()
+                        queue.append(r)
             if verbose and steps % 8 == 0:
                 print(f"  step {steps}: {sum(x is not None for x in self.active)}"
                       f" active, {len(queue)} queued, {len(done)} done")
@@ -204,7 +232,8 @@ class SlotServer:
         gen = sum(len(r.generated) for r in done)
         return done, {"steps": steps, "wall_s": dt, "gen_tokens": gen,
                       "tok_per_s": gen / dt if dt > 1e-9 else 0.0,
-                      "dropped_requests": self._dropped_requests}
+                      "dropped_requests": self._dropped_requests,
+                      "slot_failures": self._slot_failures}
 
 
 def _copy_into(dst: dict, src: dict) -> None:

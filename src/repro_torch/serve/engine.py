@@ -8,8 +8,11 @@ f32}}``, with a host ``slot_ids`` mirror that makes admit/release pure
 bookkeeping.  Admitting a user writes only *their* delta rows, in place
 (``copy_`` into the entry; the reference donates the table to a jitted
 write); releasing a slot only marks its entries free — the kernel masks
-stale rows by the -1 owner id.  The reference's ``serve_suite`` and jit
-cache have no counterpart: PyTorch runs eagerly.
+stale rows by the -1 owner id.  With an ``injector`` each entry write
+may fail (an injected ``TransientFault`` before the write); it is retried
+up to ``max_upload_retries`` times, and an admit whose write still fails
+is rolled back whole, so no user is ever half-admitted.  The reference's
+``serve_suite`` and jit cache have no counterpart: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.faults.injector import TransientFault
 from repro_torch.models.model import Model, _block_shapes, supports_delta_decode
 from repro_torch.serve.deltas import DeltaRecord
 
@@ -33,9 +37,14 @@ def check_device(model: Model, device) -> torch.device:
 
 
 class DeltaOverlay:
-    """Capacity-C per-layer delta entries over the ``blocks`` stack."""
+    """Capacity-C per-layer delta entries over the ``blocks`` stack.
 
-    def __init__(self, model: Model, capacity: int, *, device="cuda"):
+    ``injector`` (a ``repro_torch.faults.FaultInjector``, optional) makes
+    entry writes failable: ``stats["upload_retries"]`` counts the retried
+    writes, ``stats["failed_admits"]`` the admits rolled back."""
+
+    def __init__(self, model: Model, capacity: int, *, injector=None,
+                 max_upload_retries: int = 3, device="cuda"):
         self._device = check_device(model, device)
         if not supports_delta_decode(model.cfg):
             raise ValueError(
@@ -51,6 +60,10 @@ class DeltaOverlay:
         self.entries: dict[int, list[tuple[int, int]]] = {}
         self._slots_dev = torch.tensor(self.slot_ids, device=self._device)
         self._dirty = False
+        self.injector = injector
+        self.max_upload_retries = int(max_upload_retries)
+        self.stats = {"upload_retries": 0, "failed_admits": 0}
+        self._upload_seq = 0     # monotone entry-write counter (fault lane)
 
     @property
     def n_entries(self) -> int:
@@ -58,8 +71,9 @@ class DeltaOverlay:
 
     def try_admit(self, slot: int, record: Optional[DeltaRecord]) -> bool:
         """Claim one entry per selected layer for ``slot`` and write the
-        delta rows.  Returns False (writing nothing) if any layer's capacity
-        is exhausted — the caller keeps the request queued."""
+        delta rows.  Returns False, leaving no entry of ``slot`` live, if
+        any layer's capacity is exhausted (the caller keeps the request
+        queued) or an entry write fails past its retries."""
         self.release(slot)
         if record is None or record.n_layers == 0:
             self.entries[slot] = []
@@ -81,14 +95,42 @@ class DeltaOverlay:
             plan.append((li, free[0]))
         ent = []
         for j, (li, c) in enumerate(plan):
-            for name, leaf in self.leaves.items():
-                leaf[li, c].copy_(torch.from_numpy(
-                    np.ascontiguousarray(leaves[name][j], np.float32)))
+            if not self._upload_entry(j, li, c, leaves):
+                # the write failed for good: free the entries this admit
+                # already wrote (the -1 owner masks their rows)
+                for rli, rc in ent:
+                    self.slot_ids[rli, rc] = -1
+                self.entries[slot] = []
+                self._dirty = True
+                self.stats["failed_admits"] += 1
+                return False
             self.slot_ids[li, c] = slot
             ent.append((li, c))
         self.entries[slot] = ent
         self._dirty = True
         return True
+
+    def _upload_entry(self, j: int, li: int, c: int, leaves: dict) -> bool:
+        """Write delta row ``j`` into entry (li, c), retrying injected
+        failures up to ``max_upload_retries`` times.  The failure fires
+        before the write, so a failed attempt leaves the table as it was."""
+        attempt = 0
+        while True:
+            seq = self._upload_seq
+            self._upload_seq += 1
+            try:
+                if self.injector is not None and self.injector.enabled:
+                    self.injector.maybe_fail_upload(seq)
+            except TransientFault:
+                attempt += 1
+                if attempt > self.max_upload_retries:
+                    return False
+                self.stats["upload_retries"] += 1
+                continue
+            for name, leaf in self.leaves.items():
+                leaf[li, c].copy_(torch.from_numpy(
+                    np.ascontiguousarray(leaves[name][j], np.float32)))
+            return True
 
     def release(self, slot: int) -> None:
         for li, c in self.entries.pop(slot, []):

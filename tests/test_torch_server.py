@@ -15,6 +15,7 @@ from repro_torch.bridge import params_to_torch
 from repro_torch.configs import base as tcfg
 from repro_torch.core.server import FLServer as TServer
 from repro_torch.data import synthetic as tsyn
+from repro_torch.faults import FaultPlan
 from repro_torch.models import model as tmodel
 
 TASK = dict(n_clients=12, n_classes=10, seq_len=8, samples_per_client=16,
@@ -118,18 +119,24 @@ def test_experiment_matches_server_run(world):
 
 
 def test_unported_features_raise(world, tmp_path):
-    """Only fault injection is still unported: it raises, naming Slice 5
-    item 5.  The scheduler (the vectorized engine's default), checkpoints
-    and pretraining run."""
+    """Only the other model families are still unported: they raise,
+    naming the ROADMAP entry.  Fault injection is ported (a fault plan is
+    taken, anything else is rejected as the reference rejects it); the
+    scheduler (the vectorized engine's default), checkpoints and
+    pretraining run."""
     _, tm, _, host = world
     data = tsyn.SyntheticFederatedData(tsyn.FederatedTaskConfig(
         vocab_size=tm.cfg.vocab_size, **TASK))
     fl = tcfg.FLConfig(**FL)
     params = params_to_torch(host, "cpu")
-    with pytest.raises(NotImplementedError, match="fault.*item 5"):
+    with pytest.raises(NotImplementedError, match="Other model families"):
+        tmodel.Model(tcfg.reduced(tcfg.get_arch("zamba2_7b")),
+                     tcfg.RuntimeConfig(remat=False), device="cpu").init(0)
+    with pytest.raises(TypeError, match="FaultPlan"):
         TServer(tm, fl, data, faults=object())
-    with pytest.raises(NotImplementedError, match="fault.*item 5"):
+    with pytest.raises(TypeError, match="FaultPlan"):
         Experiment(tm, data, "ours", device="cpu", faults=object()).build()
+    assert TServer(tm, fl, data, faults=FaultPlan())._faults_active
     server = TServer(tm, fl, data, checkpoint_dir=str(tmp_path / "c"))
     assert server.pipeline and server.engine == "vectorized"
     _, hist = server.run(params, 1)                    # the scheduler
