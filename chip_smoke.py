@@ -89,9 +89,27 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     at seq_len 512; delta-mode serving under upload failures and slot
     strikes (every request finishes with the fault-free tokens) and with
     every upload failing (no half-admitted user, requests dropped);
-19. prints one JSON line of per-kernel results (launches per path, the
-    fault paths among them), the card's name and power limit, and a last
-    JSON line ``{"ok": true, "device": {...}}``.
+19. runs the hybrid family, Zamba2-7B: ``ssd_scan`` (N 64, 112 heads;
+    bf16 on the tensor cores, f32 on SIMT), the flash kernels (D 112, MHA,
+    window 4096 and 128, tensor cores) and ``layer_grad_norm`` (L 15 and
+    the shared block's single rows) against their plain versions and
+    timed; serves the full 81-layer model in shared and dense mode as a
+    functional check (3 slots, KV rows sized to the 4096 window; delta
+    mode refused), holds an f32 depth-15 forward against step-by-step
+    decode; runs three "ours" rounds at full width and depth 15 (seq_len
+    512), synchronous and at depth 1, with launches per round against its
+    structure, a stage-by-stage and plain-version replay of round 0 (its
+    update also with the shared block selected), one profiled client step
+    and a reduced f32 card-vs-CPU run;
+20. prints one JSON line of per-kernel results (launches per path, the
+    fault and Zamba2 paths among them), the card's name and power limit,
+    and a last JSON line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --hybrid-serve-long
+
+runs only the measured Zamba2-7B serving run (about 30 min): shared and
+dense mode, 3 slots, 9 requests of 1024 prompt and 64 new tokens, KV rows
+sized to the 4096 window; ms/step, tokens/s and peak memory.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 card, or when the port's sources are missing.
@@ -99,6 +117,7 @@ card, or when the port's sources are missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -341,7 +360,7 @@ def synthetic_store(model, users: int, layers_per_user: int, seed: int):
     store = DeltaStore(cfg)
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    kind = "ssm" if cfg.family == "ssm" else "dense"
+    kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
     for uid in range(users):
         idx = np.sort(rng.choice(cfg.n_layers, size=layers_per_user,
                                  replace=False)).astype(np.int32)
@@ -578,6 +597,43 @@ def stream_bound(nbytes: int, flops: int) -> tuple[float, str]:
                                        else "operations")
 
 
+def lgn_check(g, name: str, card: str, flush=None):
+    """layer_grad_norm on one (L, F) leaf against its plain version (rtol
+    1e-5; two launches bit for bit).  With ``flush``, also its time, its
+    bound, the plain version's and the library call's.  Returns
+    (max_abs_err, the timed row or None)."""
+    import torch
+    from repro_torch.kernels import layer_grad_norm as lgn
+    L, F = g.shape
+    dtn = "bfloat16" if g.dtype == torch.bfloat16 else "float32"
+    got = lgn.layer_sq_norms_2d(g)
+    want = lgn.layer_sq_norms_2d_torch(g)
+    again = lgn.layer_sq_norms_2d(g)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
+    log(f"[train-kernel] layer_grad_norm {name:16s} L={L} F={F:9d} "
+        f"{dtn:8s} max_abs_err={err:.3e} max_rel_err="
+        f"{((got - want).abs() / want.abs()).max().item():.3e} "
+        f"(rtol 1e-5) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"layer_grad_norm disagrees with its plain version at {name}")
+    check(torch.equal(got, again), f"layer_grad_norm is not "
+                                   f"deterministic at {name}")
+    if flush is None:
+        return err, None
+    bound, by = stream_bound(L * F * g.element_size() + 4 * L, 2 * L * F)
+    r = {"leaf": name, "L": L, "F": F, "bound_ms": bound, "bound_by": by,
+         "ms": time_ms(lambda: lgn.layer_sq_norms_2d(g), flush),
+         "plain_ms": time_ms(lambda: lgn.layer_sq_norms_2d_torch(g), flush),
+         "library_ms": time_ms(lambda: torch.linalg.vector_norm(
+             g, dim=1, dtype=torch.float32) ** 2, flush)}
+    log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
+        f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
+        f"| plain {r['plain_ms']:.4f} ms | torch.linalg.vector_norm"
+        f"(g, dim=1, dtype=f32)**2 {r['library_ms']:.4f} ms   [{card}]")
+    return err, r
+
+
 def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
                         kind: str = "dense", f32_leaves=("attn_wq",),
                         ragged: bool = True) -> dict:
@@ -587,7 +643,6 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
     with ``ragged``, ragged F."""
     import torch
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels import layer_grad_norm as lgn
     from repro_torch.kernels import masked_update as mu
     from repro_torch.models.model import _block_shapes
 
@@ -611,34 +666,10 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
         es = torch.tensor([], dtype=dt).element_size()
         dtn = "bfloat16" if dt == torch.bfloat16 else "float32"
         g = torch.randn((L, F), generator=gen, device="cuda").to(dt)
-        got = lgn.layer_sq_norms_2d(g)
-        want = lgn.layer_sq_norms_2d_torch(g)
-        again = lgn.layer_sq_norms_2d(g)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
-        log(f"[train-kernel] layer_grad_norm {name:16s} L={L} F={F:9d} "
-            f"{dtn:8s} max_abs_err={err:.3e} max_rel_err="
-            f"{((got - want).abs() / want.abs()).max().item():.3e} "
-            f"(rtol 1e-5) {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"layer_grad_norm disagrees with its plain version at {name}")
-        check(torch.equal(got, again), f"layer_grad_norm is not "
-                                       f"deterministic at {name}")
+        err, r = lgn_check(g, name, card, flush if on_path else None)
         if on_path:
             errs["layer_grad_norm"] = max(errs["layer_grad_norm"], err)
-            bound, by = stream_bound(L * F * es + 4 * L, 2 * L * F)
-            r = {"leaf": name, "L": L, "F": F, "bound_ms": bound,
-                 "bound_by": by,
-                 "ms": time_ms(lambda: lgn.layer_sq_norms_2d(g), flush),
-                 "plain_ms": time_ms(lambda: lgn.layer_sq_norms_2d_torch(g),
-                                     flush),
-                 "library_ms": time_ms(lambda: torch.linalg.vector_norm(
-                     g, dim=1, dtype=torch.float32) ** 2, flush)}
             rows["layer_grad_norm"].append(r)
-            log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
-                f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
-                f"| plain {r['plain_ms']:.4f} ms | torch.linalg.vector_norm"
-                f"(g, dim=1, dtype=f32)**2 {r['library_ms']:.4f} ms   [{card}]")
         del g
         p = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
         g = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
@@ -992,12 +1023,15 @@ def ssd_inputs(b, s, h, p, g, n, dtype, gen, slow_decay=False):
     return x, dt, A_log, Bm, Cm, D
 
 
-def phase_ssd_kernel(card: str) -> dict:
-    """ssd_scan vs its plain version on the card: Mamba2-370M's main-path
-    shape (at the model's init and with a slowly decaying state), a single
-    chunk, G > 1 and f32 inputs; two launches must give the same bits, the
-    bf16 cases must take the tensor-core route and f32 the SIMT one.  At the
-    main shape the SIMT kernel is timed on the same bf16 inputs too."""
+def phase_ssd_kernel(card: str, cases=None) -> dict:
+    """ssd_scan vs its plain version on the card: by default Mamba2-370M's
+    main-path shape (at the model's init and with a slowly decaying
+    state), a single chunk, G > 1 and f32 inputs; ``cases`` gives others as
+    (name, shape, dtype, slow decay, on the main path).  Two launches must
+    give the same bits, the bf16 cases must take the tensor-core route and
+    f32 the SIMT one.  The main-path and f32 cases are timed; at the
+    main-path ones the SIMT kernel is timed on the same bf16 inputs too,
+    and one layer's forward and backward."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as sk
@@ -1006,11 +1040,12 @@ def phase_ssd_kernel(card: str) -> dict:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     m = SSD_MAIN
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("main", m, bf16, False, True),
-             ("main/slow_decay", m, bf16, True, False),
-             ("single_chunk", dict(m, s=128), bf16, True, False),
-             ("groups_4", dict(m, g=4), bf16, True, False),
-             ("main/f32", m, f32, True, False)]
+    if cases is None:
+        cases = [("main", m, bf16, False, True),
+                 ("main/slow_decay", m, bf16, True, False),
+                 ("single_chunk", dict(m, s=128), bf16, True, False),
+                 ("groups_4", dict(m, g=4), bf16, True, False),
+                 ("main/f32", m, f32, True, False)]
     out = {}
     for name, shp, dtype, slow, on_path in cases:
         x, dt, A_log, Bm, Cm, D = ssd_inputs(**shp, dtype=dtype, gen=gen,
@@ -1246,21 +1281,21 @@ def phase_ssm_round(card: str) -> dict:
             "probe_rel_err": rel}
 
 
-def phase_profile(card: str, arch: str, seq: int, tag: str,
+def phase_profile(card: str, arch, seq: int, tag: str,
                   kernels: dict) -> dict:
     """Where a training step's time goes: one client step at full width
-    (loss and gradients of every layer's block leaves, batch 4 × ``seq``,
-    bf16) under torch.profiler, after a warm-up step.  Reports the step's
-    wall time, the device's busy time (the kernels' own time; idle = the
-    rest) and the kernels that take most of it, grouped by ``kernels``
-    (label → substrings of the port's kernel names), matmuls and the
-    rest."""
+    (loss and gradients of every selectable layer's leaves, batch 4 ×
+    ``seq``, bf16) under torch.profiler, after a warm-up step.  ``arch``
+    names a config, or is one.  Reports the step's wall time, the device's
+    busy time (the kernels' own time; idle = the rest) and the kernels that
+    take most of it, grouped by ``kernels`` (label → substrings of the
+    port's kernel names), matmuls and the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RuntimeConfig, get_arch
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, layer_layout
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
                   device="cuda")
     params = model.init(0)
@@ -1268,12 +1303,14 @@ def phase_profile(card: str, arch: str, seq: int, tag: str,
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
                                      generator=gen, device="cuda",
                                      dtype=torch.int32)}
-    wrt = {k: v.detach().requires_grad_() for k, v in
-           params["blocks"].items()}
+    wrt = {seg.path: {k: v.detach().requires_grad_()
+                      for k, v in params[seg.path].items()}
+           for seg in layer_layout(cfg)}
+    leaves = [v for sub in wrt.values() for v in sub.values()]
 
     def step():
-        loss = model.loss({**params, "blocks": wrt}, batch)
-        torch.autograd.grad(loss, list(wrt.values()))
+        loss = model.loss({**params, **wrt}, batch)
+        torch.autograd.grad(loss, leaves)
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1557,6 +1594,61 @@ def flash_plan(shp: dict, dtype) -> dict:
             "dkdv_blocks": math.prod(grid)}
 
 
+def flash_check(name: str, shp: dict, dtype, gen):
+    """The flash forward and backward kernels against their plain versions
+    at one shape (o, dQ, dK, dV as :func:`_flash_close`, lse within 1e-5;
+    two launches bit for bit); bf16 at head dims 64, 112 and 128 must take
+    the tensor-core route.  Returns the case's record and its model-layout
+    inputs q, k, v, dO."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = shp["causal"], shp["window"]
+    plan = flash_plan(shp, dtype)
+    if dtype == torch.bfloat16 and shp["d"] in (64, 112, 128):
+        check(plan["route"] == "mma", f"flash_attention {name}: bf16 at "
+                                      f"head dim {shp['d']} took the "
+                                      f"{plan['route']} route")
+    q, k, v, do = flash_inputs(shp["b"], shp["s"], shp["h"], shp["k"],
+                               shp["d"], dtype, gen)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    o2, lse2 = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    o_p, lse_p = fa.flash_attention_torch(qt, kt, vt, causal=causal,
+                                          window=window)
+    g = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
+                               window=window)
+    g2 = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
+                                window=window)
+    g_p = fa.flash_attention_bwd_torch(qt, kt, vt, o, lse, dot,
+                                       causal=causal, window=window)
+    torch.cuda.synchronize()
+    dtn = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    res = {"case": name, **shp, "dtype": dtn, **plan}
+    checks = [("o", o, o_p, False), ("dq", g[0], g_p[0], True),
+              ("dk", g[1], g_p[1], True), ("dv", g[2], g_p[2], True)]
+    msgs = []
+    for label, got, want, grad in checks:
+        ok, err, rtol, atol = _flash_close(got, want, dtype, grad)
+        res[f"{label}_max_abs_err"] = err
+        msgs.append(f"{label} {err:.3e} (rtol {rtol:g}, atol {atol:.3g})")
+        check(ok, f"flash_attention {label} disagrees with its plain "
+                  f"version at {name}")
+    lse_err = (lse - lse_p).abs().max().item()
+    check(torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-5),
+          f"flash_attention lse disagrees with its plain version at "
+          f"{name}: {lse_err:.3e}")
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip(g, g2)))
+    check(same, f"flash_attention is not deterministic at {name}")
+    log(f"[flash-kernel] {name:13s} {shp} {dtn:8s} route "
+        f"{plan['route']}, dK/dV grid {tuple(plan['dkdv_grid'])} "
+        f"({plan['dkdv_blocks']} blocks, group split in "
+        f"{plan['dkdv_parts']}); max_abs_err: " + ", ".join(msgs)
+        + f", lse {lse_err:.3e} (rtol/atol 1e-5); two launches equal "
+        f"bit for bit: {same}")
+    return res, (q, k, v, do)
+
+
 def phase_flash_kernel(card: str) -> dict:
     """The flash forward and backward kernels vs their plain versions: the
     long round's shape (B 4, S 1024, H 32, K 4, D 64, bf16, causal), f32
@@ -1594,56 +1686,13 @@ def phase_flash_kernel(card: str) -> dict:
     out = {"cases": []}
     for name, shp, dtype in cases:
         causal, window = shp["causal"], shp["window"]
-        plan = flash_plan(shp, dtype)
-        if dtype == bf16 and shp["d"] in (64, 128):
-            check(plan["route"] == "mma", f"flash_attention {name}: bf16 at "
-                                          f"head dim {shp['d']} took the "
-                                          f"{plan['route']} route")
-        q, k, v, do = flash_inputs(shp["b"], shp["s"], shp["h"], shp["k"],
-                                   shp["d"], dtype, gen)
+        res, (q, k, v, do) = flash_check(name, shp, dtype, gen)
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-        o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
-        o2, lse2 = fa.flash_attention(qt, kt, vt, causal=causal,
-                                      window=window)
-        o_p, lse_p = fa.flash_attention_torch(qt, kt, vt, causal=causal,
-                                              window=window)
-        g = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
-                                   window=window)
-        g2 = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal,
-                                    window=window)
-        g_p = fa.flash_attention_bwd_torch(qt, kt, vt, o, lse, dot,
-                                           causal=causal, window=window)
-        torch.cuda.synchronize()
-        dtn = "bfloat16" if dtype == bf16 else "float32"
-        res = {"case": name, **shp, "dtype": dtn, **plan}
-        checks = [("o", o, o_p, False), ("dq", g[0], g_p[0], True),
-                  ("dk", g[1], g_p[1], True), ("dv", g[2], g_p[2], True)]
-        msgs = []
-        for label, got, want, grad in checks:
-            ok, err, rtol, atol = _flash_close(got, want, dtype, grad)
-            res[f"{label}_max_abs_err"] = err
-            msgs.append(f"{label} {err:.3e} (rtol {rtol:g}, atol {atol:.3g})")
-            check(ok, f"flash_attention {label} disagrees with its plain "
-                      f"version at {name}")
-        lse_err = (lse - lse_p).abs().max().item()
-        check(torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-5),
-              f"flash_attention lse disagrees with its plain version at "
-              f"{name}: {lse_err:.3e}")
-        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
-                and all(torch.equal(x, y) for x, y in zip(g, g2)))
-        check(same, f"flash_attention is not deterministic at {name}")
-        log(f"[flash-kernel] {name:13s} {shp} {dtn:8s} route "
-            f"{plan['route']}, dK/dV grid {tuple(plan['dkdv_grid'])} "
-            f"({plan['dkdv_blocks']} blocks, group split in "
-            f"{plan['dkdv_parts']}); max_abs_err: " + ", ".join(msgs)
-            + f", lse {lse_err:.3e} (rtol/atol 1e-5); two launches equal "
-            f"bit for bit: {same}")
         out["cases"].append(res)
-        del o, o2, lse, lse2, o_p, lse_p, g, g2, g_p
         if name in ("round128", "eval128"):
             if name == "round128":
-                check(plan["dkdv_blocks"] >= sms, f"the seq-128 round's dK/dV"
-                      f" pass has {plan['dkdv_blocks']} blocks for {sms} SMs")
+                check(res["dkdv_blocks"] >= sms, f"the seq-128 round's dK/dV"
+                      f" pass has {res['dkdv_blocks']} blocks for {sms} SMs")
             res.update(flash_layer_times(q, k, v, do, causal, window, flush))
             # the kernels alone, without ops.flash_attention's host work
             o, lse = fa.flash_attention(qt, kt, vt, causal=causal,
@@ -1793,13 +1842,31 @@ def round_want(cfg, fl, cuts) -> dict:
     """Kernel launches of bf16 "ours" rounds at the given cuts: one
     ``layer_grad_norm`` per block leaf per probe, one ``masked_update`` per
     leaf per τ step of a round that trains, and the family's sequence
-    kernel (flash for the dense stack, ``ssd_scan`` for Mamba2)."""
+    kernel (flash for the dense stack, ``ssd_scan`` for Mamba2).  The
+    hybrid runs the dense program whatever the cut: its probe reads the
+    shared block's leaves too (one row each), no ``masked_update``, one
+    ``ssd_scan`` per Mamba2 block and one flash forward per shared-block
+    site per sequence forward, one flash backward per site per probe and
+    per update step."""
     from repro_torch.models.model import _block_shapes
     L = cfg.n_layers
-    n_leaves = len(_block_shapes(cfg, cfg.family if cfg.family == "ssm"
-                                 else "dense"))
     probe = fl.cohort_size * fl.selection_batches
     update = fl.cohort_size * fl.local_steps
+    if cfg.family == "hybrid":
+        leaves = (len(_block_shapes(cfg, "ssm"))
+                  + len(_block_shapes(cfg, "attn_mlp_shared")))
+        seqs, grads = (len(cuts) * (probe + update + 1),
+                       len(cuts) * (probe + update))
+        sites = L // cfg.attn_every
+        return {"layer_grad_norm": len(cuts) * probe * leaves,
+                "masked_update": 0, "base_delta_matmul": 0, **FLASH_NONE,
+                "ssd_scan": seqs * L, "ssd_scan_mma": seqs * L,
+                "ssd_scan_simt": 0, "flash_attention": seqs * sites,
+                "flash_attention_mma": seqs * sites,
+                "flash_attention_bwd": grads * sites,
+                "flash_attention_bwd_mma": grads * sites}
+    n_leaves = len(_block_shapes(cfg, cfg.family if cfg.family == "ssm"
+                                 else "dense"))
     want = {"layer_grad_norm": len(cuts) * probe * n_leaves,
             "masked_update": sum(update * n_leaves for c in cuts if c < L),
             "base_delta_matmul": 0}
@@ -2911,8 +2978,543 @@ def faults_serve(card: str) -> dict:
             "slot_hits": hits[0]}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The hybrid family: Zamba2-7B (Mamba2 blocks and one shared attention+MLP
+# block after every 6 of them)
+# ---------------------------------------------------------------------------
+
+# The round's depth: two groups of attn_every 6 and a tail of 3 (81 mod 6),
+# the full model's structure.  At full depth the cohort's stacked f32
+# deltas alone would take 104 GB (PERF.md §4).
+HYBRID_ROUND_LAYERS = 15
+# Zamba2-7B's scan on the round's batch: 112 heads of P 64, state N 64
+SSD_ZAMBA = dict(b=4, s=SSM_SEQ, h=112, p=64, g=1, n=64)
+# The shared block's attention on the round's batch: MHA 32/32, D 112
+FLASH_ZAMBA = dict(b=4, s=SSM_SEQ, h=32, k=32, d=112, causal=True,
+                   window=4096)
+# serving: a functional check in the whole script (every request finishes)
+# and a measured run alone (``--hybrid-serve-long``) at prompts of 1024
+# tokens, every slot refilled twice; both with the KV rows sized to the
+# model's window (4096)
+HYBRID_SERVE = dict(slots=3, requests=6, plen=8, max_new=16)
+HYBRID_SERVE_LONG = dict(slots=3, requests=9, plen=1024, max_new=64)
+
+
+def set_precision():
+    """f32 products in full f32 on the card: matmuls (PyTorch's default)
+    and cuDNN convolutions (TF32 by default)."""
     import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_hybrid_kernels(card: str) -> dict:
+    """The three kernels of the Zamba2-7B path against their plain versions
+    at its shapes, each timed beside its bound: ``ssd_scan`` at N 64 and
+    112 heads (bf16 on the tensor cores, with a slowly decaying state too;
+    f32 on SIMT), the flash forward and backward at D 112, MHA, window 4096
+    (which S 512 does not reach) and 128 (which cuts every row), both on
+    the tensor-core route, with SDPA on the same function timed beside
+    them; ``layer_grad_norm`` at the nine Mamba2 leaves of the depth-15
+    round (L 15) and at the shared block's eight leaves, one row each (up
+    to 102.8 M elements in ``mlp_wi``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import _block_shapes
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"ssd": phase_ssd_kernel(card, cases=[
+        ("zamba2", SSD_ZAMBA, bf16, False, True),
+        ("zamba2/slow_decay", SSD_ZAMBA, bf16, True, False),
+        ("zamba2/f32", SSD_ZAMBA, f32, True, False)])}
+    check(out["ssd"]["zamba2"]["route"] == "mma"
+          and out["ssd"]["zamba2/f32"]["route"] == "simt",
+          "ssd_scan at Zamba2's shape took the wrong routes")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    out["flash"] = []
+    for name, window in (("zamba2", 4096), ("zamba2/window_128", 128)):
+        shp = dict(FLASH_ZAMBA, window=window)
+        res, (q, k, v, do) = flash_check(name, shp, bf16, gen)
+        check(res["route"] == "mma", f"flash_attention {name} took the "
+                                     f"{res['route']} route")
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        o, lse = fa.flash_attention(qt, kt, vt, causal=True, window=window)
+        res["bound_ms"], res["bound_by"] = flash_bound(**shp, dtype=bf16)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = flash_bound(
+            **shp, dtype=bf16, backward=True)
+        res["ms"] = time_ms(lambda: fa.flash_attention(
+            qt, kt, vt, causal=True, window=window), flush)
+        res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            qt, kt, vt, o, lse, dot, causal=True, window=window), flush)
+        res["plain_ms"] = time_ms(lambda: fa.flash_attention_torch(
+            qt, kt, vt, causal=True, window=window), flush)
+        res["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_torch(
+            qt, kt, vt, o, lse, dot, causal=True, window=window), flush)
+        # the yardstick: SDPA on (B,H,S,D) contiguous copies, the same
+        # function (a window past S is plain causal; else a boolean mask)
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ldo = dot.contiguous()
+        idx = torch.arange(shp["s"], device="cuda")
+        mask = None if window >= shp["s"] else (
+            (idx[None, :] <= idx[:, None])
+            & (idx[:, None] - idx[None, :] < window))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask, is_causal=mask is None)
+        res["library_ms"] = time_ms(sdpa, flush)
+        l_out = sdpa()
+        res["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            l_out, (lq, lk, lv), ldo, retain_graph=True), flush)
+        l_err = (l_out.transpose(1, 2).float() - o.transpose(1, 2).float()
+                 ).abs().max().item()
+        log(f"[hybrid-kernel] flash {name}: forward {res['ms']:.4f} ms | "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) | "
+            f"kernel/bound {res['ms'] / res['bound_ms']:.1f} | plain "
+            f"{res['plain_ms']:.4f} ms | SDPA {res['library_ms']:.4f} ms "
+            f"(|Δo| vs kernel {l_err:.3e}); backward {res['bwd_ms']:.4f} ms "
+            f"| bound {res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}) "
+            f"| kernel/bound {res['bwd_ms'] / res['bwd_bound_ms']:.1f} | "
+            f"plain {res['plain_bwd_ms']:.4f} ms | SDPA backward "
+            f"{res['library_bwd_ms']:.4f} ms   [{card}]")
+        out["flash"].append(res)
+        del q, k, v, do, qt, kt, vt, dot, o, lse, lq, lk, lv, ldo, l_out
+
+    cfg = get_arch("zamba2_7b")
+    rows, errs = [], []
+    for kind, L in (("ssm", HYBRID_ROUND_LAYERS), ("attn_mlp_shared", 1)):
+        for name, shp in sorted(_block_shapes(cfg, kind).items()):
+            g = torch.randn((L, math.prod(shp)), generator=gen,
+                            device="cuda").to(bf16)
+            err, r = lgn_check(g, name, card, flush)
+            errs.append(err)
+            rows.append(r)
+            del g
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[hybrid-kernel] layer_grad_norm over one Zamba2 probe's 17 leaves "
+        f"(nine Mamba2 leaves at L {HYBRID_ROUND_LAYERS}, the shared "
+        f"block's eight as single rows): kernel {total['ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"library {total['library_ms']:.4f} ms   [{card}]")
+    out["layer_grad_norm"] = {"rows": rows, "total": total,
+                              "max_abs_err": max(errs)}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _param_split(params) -> str:
+    n = {k: sum(v.numel() for v in params[k].values()) / 1e9
+         for k in ("blocks", "shared_attn", "embed")}
+    total = sum(n.values()) + params["final_norm"].numel() / 1e9
+    return (f"{total:.4f} B params (blocks {n['blocks']:.4f} B, shared_attn "
+            f"{n['shared_attn']:.4f} B, embed {n['embed']:.4f} B)")
+
+
+def hybrid_serve_modes(card: str, sv: dict, timed: bool):
+    """Full Zamba2-7B (81 layers, random weights, seed 0) through
+    SlotServer in shared and dense mode, ``sv["slots"]`` slots and
+    ``sv["requests"]`` requests of ``sv["plen"]`` prompt and
+    ``sv["max_new"]`` new tokens, the KV rows sized to the window: every
+    request must finish and the decode launches no kernel; delta mode must
+    be refused.  ``timed``: log ms/step, tokens/s and the peak memory of
+    each mode, and their ratio.  Returns (model, params, results)."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("zamba2_7b")
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
+                  device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    log(f"[hybrid-serve] {cfg.name}: {cfg.n_layers} Mamba2 layers, "
+        f"{cfg.n_layers // cfg.attn_every} shared-block sites, "
+        f"{_param_split(params)} in {cfg.dtype}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; init "
+        f"{time.perf_counter() - t0:.1f} s   [{card}]")
+    max_seq = cfg.sliding_window
+    store = synthetic_store(model, users=3, layers_per_user=2, seed=0)
+    try:
+        serve.SlotServer(model, params, sv["slots"], max_seq, mode="delta",
+                         store=store, device="cuda")
+        refused = False
+    except ValueError as exc:
+        refused = "delta-decode" in str(exc)
+    check(refused, "zamba2 delta mode was not refused")
+    results = {}
+    for mode in ("shared", "dense"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        srv = serve.SlotServer(model, params, sv["slots"], max_seq,
+                               mode=mode,
+                               store=None if mode == "shared" else store,
+                               device="cuda")
+        kv = sum(t.numel() * t.element_size()
+                 for t in srv.cache["shared_attn"].values())
+        reqs = requests(cfg, sv["requests"], sv["plen"], sv["max_new"],
+                        0 if mode == "shared" else 3)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        done, stats = srv.run(reqs)
+        torch.cuda.synchronize()
+        check(len(done) == sv["requests"]
+              and all(len(r.generated) == sv["max_new"] for r in done),
+              f"zamba2 {mode}: {len(done)} of {sv['requests']} requests "
+              f"finished")
+        check(all(v == 0 for v in ops.LAUNCHES.values()),
+              f"zamba2 {mode} decode launched kernels: {ops.LAUNCHES}")
+        stats["ms_per_step"] = stats["wall_s"] * 1e3 / stats["steps"]
+        stats["fed_tok_per_s"] = (sv["requests"] * (sv["plen"]
+                                                    + sv["max_new"] - 1)
+                                  / stats["wall_s"])
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats["kv_gb"] = kv / 1e9
+        results[mode] = stats
+        line = (f"[hybrid-serve] {mode:6s} {sv['requests']} requests of "
+                f"{sv['plen']} + {sv['max_new']} tokens on {sv['slots']} "
+                f"slots, KV rows of {max_seq} ({stats['kv_gb']:.2f} GB): "
+                f"all finished in {stats['steps']} steps")
+        if timed:
+            line += (f", {stats['wall_s']:.1f} s, {stats['ms_per_step']:.2f} "
+                     f"ms/step, {stats['tok_per_s']:.3f} generated tok/s, "
+                     f"{stats['fed_tok_per_s']:.2f} tokens through the "
+                     f"model/s, peak {stats['peak_gb']:.2f} GB "
+                     f"(torch.cuda.max_memory_allocated)")
+        log(line + f"   [{card}]")
+        del srv
+        torch.cuda.empty_cache()
+    results["dense_over_shared_step"] = (results["dense"]["ms_per_step"]
+                                         / results["shared"]["ms_per_step"])
+    if timed:
+        log(f"[hybrid-serve] dense ms/step ÷ shared ms/step "
+            f"{results['dense_over_shared_step']:.3f}   [{card}]")
+    del store
+    torch.cuda.empty_cache()
+    return model, params, results
+
+
+def phase_hybrid_serve_long(card: str) -> dict:
+    """The measured Zamba2-7B serving run (``--hybrid-serve-long``, about
+    30 min on one H100): HYBRID_SERVE_LONG in shared and dense mode."""
+    model, params, results = hybrid_serve_modes(card, HYBRID_SERVE_LONG,
+                                                timed=True)
+    del model, params
+    return results
+
+
+def phase_hybrid_serve(card: str) -> dict:
+    """Full Zamba2-7B served in shared and dense mode as a functional check
+    (HYBRID_SERVE: every request finishes, delta mode refused; its times
+    are too short a run to report, ``phase_hybrid_serve_long`` measures).
+    Then, in f32 at full width and depth 15, the sequence forward's logits
+    over a 256-token prompt (the kernels: two chunks, the shared block
+    twice) against step-by-step decode (the recurrence and the windowed KV
+    rows)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    model, params, results = hybrid_serve_modes(card, HYBRID_SERVE,
+                                                timed=False)
+    cfg, rt = model.cfg, model.runtime
+    del params, model
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, n_layers=HYBRID_ROUND_LAYERS,
+                              dtype="float32")
+    m32 = Model(c32, rt, device="cuda")
+    p32 = m32.init(1)
+    S, sites = 256, c32.n_layers // c32.attn_every
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    with torch.no_grad():
+        h, _, _ = m32.forward_seq(p32, {"tokens": tokens})
+        seq_logits = m32._head(p32, h)
+    la = dict(ops.LAUNCHES)
+    check(la["ssd_scan"] == la["ssd_scan_simt"] == c32.n_layers
+          and la["ssd_scan_mma"] == 0
+          and la["flash_attention"] == la["flash_attention_simt"] == sites,
+          f"the f32 sequence forward launched {la}, want {c32.n_layers} "
+          f"ssd_scan and {sites} flash forwards, all on the SIMT route")
+    cache = m32.init_cache(2, S)
+    t0 = time.perf_counter()
+    dec = []
+    for t in range(S):
+        logits, cache = m32.decode_step(
+            p32, tokens[:, t], torch.tensor(t, dtype=torch.int32,
+                                            device="cuda"), cache)
+        dec.append(logits)
+    dec = torch.stack(dec, 1)
+    torch.cuda.synchronize()
+    err = (dec - seq_logits).abs().max().item()
+    scale = seq_logits.abs().max().item()
+    ok = bool(torch.isfinite(seq_logits).all()) and torch.allclose(
+        dec, seq_logits, atol=DECODE_TOL, rtol=DECODE_TOL)
+    log(f"[hybrid-serve] f32, full width, depth {c32.n_layers}: forward_seq "
+        f"(ssd_scan, 2 chunks; flash at {sites} sites) vs {S} decode steps: "
+        f"max_abs_err {err:.3e} (|logits| <= {scale:.3g}; atol/rtol "
+        f"{DECODE_TOL:g}); decode "
+        f"{(time.perf_counter() - t0) * 1e3 / S:.2f} ms/step "
+        f"{'ok' if ok else 'MISMATCH'}   [{card}]")
+    check(ok, "zamba2 forward_seq and step-by-step decode disagree (f32)")
+    results["decode_max_abs_err"] = err
+    del p32, m32, cache, dec, seq_logits, h
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_hybrid_round(card: str) -> dict:
+    """Three rounds of "ours" at full Zamba2-7B width and depth 15 (the
+    dense program: every selectable layer and the shared block
+    differentiated, the gradient masked), seq_len 512, synchronous and
+    through the round scheduler at depth 1, after an untimed warm-up
+    round: the same cohorts and masks, params within ROUND_PARAM_ATOL, the
+    launches the round's structure needs (round_want) in total and per
+    round.  Round 0 replayed stage by stage (time and launches per stage)
+    and against the plain versions, its update also with the shared block
+    selected; one client step profiled; a reduced f32 round on card and
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_arch("zamba2_7b"),
+                              n_layers=HYBRID_ROUND_LAYERS)
+    exp = _round_experiment(cfg, _ssm_task(cfg))
+    fl, params = exp.fl, exp.init_params()
+    sel = sum(v.numel() for k in ("blocks", "shared_attn")
+              for v in params[k].values())
+    log(f"[hybrid-round] {cfg.name} at depth {cfg.n_layers}: "
+        f"{_param_split(params)}, {sel / 1e9:.4f} B selectable; stacked "
+        f"f32 deltas of a cohort of {fl.cohort_size}: "
+        f"{fl.cohort_size * sel * 4 / 1e9:.2f} GB   [{card}]")
+    t0 = time.perf_counter()
+    exp.run(params, rounds=1)                          # warm-up, untimed
+    torch.cuda.synchronize()
+    log(f"[hybrid-round] warm-up round (synchronous, untimed) "
+        f"{time.perf_counter() - t0:.3f} s")
+    del exp
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, way in (("synchronous", dict(pipeline=False)),
+                      ("depth 1", dict(pipeline=True, pipeline_depth=1))):
+        r = _run_way(cfg, _ssm_task(cfg), params, way)
+        n = len(r["hist"].records)
+        want = round_want(cfg, fl, [0] * n)
+        want_one = {k: v for k, v in round_want(cfg, fl, [0]).items() if v}
+        for rec in r["hist"].records:
+            check(all(math.isfinite(v) for v in (rec.train_loss,
+                                                  rec.test_loss)),
+                  f"[hybrid-round] {name}: non-finite loss")
+            check(np.all(rec.mask_matrix.sum(1) <= fl.budget),
+                  f"[hybrid-round] {name}: masks break the budget")
+        check(r["launches"] == want,
+              f"[hybrid-round] {name}: launches {r['launches']}, want {want}")
+        # the scheduler queues round r + 1's probe before round r's eval,
+        # so only the synchronous loop's evals split the launches by round
+        check(way["pipeline"]
+              or all(pr == want_one for pr in r["per_round"]),
+              f"[hybrid-round] {name}: launches per round {r['per_round']}, "
+              f"want {want_one}")
+        if runs:
+            base = runs["synchronous"]
+            for ra, rb in zip(r["hist"].records, base["hist"].records):
+                check(np.array_equal(ra.cohort, rb.cohort)
+                      and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+                      f"[hybrid-round] {name}, round {ra.round}: other "
+                      f"cohorts or masks than the synchronous loop")
+            r["params_max_diff"] = _tree_max_diff(r["final"], base["final"])
+            check(r["params_max_diff"] <= ROUND_PARAM_ATOL,
+                  f"[hybrid-round] {name}: params differ from the "
+                  f"synchronous loop by {r['params_max_diff']:.3e}")
+        r["s_per_round"] = r["run_s"] / n
+        for rec in r["hist"].records:
+            log(f"[hybrid-round] {name} round {rec.round}: cohort "
+                f"{rec.cohort.tolist()} selected "
+                f"{[np.flatnonzero(m).tolist() for m in rec.mask_matrix]} "
+                f"train_loss {rec.train_loss:.6f} test_loss "
+                f"{rec.test_loss:.6f}")
+        log(f"[hybrid-round] {name}: {n} rounds in {r['run_s']:.3f} s = "
+            f"{r['s_per_round']:.4f} s/round; max |Δparams| vs the "
+            f"synchronous loop {r.get('params_max_diff', 0.0):.3e} (atol "
+            f"{ROUND_PARAM_ATOL:g}); peak {r['peak_gb']:.2f} GB "
+            f"(torch.cuda.max_memory_allocated); launches {r['launches']}; "
+            f"at each queued eval {r['per_round']}   [{card}]")
+        runs[name] = r
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ops.LAUNCHES}
+    hist = runs["synchronous"]["hist"]
+    for r in runs.values():
+        r.pop("final")
+    torch.cuda.empty_cache()
+
+    # round 0 again, stage by stage, then against the plain versions
+    task = _ssm_task(cfg)
+    srv = _round_experiment(cfg, task).build()
+    plain = _round_experiment(cfg, task, model=Model(
+        cfg, RuntimeConfig(remat=False, seq_chunk=128), device="cuda",
+        kernel_mode="torch")).build()
+    stage = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t,
+                       {k: v for k, v in ops.LAUNCHES.items()
+                        if v and not k.endswith(("_mma", "_simt"))})
+        return res
+    plan, sampled = staged("plan+sample", lambda: (
+        lambda pl: (pl, srv.sample_round(pl)))(srv.plan_round(0)))
+    stats = staged("probe", lambda: srv.probe_round(params, sampled))
+    masks = staged("select", lambda: srv.select_round(plan, stats))
+    new_k, losses = staged("update", lambda: srv.update_round(params, sampled,
+                                                              masks))
+    staged("eval", lambda: srv.client.evaluate(
+        new_k, srv._to_device(task.test_batch())))
+    split = {k: v[0] for k, v in stage.items()}
+    log(f"[hybrid-round] timed round 0 (synchronised at stage boundaries): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+        + f"; launches per stage {({k: v[1] for k, v in stage.items()})}"
+        f"   [{card}]")
+    check(np.array_equal(masks, hist.records[0].mask_matrix),
+          "round 0 replayed stage by stage chose other masks than the run")
+    ops.reset_launches()
+    stats_p = plain.probe_round(params, sampled)
+    masks_p = plain.select_round(plan, stats_p)
+    rel = max(float(np.max(np.abs(stats_p[k] - stats[k]) / np.abs(stats[k])))
+              for k in stats)
+    new_p, losses_p = plain.update_round(params, sampled, masks)
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version replay launched kernels: {ops.LAUNCHES}")
+    dp = _tree_max_diff(new_k, new_p)
+    log(f"[hybrid-round] round 0, kernels vs plain versions: probe stats max "
+        f"rel err {rel:.3e} (rtol 2e-2, Mamba2's bf16 limit); masks equal: "
+        f"{bool(np.array_equal(masks_p, masks))}; update with the kernel "
+        f"run's masks: max |Δparams| {dp:.3e} (bf16), losses "
+        f"{np.abs(losses - losses_p).max():.3e}   [{card}]")
+    check(rel <= 2e-2, "zamba2 probe stats: kernel and plain versions "
+                       "disagree")
+    check(np.array_equal(masks_p, masks), "zamba2 plain-version probe stats "
+                                          "chose other masks")
+    check(dp <= ROUND_PARAM_ATOL, f"zamba2 round 0 update: kernel and plain "
+                                  f"versions differ by {dp:.3e}")
+    del new_k, new_p
+    torch.cuda.empty_cache()
+    # the shared block as a selected layer: its (1,) mask column, taken by
+    # clients 0 and 2 only (an Eq. (5) weight over 2 of 4), and its update,
+    # which runs the flash backward at both sites into a kept gradient
+    masks_s = np.zeros_like(masks)
+    masks_s[:, 0] = 1
+    masks_s[[0, 2], -1] = 1
+    new_k, losses_k = srv.update_round(params, sampled, masks_s)
+    ops.reset_launches()
+    new_p, losses_p = plain.update_round(params, sampled, masks_s)
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version shared-block update launched kernels: "
+          f"{ops.LAUNCHES}")
+    moved = _tree_max_diff(new_k["shared_attn"], params["shared_attn"])
+    kept = _tree_max_diff({k: v[1:] for k, v in new_k["blocks"].items()},
+                          {k: v[1:] for k, v in params["blocks"].items()})
+    dps = _tree_max_diff(new_k, new_p)
+    log(f"[hybrid-round] round 0 update with the shared block selected "
+        f"(masks {[np.flatnonzero(m).tolist() for m in masks_s]}): shared "
+        f"leaves moved by up to {moved:.3e}, unselected rows by {kept:.3e}; "
+        f"kernels vs plain versions max |Δparams| {dps:.3e} (atol "
+        f"{ROUND_PARAM_ATOL:g}), losses "
+        f"{np.abs(losses_k - losses_p).max():.3e}   [{card}]")
+    check(moved > 0 and kept == 0,
+          f"zamba2 shared-block update: shared leaves moved {moved:.3e}, "
+          f"unselected rows {kept:.3e}")
+    check(dps <= ROUND_PARAM_ATOL, f"zamba2 shared-block update: kernel and "
+                                   f"plain versions differ by {dps:.3e}")
+    del new_k, new_p, srv, plain, params
+    torch.cuda.empty_cache()
+    prof = phase_profile(card, cfg, SSM_SEQ, "hybrid-profile", {
+        "ssd_scan (forward kernel)": ("ssd_scan",),
+        "flash_attention (forward, dQ, dK/dV kernels)": ("flash_",),
+        "layer_grad_norm": ("sqnorm",)})
+    torch.cuda.empty_cache()
+    hybrid_round_exact(card)
+    return {"launches": launches, "split": split, "probe_rel_err": rel,
+            "update_max_diff": dp, "shared_update_max_diff": dps,
+            "profile": prof,
+            **{name: {k: r[k] for k in ("s_per_round", "run_s", "peak_gb")}
+               for name, r in runs.items()}}
+
+
+def hybrid_round_exact(card: str) -> None:
+    """Reduced zamba2 in f32 (3 layers, d_model 64: P 32, head dim 16, the
+    kernels' SIMT routes), 2 rounds: the card and the CPU choose the same
+    cohorts and masks and reach params within atol 1e-5."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("zamba2_7b"), n_layers=2, d_model=64)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        task = SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=8, vocab_size=cfg.vocab_size, seq_len=64,
+            samples_per_client=8, skew="label", objective="lm"))
+        exp = Experiment(cfg, task, "ours", cohort_size=3, rounds=2,
+                         local_steps=2, lr=0.01, batch_size=2, budget=2,
+                         lam=1.0, seed=3, pipeline=False, device=dev,
+                         runtime=RuntimeConfig(remat=False, seq_chunk=16))
+        params = tree_map(lambda t: t.to(dev),
+                          Experiment(cfg, task, device="cpu").init_params())
+        ops.reset_launches()
+        final, hist = exp.run(params)
+        runs[dev] = (tree_map(lambda t: t.cpu(), final), hist,
+                     dict(ops.LAUNCHES))
+    (pg, hg, lg), (pc, hc, lc) = runs["cuda"], runs["cpu"]
+    check(lg["layer_grad_norm"] > 0 and lg["masked_update"] == 0
+          and lc == {k: 0 for k in lc}
+          and lg["ssd_scan_simt"] == lg["ssd_scan"] > 0
+          and lg["flash_attention_simt"] == lg["flash_attention"] > 0
+          and lg["flash_attention_bwd_simt"] == lg["flash_attention_bwd"] > 0,
+          f"reduced zamba2 run: launches on the card {lg}, on the CPU {lc}")
+    for rg, rc in zip(hg.records, hc.records):
+        check(np.array_equal(rg.cohort, rc.cohort)
+              and np.array_equal(rg.mask_matrix, rc.mask_matrix),
+              f"reduced zamba2 run, round {rg.round}: card and CPU chose "
+              f"other cohorts or masks")
+    err = _tree_max_diff(pg, pc)
+    log(f"[hybrid-round] reduced zamba2 f32, 2 rounds: cohorts and masks "
+        f"equal on card and CPU; max |Δparams| {err:.3e} (atol 1e-5); card "
+        f"launches {lg}   [{card}]")
+    check(err <= 1e-5, "reduced zamba2 run: card and CPU params differ")
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hybrid-serve-long", action="store_true",
+                    help="only the measured Zamba2-7B serving run "
+                         "(phase_hybrid_serve_long, about 30 min)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2922,13 +3524,22 @@ def main() -> int:
         print(f"chip_smoke: the port is missing beside this script: {exc}",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_precision()
     t0 = time.perf_counter()
     card = card_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {card}")
+    if args.hybrid_serve_long:
+        try:
+            res = phase_hybrid_serve_long(card)
+        except SmokeFailure as exc:
+            log(f"FAIL: {exc}")
+            return 1
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"hybrid_serve_long": res}))
+        print(card)
+        return 0
     try:
         build_kernels()
         ssd = phase_ssd_kernel(card)
@@ -2955,6 +3566,13 @@ def main() -> int:
         pre = phase_pretrain(card)
         ckp = phase_checkpoint(card)
         faults = phase_faults(card, pipe)
+        # slice 9: the earlier phases' models are gone with their frames;
+        # Zamba2-7B's init alone draws a 16.9 GB f32 transient
+        gc.collect()
+        torch.cuda.empty_cache()
+        hyk = phase_hybrid_kernels(card)
+        phase_hybrid_serve(card)
+        hyr = phase_hybrid_round(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -3006,13 +3624,23 @@ def main() -> int:
                    "mamba2_pipeline": pipe["mamba2_370m"]["launches"][name],
                    "tinyllama_checkpoint_resume": ckp["launches"][name],
                    **{p: l[name] for p, l in fault_paths.items()}}
+        if name == "layer_grad_norm":
+            by_path["zamba2_round"] = hyr["launches"][name]
+            extra = {"zamba2_7b": {
+                **hyk[name]["total"], "shapes": hyk[name]["rows"],
+                "timed_as": "sum over one Zamba2 probe's 17 leaves: nine "
+                            "Mamba2 leaves at L=15, the shared block's "
+                            "eight as single rows"}}
+        else:
+            extra = {}
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{rel}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(t["max_abs_err"], tm["max_abs_err"]),
+            "max_abs_err": max(t["max_abs_err"], tm["max_abs_err"],
+                               hyk[name]["max_abs_err"] if extra else 0.0),
             "ms": t["total"]["ms"], "plain_ms": t["total"]["plain_ms"],
             "bound_ms": t["total"]["bound_ms"],
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
@@ -3020,12 +3648,12 @@ def main() -> int:
             "library_ms": t["total"]["library_ms"],
             "timed_as": timed, "library_call": lib, "shapes": t["rows"],
             "mamba2_370m": {**tm["total"], "timed_as": timed_ssm,
-                            "shapes": tm["rows"]}})
+                            "shapes": tm["rows"]}, **extra})
     main_ssd = ssd["main"]
     ssd_paths = {"mamba2_round": ssm_rounds["launches"],
                  "mamba2_top_round": ssm_rounds["top_launches"],
                  "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
-                 **fault_paths}
+                 **fault_paths, "zamba2_round": hyr["launches"]}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -3041,7 +3669,8 @@ def main() -> int:
         "simt_ms": main_ssd["simt_ms"],
         "timed_as": "one Mamba2-370M layer's scan on the round's batch: "
                     "b 4, S 512, H 32, P 64, G 1, N 128, chunk 128, bf16",
-        "library_call": None, "shapes": list(ssd.values())})
+        "library_call": None,
+        "shapes": list(ssd.values()) + list(hyk["ssd"].values())})
     fm = flash["main"]
     flash_paths = {"tinyllama_round": rounds["launches"],
                    "tinyllama_round_seq1024": long_rounds["launches"],
@@ -3049,8 +3678,9 @@ def main() -> int:
                        pipe["tinyllama_1_1b"]["launches"],
                    "tinyllama_pretrain": pre["launches"],
                    "tinyllama_checkpoint_resume": ckp["launches"],
-                   **fault_paths}
-    flash_shapes = [{k: v for k, v in c.items()} for c in flash["cases"]]
+                   **fault_paths, "zamba2_round": hyr["launches"]}
+    flash_shapes = [{k: v for k, v in c.items()}
+                    for c in flash["cases"] + hyk["flash"]]
     for name, key, err_keys, extra in (
             ("flash_attention", "flash_attention", ("o_max_abs_err",),
              {"ms": fm["ms"], "plain_ms": fm["plain_ms"],

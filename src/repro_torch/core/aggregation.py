@@ -18,8 +18,12 @@ names, which the repo lint's by-name call graph does not link to the
 reference's (``models/model.py``).
 * :func:`apply_delta_rows` — personalized-delta serving.
 
-Every selectable segment is a stacked (count, …) segment here: the hybrid
-family's unstacked shared block is not ported.
+The hybrid family's shared block is one selectable layer whose leaves are
+unstacked.  Its segment's (1,) mask or weight column, shaped as a row
+factor of rank ``x.dim()``, broadcasts over such a leaf as the scalar the
+reference's ``shared_attn`` branches take, and ``p[0:]`` is the whole
+leaf: the functions below need no branch of their own for it.  The fault
+helpers only read the stacked deltas' leading (n,) client axis.
 
 * :func:`corrupt_delta_rows`, :func:`finite_row_mask`,
   :func:`zero_delta_rows` — the fault path's injected corruption and

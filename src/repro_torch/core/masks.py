@@ -3,9 +3,9 @@
 
 Mask matrices are host numpy (the select stage's output); the per-layer
 reductions run on the tensors' device, the squared norms through the
-``layer_grad_norm`` kernel (``kernels/ops.py``).  Every selectable segment
-is stacked (count, …): the hybrid family's unstacked shared block is not
-ported.
+``layer_grad_norm`` kernel (``kernels/ops.py``).  Selectable segments are
+stacked (count, …), except the hybrid family's shared block, whose leaves
+are unstacked: its one mask entry reads them as a single row.
 """
 from __future__ import annotations
 
@@ -64,15 +64,26 @@ def chi_divergence(weights: torch.Tensor, alpha) -> torch.Tensor:
 # Per-layer gradient norms (the strategy inputs)
 # ---------------------------------------------------------------------------
 
+def _segment_rows(tree: dict, path: str) -> dict:
+    """A selectable segment's leaves with their leading (count, …) axis:
+    the hybrid's unstacked shared block gains one of length 1 (a view)."""
+    sub = tree[path]
+    if path == "shared_attn":
+        return {k: v[None] for k, v in sub.items()}
+    return sub
+
+
 def per_layer_sq_norms(grads: dict, cfg, *,
                        mode: Optional[str] = None) -> torch.Tensor:
     """‖g_{i,l}‖² for every selectable layer l — the L-vector clients upload.
 
     Each segment's stacked leaves go through ``ops.layer_grad_norms``: the
     ``layer_grad_norm`` kernel on the card, its plain version on the CPU
-    (``mode`` forces either).  Only the selectable segments are read.
+    (``mode`` forces either); the hybrid's shared leaves as one row each.
+    Only the selectable segments are read.
     """
-    return torch.cat([ops.layer_grad_norms(grads[seg.path], mode=mode)
+    return torch.cat([ops.layer_grad_norms(_segment_rows(grads, seg.path),
+                                           mode=mode)
                       for seg in layer_layout(cfg)])
 
 
@@ -86,7 +97,7 @@ def layer_grad_stats(grads: dict, cfg):
     """(sq_norm, mean, var) of gradient elements per layer (for SNR)."""
     sq, mean, var = [], [], []
     for seg in layer_layout(cfg):
-        sub = grads[seg.path]
+        sub = _segment_rows(grads, seg.path)
         leaves = [sub[k].float() for k in sorted(sub)]
         n = sum(math.prod(x.shape[1:]) for x in leaves)
         s1 = sum(x.reshape(x.shape[0], -1).sum(1) for x in leaves)
@@ -107,7 +118,7 @@ def count_layer_params(params: dict, cfg) -> np.ndarray:
     """Number of parameters per selectable layer (cost model R(m))."""
     out = []
     for seg in layer_layout(cfg):
-        leaves = tree_leaves(params[seg.path])
+        leaves = tree_leaves(_segment_rows(params, seg.path))
         per = sum(int(np.prod(x.shape[1:])) for x in leaves)  # repro: allow[host-sync] -- static shape arithmetic, no device value
         out.append(np.full(seg.count, per))
     return np.concatenate(out).astype(np.int64)

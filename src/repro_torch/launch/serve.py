@@ -149,9 +149,11 @@ class SlotServer:
             # reset_slot would also reach the JAX package's helper
             reset_cache_slot = self.model.reset_slot
             if self.mode == "dense":
-                private = (self.store.materialize(self.params, req.user_id)
+                # straight into the slot's bank entry: no earlier user's
+                # private copy stays alive while this one is built
+                _copy_into(tree_slot(self.bank, i),
+                           self.store.materialize(self.params, req.user_id)
                            if req.user_id >= 0 else self.params)
-                _copy_into(tree_slot(self.bank, i), private)
                 reset_cache_slot(self.cache, i, stacked=True)
             else:
                 reset_cache_slot(self.cache, i)

@@ -1,11 +1,18 @@
 """Model facade (counterpart of ``repro/models/model.py``).
 
-For the ``dense``, ``vlm`` and ``ssm`` (Mamba2) families: the layer layout
-and the mask helpers of the mask-aware engine (``segment_prefix_cuts``,
-``trainable_rows``, ``split_mask``, ``apply_layer_mask``), parameter
-init, the sequence forward and losses of training
-(:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or conv/state cache
-and :meth:`Model.decode_step`.
+For the ``dense``, ``vlm``, ``ssm`` (Mamba2) and ``hybrid`` (zamba2)
+families: the layer layout and the mask helpers of the mask-aware engine
+(``segment_prefix_cuts``, ``trainable_rows``, ``split_mask``,
+``apply_layer_mask``), parameter init, the sequence forward and losses of
+training (:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or
+conv/state cache and :meth:`Model.decode_step`.
+
+The hybrid is a Mamba2 stack with ONE attention+MLP block whose weights
+are shared, applied after every ``attn_every`` Mamba2 blocks; its leaves in
+``params["shared_attn"]`` are unstacked (one mask entry), and every
+application site has its own KV cache row.  Its mask order is not a
+prefix of the compute graph, so it runs the dense program only
+(``supports_prefix_cut``).
 
 The functions the streaming round path calls have names of the port's
 own (``segment_prefix_cuts``, ``trainable_rows``, ``Model.hidden_seq``,
@@ -13,10 +20,11 @@ own (``segment_prefix_cuts``, ``trainable_rows``, ``Model.hidden_seq``,
 for other callers): the repo lint follows calls by bare name from
 ``RoundScheduler.run``, and a shared name would link the port's eager path
 to the reference's jitted functions, whose static ``int(...)`` it would
-then report.  A ``lax.scan`` over layers becomes a Python
-loop over the rows of ``params["blocks"]``; cache writes happen in place.
-Other families raise ``NotImplementedError`` until their slices land
-(ROADMAP.md).
+then report (so the hybrid's functions are ``_hybrid_sites`` and
+``_mamba_stack_decode``, not the reference's ``_zamba_*``).  A ``lax.scan``
+over layers becomes a Python loop over the rows of ``params["blocks"]``;
+cache writes happen in place.  The ``moe`` and ``audio`` families raise
+``NotImplementedError`` until their slices land (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from repro_torch.models import ssd as SSD
 from repro_torch.tree import tree_map
 
 _DENSE_FAMILIES = ("dense", "vlm")
-_PORTED_FAMILIES = ("dense", "vlm", "ssm")
+_PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 _IMAX = torch.iinfo(torch.int32).max
 
 
@@ -135,7 +143,8 @@ def split_mask_matrix(mask_matrix, cfg: ArchConfig) -> dict:
 def apply_layer_mask(tree: dict, mask: torch.Tensor, cfg: ArchConfig) -> dict:
     """Multiply per-layer subtrees of ``tree`` (grads/updates) by the (L,)
     mask; non-selectable groups (embed, head, norms) are zeroed (the paper
-    freezes them)."""
+    freezes them).  The hybrid's unstacked shared leaves take their one
+    entry by broadcasting."""
     parts = split_mask(mask, cfg)
     out = {}
     for key, sub in tree.items():
@@ -154,7 +163,7 @@ def apply_layer_mask(tree: dict, mask: torch.Tensor, cfg: ArchConfig) -> dict:
 
 def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
     """Per-layer parameter shapes for one block of the given kind."""
-    if kind == "dense":
+    if kind in ("dense", "attn_mlp_shared"):   # the latter: zamba2's shared
         return {**_prefixed("attn_", B.attn_param_shapes(cfg)),
                 **_prefixed("mlp_", B.mlp_param_shapes(cfg))}
     if kind == "ssm":
@@ -189,9 +198,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     if cfg.family == "vlm":
         embed["patch_proj"] = normal((d, d))
     params["embed"] = embed
-    kind = "ssm" if cfg.family == "ssm" else "dense"
+    kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
     params["blocks"] = B.init_stacked(gen, _block_shapes(cfg, kind),
                                       cfg.n_layers, dtype, device)
+    if cfg.family == "hybrid":          # the shared block: unstacked leaves
+        params["shared_attn"] = B.init_stacked(
+            gen, _block_shapes(cfg, "attn_mlp_shared"), 0, dtype, device)
     params["final_norm"] = torch.zeros((d,), dtype=dtype, device=device)
     if cfg.task == "classification":
         params["head"] = normal((d, cfg.n_classes))
@@ -276,11 +288,13 @@ class Model:
 
     # -- sequence forward (train / prefill) ---------------------------------
     def _run_stack(self, layer_fn, x, full: dict, trainable: Optional[dict],
-                   cut: int):
+                   cut: int, after_row=None):
         """Apply ``layer_fn(x, layer_params)`` over a stacked segment, split at
         the frozen-prefix ``cut``.
 
-        Dense path (``trainable is None``): every row from ``full``.
+        Dense path (``trainable is None``): every row from ``full``, each
+        followed by ``after_row(i, x)`` when given (the hybrid's shared
+        block).
         Mask-aware path: rows ``[:cut]`` from ``full`` under
         ``torch.no_grad()`` (the reference's ``lax.stop_gradient``: no
         graph, no saved activations, no backward) and the rest from
@@ -288,15 +302,13 @@ class Model:
         ``runtime.remat`` recomputes each differentiated block in the
         backward instead of keeping its activations.
         """
-        def f(h, p):
-            if self.runtime.remat and torch.is_grad_enabled():
-                return checkpoint(layer_fn, h, p, use_reentrant=False)
-            return layer_fn(h, p)
-
         if trainable is None:
             rows = _rows(full)
             for i in range(next(iter(full.values())).shape[0]):
-                x = f(x, {n: r[i] for n, r in rows.items()})
+                x = self._remat(layer_fn, x,
+                                {n: r[i] for n, r in rows.items()})
+                if after_row is not None:
+                    x = after_row(i, x)
             return x
         if cut > 0:
             with torch.no_grad():
@@ -306,8 +318,42 @@ class Model:
         if trainable:
             rows = _rows(trainable)
             for i in range(next(iter(trainable.values())).shape[0]):
-                x = f(x, {n: r[i] for n, r in rows.items()})
+                x = self._remat(layer_fn, x,
+                                {n: r[i] for n, r in rows.items()})
         return x
+
+    def _remat(self, layer_fn, h, p):
+        """``layer_fn(h, p)``, recomputed in the backward instead of keeping
+        its activations when ``runtime.remat`` is set and a graph is
+        built."""
+        if self.runtime.remat and torch.is_grad_enabled():
+            return checkpoint(layer_fn, h, p, use_reentrant=False)
+        return layer_fn(h, p)
+
+    def _mamba_layer(self, h, p):
+        """One residual Mamba2 block of the sequence forward."""
+        out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, self.cfg,
+                                mode=self.kernel_mode)
+        return h + out
+
+    def _hybrid_sites(self, shared: dict, positions: torch.Tensor):
+        """The zamba2 hook of the Mamba2 row loop (ref
+        ``Model._zamba_seq``): after every ``attn_every`` residual Mamba2
+        blocks, the shared attention+MLP block (causal,
+        ``cfg.sliding_window``); the ``n_layers % attn_every`` tail runs
+        without it.  The shared block is not rematerialized, as in the
+        reference."""
+        cfg, rt = self.cfg, self.runtime
+
+        def after_row(i: int, h: torch.Tensor) -> torch.Tensor:
+            if (i + 1) % cfg.attn_every:
+                return h
+            return _dense_block_fwd(shared, h, cfg, positions=positions,
+                                    causal=True, window=cfg.sliding_window,
+                                    seq_chunk=rt.seq_chunk,
+                                    remat_chunk=rt.remat_scores,
+                                    kernel_mode=self.kernel_mode)
+        return after_row
 
     def hidden_seq(self, params: dict, batch: dict, *,
                    trainable: Optional[dict] = None, cut: int = 0):
@@ -320,6 +366,8 @@ class Model:
         """
         cfg, rt = self.cfg, self.runtime
         _need_ported_family(cfg, "forward_seq")
+        if trainable is not None and not supports_prefix_cut(cfg):
+            raise ValueError(f"family {cfg.family!r} has no prefix-cut path")
         prefix_len = 0
         if cfg.family == "vlm":
             proj = params["embed"]["patch_proj"]
@@ -335,12 +383,12 @@ class Model:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         causal = cfg.task == "lm"
-
-        if cfg.family == "ssm":
-            def layer_fn(h, p):
-                out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, cfg,
-                                        mode=self.kernel_mode)
-                return h + out
+        after_row = None
+        if cfg.family in ("ssm", "hybrid"):
+            layer_fn = self._mamba_layer
+            if cfg.family == "hybrid":
+                after_row = self._hybrid_sites(params["shared_attn"],
+                                               positions)
         else:
             def layer_fn(h, p):
                 return _dense_block_fwd(p, h, cfg, positions=positions,
@@ -355,7 +403,8 @@ class Model:
                       if trainable is not None else 0)
         x = self._run_stack(layer_fn, x, params["blocks"],
                             None if trainable is None
-                            else trainable.get("blocks", {}), blocks_cut)
+                            else trainable.get("blocks", {}), blocks_cut,
+                            after_row)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, prefix_len
 
@@ -414,8 +463,9 @@ class Model:
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, *, window: int = 0,
                    per_slot: bool = False) -> dict:
-        """KV caches (ssm: conv and state caches) for decode, in
-        ``cfg.dtype``; ``window`` caps the KV cache length.
+        """KV caches (ssm: conv and state caches; hybrid: both, one KV row
+        per application of the shared block) for decode, in ``cfg.dtype``;
+        ``window`` caps the KV cache length.
 
         ``per_slot=True`` is the serving layout: ``pos`` is (L, B, W)
         instead of (L, W), so every slot tracks its own position (the ssm
@@ -424,38 +474,74 @@ class Model:
         cfg = self.cfg
         _need_ported_family(cfg, "init_cache")
         dt = _torch_dtype(cfg.dtype)
-        if cfg.family == "ssm":
-            shp = SSD.mamba2_cache_shapes(cfg, batch)
-            return {"blocks": {
-                name: torch.zeros((cfg.n_layers,) + s, dtype=dt,
-                                  device=self.device)
-                for name, s in shp.items()}}
         W = min(window or max_seq, max_seq)
-        L, Kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-        shp = (L, batch, W, Kh, hd)
-        pos_shape = (L, batch, W) if per_slot else (L, W)
-        return {"blocks": {
-            "k": torch.zeros(shp, dtype=dt, device=self.device),
-            "v": torch.zeros(shp, dtype=dt, device=self.device),
-            "pos": torch.full(pos_shape, _IMAX, dtype=torch.int32,
-                              device=self.device)}}
+
+        def kv(n: int) -> dict:
+            shp = (n, batch, W, cfg.n_kv_heads, cfg.resolved_head_dim)
+            return {"k": torch.zeros(shp, dtype=dt, device=self.device),
+                    "v": torch.zeros(shp, dtype=dt, device=self.device),
+                    "pos": torch.full((n, batch, W) if per_slot else (n, W),
+                                      _IMAX, dtype=torch.int32,
+                                      device=self.device)}
+
+        if cfg.family not in ("ssm", "hybrid"):
+            return {"blocks": kv(cfg.n_layers)}
+        shp = SSD.mamba2_cache_shapes(cfg, batch)
+        cache = {"blocks": {
+            name: torch.zeros((cfg.n_layers,) + s, dtype=dt,
+                              device=self.device)
+            for name, s in shp.items()}}
+        if cfg.family == "hybrid":
+            cache["shared_attn"] = kv(cfg.n_layers // cfg.attn_every)
+        return cache
 
     def reset_slot(self, cache: dict, slot: int, *,
                    stacked: bool = False) -> dict:
         """Invalidate one batch slot of a decode cache (request refill), in
         place: its position rows become int32-max ("empty") and ssm conv
-        and state rows are zeroed; k/v stay, unreachable until overwritten.
-        ``stacked`` addresses the dense baseline's per-slot layout (slot
-        axis first)."""
+        and state rows are zeroed, in every segment of the cache (the
+        hybrid's ``shared_attn`` too); k/v stay, unreachable until
+        overwritten.  ``stacked`` addresses the dense baseline's per-slot
+        layout (slot axis first)."""
         fills = {"pos": _IMAX, "conv": 0, "state": 0}
-        for name, leaf in cache["blocks"].items():
-            if name not in fills:
-                continue
-            if stacked:
-                leaf[slot] = fills[name]
-            else:
-                leaf[:, slot] = fills[name]
+        for segment in cache.values():
+            for name, leaf in segment.items():
+                if name not in fills:
+                    continue
+                if stacked:
+                    leaf[slot] = fills[name]
+                else:
+                    leaf[:, slot] = fills[name]
         return cache
+
+    def _mamba_stack_decode(self, params: dict, x: torch.Tensor,
+                            positions: torch.Tensor, pos: torch.Tensor,
+                            cache: dict, window: int) -> torch.Tensor:
+        """One decode step through the Mamba2 rows (ssm and hybrid), their
+        conv and state rows updated in place.  The hybrid (ref
+        ``Model._zamba_decode``) runs the shared block after every
+        ``attn_every`` rows, over its application site's KV row
+        ``cache["shared_attn"][g]``, written in place."""
+        cfg = self.cfg
+        blocks, mc = params["blocks"], cache["blocks"]
+        kv = cache.get("shared_attn")
+        for li in range(cfg.n_layers):
+            c = {name: leaf[li] for name, leaf in mc.items()}
+            out, nc = SSD.mamba2_fwd(
+                _take({name: leaf[li] for name, leaf in blocks.items()},
+                      "ssm_"), x, cfg, cache=c)
+            for name, t in nc.items():
+                c[name].copy_(t)
+            x = x + out
+            if kv is not None and (li + 1) % cfg.attn_every == 0:
+                g = li // cfg.attn_every
+                x = _dense_block_fwd(params["shared_attn"], x, cfg,
+                                     positions=positions, window=window,
+                                     cache={name: leaf[g]
+                                            for name, leaf in kv.items()},
+                                     cache_pos=pos,
+                                     kernel_mode=self.kernel_mode)
+        return x
 
     @torch.inference_mode()
     def decode_step(self, params: dict, tokens: torch.Tensor,
@@ -482,16 +568,10 @@ class Model:
             x = params["embed"]["tok"][tokens[:, None].long()] + sp.to(x.dtype)
         positions = (pos[:, None] if per_slot else pos[None]).to(torch.int32)
         w = window or cfg.sliding_window
-        blocks, kv = params["blocks"], cache["blocks"]
-        if cfg.family == "ssm":
-            for li in range(cfg.n_layers):
-                p = {name: leaf[li] for name, leaf in blocks.items()}
-                c = {name: leaf[li] for name, leaf in kv.items()}
-                out, nc = SSD.mamba2_fwd(_take(p, "ssm_"), x, cfg, cache=c)
-                for name, t in nc.items():
-                    c[name].copy_(t)
-                x = x + out
+        if cfg.family in ("ssm", "hybrid"):
+            x = self._mamba_stack_decode(params, x, positions, pos, cache, w)
             return self._head(params, x)[:, 0], cache
+        blocks, kv = params["blocks"], cache["blocks"]
         for li in range(cfg.n_layers):
             p = {name: leaf[li] for name, leaf in blocks.items()}
             kv_l = {name: leaf[li] for name, leaf in kv.items()}

@@ -130,7 +130,7 @@ def test_unported_features_raise(world, tmp_path):
     fl = tcfg.FLConfig(**FL)
     params = params_to_torch(host, "cpu")
     with pytest.raises(NotImplementedError, match="Other model families"):
-        tmodel.Model(tcfg.reduced(tcfg.get_arch("zamba2_7b")),
+        tmodel.Model(tcfg.reduced(tcfg.get_arch("deepseek_v2_lite_16b")),
                      tcfg.RuntimeConfig(remat=False), device="cpu").init(0)
     with pytest.raises(TypeError, match="FaultPlan"):
         TServer(tm, fl, data, faults=object())
