@@ -101,15 +101,37 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     structure, a stage-by-stage and plain-version replay of round 0 (its
     update also with the shared block selected), one profiled client step
     and a reduced f32 card-vs-CPU run;
-20. prints one JSON line of per-kernel results (launches per path, the
-    fault and Zamba2 paths among them), the card's name and power limit,
-    and a last JSON line ``{"ok": true, "device": {...}}``.
+20. runs the moe family, DeepSeek-V2-Lite-16B: ``layer_grad_norm`` and
+    ``masked_update`` against their plain versions and timed at its 23
+    leaves (dense0's 10 at L 1, the moe blocks' 13 at L 3, up to 369.1 M
+    elements a row); serves the full 27-layer model (31.4 GB in bf16) as
+    a functional check, shared mode at 4 slots and at 1, dense mode at 1
+    (the base and one private copy take 62.8 GB), latent rows sized to a
+    4096 window, delta mode refused; holds an f32 depth-4 forward (MLA
+    expanded) against step-by-step decode (MLA absorbed) at capacity
+    factor 8; runs three "ours" rounds at full width and depth 4 (dense0
+    + 3 moe blocks, seq_len 512), synchronous and at depth 1 (bit-equal
+    params, launches per round against each round's cut), a stage-by-stage
+    and plain-version replay of round 0 (the routers' aux loss and dropped
+    fraction logged), a "top" round whose cut falls inside ``blocks``
+    (``masked_update`` only on the trainable rows), one profiled client
+    step and a reduced f32 card-vs-CPU run;
+21. prints one JSON line of per-kernel results (launches per path, the
+    fault, Zamba2 and DeepSeek paths among them), the card's name and
+    power limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --hybrid-serve-long
 
 runs only the measured Zamba2-7B serving run (about 30 min): shared and
 dense mode, 3 slots, 9 requests of 1024 prompt and 64 new tokens, KV rows
 sized to the 4096 window; ms/step, tokens/s and peak memory.
+
+    python3 chip_smoke.py --moe-serve-long
+
+runs only the measured DeepSeek-V2-Lite-16B serving run: shared mode at
+4 slots with 8 requests, shared and dense mode at 1 slot with 2, each of
+1024 prompt and 64 new tokens, latent rows sized to a 4096 window;
+ms/step beside the step's byte floor, tokens/s and peak memory.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 card, or when the port's sources are missing.
@@ -350,25 +372,38 @@ def phase_kernel(card: str) -> dict:
 def synthetic_store(model, users: int, layers_per_user: int, seed: int):
     """Per-user f32 delta rows on ``layers_per_user`` random layers, drawn
     on the card for those rows only.  (``demo_store`` draws noise for every
-    layer of every leaf, about 4e9 numpy normals at full width.)"""
+    layer of every leaf, about 4e9 numpy normals at full width.)  The
+    layers are global mask indices below ``n_layers``: rows of ``blocks``,
+    or of the moe family's ``dense0`` and ``blocks``."""
     import numpy as np
     import torch
     from repro_torch.models.model import _block_shapes
     from repro_torch.serve import DeltaRecord, DeltaStore
+    from repro_torch.serve.deltas import mask_index_map
 
     cfg = model.cfg
+    kinds = ({"dense0": "moe_dense0", "blocks": "moe"}
+             if cfg.family == "moe" else
+             {"blocks": "ssm" if cfg.family in ("ssm", "hybrid")
+              else "dense"})
+    where = mask_index_map(cfg)
     store = DeltaStore(cfg)
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
     for uid in range(users):
         idx = np.sort(rng.choice(cfg.n_layers, size=layers_per_user,
                                  replace=False)).astype(np.int32)
-        leaves = {name: (torch.randn((len(idx), *shp), generator=gen,
-                                     device=model.device) * 0.01).cpu().numpy()
-                  for name, shp in _block_shapes(cfg, kind).items()}
-        store.put(uid, DeltaRecord(layers=idx,
-                                   segments={"blocks": (idx, leaves)}))
+        segments = {}
+        for path, kind in kinds.items():
+            rows = np.asarray([where[i][1] for i in idx
+                               if where[i][0] == path], np.int32)
+            if rows.size:
+                segments[path] = (rows, {
+                    name: (torch.randn((rows.size, *shp), generator=gen,
+                                       device=model.device) * 0.01
+                           ).cpu().numpy()
+                    for name, shp in _block_shapes(cfg, kind).items()})
+        store.put(uid, DeltaRecord(layers=idx, segments=segments))
     return store
 
 
@@ -634,6 +669,47 @@ def lgn_check(g, name: str, card: str, flush=None):
     return err, r
 
 
+def mu_check(p, g, mask, lr: float, name: str, card: str, flush=None):
+    """masked_update on one (L, F) leaf against its plain version (bit for
+    bit).  With ``flush``, also its time, its bound, the plain version's
+    and the library call's.  Returns (max_abs_err, the timed row or
+    None)."""
+    import torch
+    from repro_torch.kernels import masked_update as mu
+    L, F = p.shape
+    dtn = "bfloat16" if p.dtype == torch.bfloat16 else "float32"
+    got = mu.masked_sgd_update_2d(p, g, mask, lr)
+    want = mu.masked_sgd_update_2d_torch(p, g, mask, lr)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.equal(got, want)
+    log(f"[train-kernel] masked_update   {name:16s} L={L} F={F:9d} "
+        f"{dtn:8s} max_abs_err={err:.3e} (must be 0) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"masked_update differs from its plain version at {name}")
+    del got, want
+    if flush is None:
+        return err, None
+    bound, by = stream_bound(L * F * 3 * p.element_size() + 4 * L, 2 * L * F)
+    scale = (-lr * mask)[:, None]
+    r = {"leaf": name, "L": L, "F": F, "bound_ms": bound, "bound_by": by,
+         "ms": time_ms(lambda: mu.masked_sgd_update_2d(p, g, mask, lr),
+                       flush),
+         "plain_ms": time_ms(lambda: mu.masked_sgd_update_2d_torch(
+             p, g, mask, lr), flush),
+         "library_ms": time_ms(lambda: torch.addcmul(p, g, scale), flush)}
+    log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
+        f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
+        f"| plain {r['plain_ms']:.4f} ms | torch.addcmul(p, g, "
+        f"(-lr*m)[:, None]) (f32 out) {r['library_ms']:.4f} ms   [{card}]")
+    return err, r
+
+
+def kernel_totals(rows: list) -> dict:
+    return {k: sum(r[k] for r in rows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+
 def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
                         kind: str = "dense", f32_leaves=("attn_wq",),
                         ragged: bool = True) -> dict:
@@ -643,7 +719,6 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
     with ``ragged``, ragged F."""
     import torch
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels import masked_update as mu
     from repro_torch.models.model import _block_shapes
 
     cfg = get_arch(arch)
@@ -663,8 +738,6 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
     rows = {"layer_grad_norm": [], "masked_update": []}
     errs = {"layer_grad_norm": 0.0, "masked_update": 0.0}
     for name, F, dt, on_path in cases:
-        es = torch.tensor([], dtype=dt).element_size()
-        dtn = "bfloat16" if dt == torch.bfloat16 else "float32"
         g = torch.randn((L, F), generator=gen, device="cuda").to(dt)
         err, r = lgn_check(g, name, card, flush if on_path else None)
         if on_path:
@@ -673,38 +746,15 @@ def phase_train_kernels(card: str, arch: str = "tinyllama_1_1b",
         del g
         p = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
         g = torch.randn((L_upd, F), generator=gen, device="cuda").to(dt)
-        got = mu.masked_sgd_update_2d(p, g, mask, lr)
-        want = mu.masked_sgd_update_2d_torch(p, g, mask, lr)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.equal(got, want)
-        log(f"[train-kernel] masked_update   {name:16s} L={L_upd} F={F:9d} "
-            f"{dtn:8s} max_abs_err={err:.3e} (must be 0) "
-            f"{'ok' if ok else 'MISMATCH'}")
-        check(ok, f"masked_update differs from its plain version at {name}")
+        err, r = mu_check(p, g, mask, lr, name, card,
+                          flush if on_path else None)
         if on_path:
-            bound, by = stream_bound(L_upd * F * 3 * es + 4 * L_upd,
-                                     2 * L_upd * F)
-            scale = (-lr * mask)[:, None]
-            r = {"leaf": name, "L": L_upd, "F": F, "bound_ms": bound,
-                 "bound_by": by,
-                 "ms": time_ms(lambda: mu.masked_sgd_update_2d(p, g, mask,
-                                                               lr), flush),
-                 "plain_ms": time_ms(lambda: mu.masked_sgd_update_2d_torch(
-                     p, g, mask, lr), flush),
-                 "library_ms": time_ms(lambda: torch.addcmul(p, g, scale),
-                                       flush)}
+            errs["masked_update"] = max(errs["masked_update"], err)
             rows["masked_update"].append(r)
-            log(f"[train-kernel]   time {r['ms']:.4f} ms | bound "
-                f"{bound:.4f} ms ({by}) | kernel/bound {r['ms'] / bound:.2f} "
-                f"| plain {r['plain_ms']:.4f} ms | torch.addcmul(p, g, "
-                f"(-lr*m)[:, None]) (f32 out) {r['library_ms']:.4f} ms"
-                f"   [{card}]")
-        del p, g, got, want
+        del p, g
     out = {}
     for kname, rs in rows.items():
-        total = {k: sum(r[k] for r in rs)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        total = kernel_totals(rs)
         log(f"[train-kernel] {kname}, {cfg.name}'s {len(leaves)} leaves: kernel "
             f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, plain "
             f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} "
@@ -1865,6 +1915,17 @@ def round_want(cfg, fl, cuts) -> dict:
                 "flash_attention_mma": seqs * sites,
                 "flash_attention_bwd": grads * sites,
                 "flash_attention_bwd_mma": grads * sites}
+    if cfg.family == "moe":
+        # MLA and the expert dispatch call no kernel; the probe reads both
+        # segments' leaves, an update step those of the segments above the
+        # cut (dense0 only at cut 0)
+        d0 = len(_block_shapes(cfg, "moe_dense0")) if cfg.first_dense else 0
+        nb = len(_block_shapes(cfg, "moe"))
+        return {"layer_grad_norm": len(cuts) * probe * (d0 + nb),
+                "masked_update": sum(
+                    update * ((d0 if c < cfg.first_dense else 0)
+                              + (nb if c < L else 0)) for c in cuts),
+                "base_delta_matmul": 0, **FLASH_NONE, **SSD_NONE}
     n_leaves = len(_block_shapes(cfg, cfg.family if cfg.family == "ssm"
                                  else "dense"))
     want = {"layer_grad_norm": len(cuts) * probe * n_leaves,
@@ -3095,8 +3156,7 @@ def phase_hybrid_kernels(card: str) -> dict:
             errs.append(err)
             rows.append(r)
             del g
-    total = {k: sum(r[k] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total = kernel_totals(rows)
     log(f"[hybrid-kernel] layer_grad_norm over one Zamba2 probe's 17 leaves "
         f"(nine Mamba2 leaves at L {HYBRID_ROUND_LAYERS}, the shared "
         f"block's eight as single rows): kernel {total['ms']:.4f} ms, bound "
@@ -3110,11 +3170,12 @@ def phase_hybrid_kernels(card: str) -> dict:
 
 
 def _param_split(params) -> str:
-    n = {k: sum(v.numel() for v in params[k].values()) / 1e9
-         for k in ("blocks", "shared_attn", "embed")}
-    total = sum(n.values()) + params["final_norm"].numel() / 1e9
-    return (f"{total:.4f} B params (blocks {n['blocks']:.4f} B, shared_attn "
-            f"{n['shared_attn']:.4f} B, embed {n['embed']:.4f} B)")
+    """The parameter count, in all and per group of leaves."""
+    n = {k: sum(v.numel() for v in sub.values())
+         for k, sub in params.items() if isinstance(sub, dict)}
+    total = sum(n.values()) + params["final_norm"].numel()
+    return (f"{total / 1e9:.4f} B params ("
+            + ", ".join(f"{k} {v / 1e9:.4f} B" for k, v in n.items()) + ")")
 
 
 def hybrid_serve_modes(card: str, sv: dict, timed: bool):
@@ -3507,6 +3568,565 @@ def hybrid_round_exact(card: str) -> None:
     check(err <= 1e-5, "reduced zamba2 run: card and CPU params differ")
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the moe family, DeepSeek-V2-Lite-16B
+# ---------------------------------------------------------------------------
+
+# The round's depth: dense0 and three moe blocks, 1.84 B selectable
+# params, whose stacked f32 deltas take 29.4 GB for a cohort of 4; at
+# full depth (15.29 B selectable) they would take 244.6 GB.  Depth 5 (38.8
+# GB of deltas) peaked at 76.4 GB synchronous and ran out of memory
+# pipelined (PERF.md §4).
+MOE_ROUND_LAYERS = 4
+# serving: a functional check in the whole script (every request finishes)
+# and a measured run alone (``--moe-serve-long``), the latent rows sized to
+# a 4096 window (31 KB a token over 27 layers).  Dense mode holds one
+# private copy beside the base (2 × 31.4 GB of the card's 80), so it runs
+# one slot, and shared mode runs at one slot too, to compare.
+MOE_WINDOW = 4096
+MOE_SERVE = dict(slots=4, requests=8, plen=8, max_new=16,
+                 one_slot_requests=2)
+MOE_SERVE_LONG = dict(slots=4, requests=8, plen=1024, max_new=64,
+                      one_slot_requests=2)
+
+
+class MoEStatsLog:
+    """Every moe layer's router statistics (aux loss, dropped fraction)
+    while active, through a patch of ``models.moe.moe_fwd``; the values stay
+    on the card until :meth:`summary` reads them after the run."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        orig = moe.moe_fwd
+        self.stats = []
+
+        def moe_fwd(*a, **k):
+            out, st = orig(*a, **k)
+            self.stats.append((st.aux_loss.detach(),
+                               st.dropped_frac.detach()))
+            return out, st
+        self._patch = mock.patch.object(moe, "moe_fwd", moe_fwd)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        return False
+
+    def summary(self) -> dict:
+        import torch
+        if not self.stats:
+            return {"layer_calls": 0}
+        aux = torch.stack([a for a, _ in self.stats]).float().cpu()
+        drop = torch.stack([d for _, d in self.stats]).float().cpu()
+        return {"layer_calls": len(self.stats),
+                "aux_mean": aux.mean().item(), "aux_max": aux.max().item(),
+                "dropped_mean": drop.mean().item(),
+                "dropped_max": drop.max().item()}
+
+
+def phase_moe_kernels(card: str) -> dict:
+    """The two training kernels of the DeepSeek-V2-Lite-16B round against
+    their plain versions at its leaves, each timed beside its bound and
+    the library call: ``dense0``'s 10 leaves at L 1 and the moe
+    ``blocks``' 13 at the round's depth (L 3; ``moe_wi_e`` 369.1 M
+    elements a row).  ``layer_grad_norm`` over all L rows (one probe),
+    ``masked_update`` over the same rows with a mixed 0/1 mask (one τ step
+    at cut 0)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import _block_shapes
+
+    cfg = get_arch("deepseek_v2_lite_16b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = {"layer_grad_norm": [], "masked_update": []}
+    errs = {"layer_grad_norm": 0.0, "masked_update": 0.0}
+    for path, kind, L in (("dense0", "moe_dense0", cfg.first_dense),
+                          ("blocks", "moe",
+                           MOE_ROUND_LAYERS - cfg.first_dense)):
+        mask = torch.tensor([float(i % 3 != 1) for i in range(L)],
+                            device="cuda")
+        for name, shp in sorted(_block_shapes(cfg, kind).items()):
+            F = math.prod(shp)
+            tag = f"{path}/{name}"
+            g = torch.randn((L, F), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            err, r = lgn_check(g, tag, card, flush)
+            errs["layer_grad_norm"] = max(errs["layer_grad_norm"], err)
+            rows["layer_grad_norm"].append(r)
+            p = torch.randn((L, F), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            err, r = mu_check(p, g, mask, 0.01, tag, card, flush)
+            errs["masked_update"] = max(errs["masked_update"], err)
+            rows["masked_update"].append(r)
+            del p, g
+            torch.cuda.empty_cache()
+    out = {}
+    for kname, rs in rows.items():
+        total = kernel_totals(rs)
+        log(f"[moe-kernel] {kname} over DeepSeek-V2-Lite's {len(rs)} leaves "
+            f"(dense0 at L 1, blocks at L {MOE_ROUND_LAYERS - 1}): kernel "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"(kernel/bound {total['ms'] / total['bound_ms']:.2f}), plain "
+            f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} "
+            f"ms   [{card}]")
+        out[kname] = {"rows": rs, "total": total, "max_abs_err": errs[kname]}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve_modes(card: str, sv: dict, timed: bool):
+    """Full DeepSeek-V2-Lite-16B (27 layers, random weights, seed 0)
+    through SlotServer: shared mode at ``sv["slots"]`` slots with
+    ``sv["requests"]`` requests, then shared and dense mode at one slot
+    with ``sv["one_slot_requests"]`` (dense: a user's private copy built in
+    the slot's bank entry), each request ``sv["plen"]`` prompt and
+    ``sv["max_new"]`` new tokens, the latent rows sized to MOE_WINDOW:
+    every request must finish and the decode launches no kernel; delta
+    mode must be refused.  ``timed``: log ms/step, tokens/s and the peak
+    memory of each mode.  Returns (model, results)."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve import DeltaOverlay
+
+    cfg = get_arch("deepseek_v2_lite_16b")
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
+                  device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    pbytes = sum(v.numel() * v.element_size() for sub in params.values()
+                 for v in (sub.values() if isinstance(sub, dict) else [sub]))
+    log(f"[moe-serve] {cfg.name}: {cfg.first_dense} dense + "
+        f"{cfg.n_layers - cfg.first_dense} moe layers, "
+        f"{_param_split(params)} in {cfg.dtype}, {pbytes / 1e9:.2f} GB; "
+        f"init {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the row-by-row "
+        f"draw)   [{card}]")
+    store = synthetic_store(model, users=2, layers_per_user=1, seed=0)
+    refused = []
+    for make in (lambda: serve.SlotServer(model, params, sv["slots"],
+                                          MOE_WINDOW, mode="delta",
+                                          store=store, device="cuda"),
+                 lambda: DeltaOverlay(model, sv["slots"], device="cuda")):
+        try:
+            make()
+            refused.append(False)
+        except ValueError as exc:
+            refused.append("delta-decode" in str(exc))
+    check(all(refused), "deepseek delta mode was not refused")
+    # a step reads every weight but the embedding table (B rows of it):
+    # capacity dispatch runs all 64 experts on their C slots
+    floor_ms = ((pbytes - params["embed"]["tok"].numel()
+                 * params["embed"]["tok"].element_size())
+                / HBM_BYTES_PER_S * 1e3)
+    results = {"step_floor_ms": floor_ms}
+    for name, mode, slots, n_req in (
+            ("shared", "shared", sv["slots"], sv["requests"]),
+            ("shared_1slot", "shared", 1, sv["one_slot_requests"]),
+            ("dense_1slot", "dense", 1, sv["one_slot_requests"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        srv = serve.SlotServer(model, params, slots, MOE_WINDOW, mode=mode,
+                               store=None if mode == "shared" else store,
+                               device="cuda")
+        kv = sum(t.numel() * t.element_size() for seg in srv.cache.values()
+                 for t in seg.values())
+        reqs = requests(cfg, n_req, sv["plen"], sv["max_new"],
+                        0 if mode == "shared" else 2)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        done, stats = srv.run(reqs)
+        torch.cuda.synchronize()
+        check(len(done) == n_req
+              and all(len(r.generated) == sv["max_new"] for r in done),
+              f"deepseek {name}: {len(done)} of {n_req} requests finished")
+        check(all(v == 0 for v in ops.LAUNCHES.values()),
+              f"deepseek {name} decode launched kernels: {ops.LAUNCHES}")
+        stats.update(
+            slots=slots, requests=n_req, kv_gb=kv / 1e9,
+            ms_per_step=stats["wall_s"] * 1e3 / stats["steps"],
+            fed_tok_per_s=(n_req * (sv["plen"] + sv["max_new"] - 1)
+                           / stats["wall_s"]),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        results[name] = stats
+        line = (f"[moe-serve] {name:12s} {n_req} requests of {sv['plen']} + "
+                f"{sv['max_new']} tokens on {slots} slot(s), latent rows of "
+                f"{MOE_WINDOW} ({stats['kv_gb']:.3f} GB): all finished in "
+                f"{stats['steps']} steps, peak {stats['peak_gb']:.2f} GB")
+        if timed:
+            line += (f", {stats['wall_s']:.1f} s, {stats['ms_per_step']:.2f} "
+                     f"ms/step (floor {floor_ms:.2f}), "
+                     f"{stats['tok_per_s']:.3f} generated tok/s, "
+                     f"{stats['fed_tok_per_s']:.2f} tokens through the "
+                     f"model/s")
+        log(line + f"   [{card}]")
+        del srv
+        torch.cuda.empty_cache()
+    results["dense_over_shared_step_1slot"] = (
+        results["dense_1slot"]["ms_per_step"]
+        / results["shared_1slot"]["ms_per_step"])
+    if timed:
+        log(f"[moe-serve] step floor {floor_ms:.2f} ms (every weight but the "
+            f"embedding once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); one slot: "
+            f"dense ms/step ÷ shared ms/step "
+            f"{results['dense_over_shared_step_1slot']:.3f}   [{card}]")
+    del store, params
+    torch.cuda.empty_cache()
+    return model, results
+
+
+def phase_moe_serve_long(card: str) -> dict:
+    """The measured DeepSeek-V2-Lite-16B serving run (``--moe-serve-long``):
+    MOE_SERVE_LONG."""
+    model, results = moe_serve_modes(card, MOE_SERVE_LONG, timed=True)
+    del model
+    return results
+
+
+def phase_moe_serve(card: str) -> dict:
+    """Full DeepSeek-V2-Lite-16B served as a functional check (MOE_SERVE:
+    every request finishes, delta mode refused; ``phase_moe_serve_long``
+    measures).  Then, in f32 at full width and depth MOE_ROUND_LAYERS with
+    capacity factor 8 (dropless, so prefill and decode route alike), the
+    sequence forward's logits over a 256-token prompt (MLA expanded, by two
+    query chunks) against step-by-step decode (MLA's absorbed matmuls over
+    the latent cache)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    model, results = moe_serve_modes(card, MOE_SERVE, timed=False)
+    cfg, rt = model.cfg, model.runtime
+    del model
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, n_layers=MOE_ROUND_LAYERS,
+                              dtype="float32", capacity_factor=8.0)
+    m32 = Model(c32, rt, device="cuda")
+    p32 = m32.init(1)
+    S = 256
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    with MoEStatsLog() as st, torch.no_grad():
+        h, aux, _ = m32.forward_seq(p32, {"tokens": tokens})
+        seq_logits = m32._head(p32, h)
+    fwd = st.summary()
+    cache = m32.init_cache(2, S)
+    t0 = time.perf_counter()
+    dec = []
+    with MoEStatsLog() as st:
+        for t in range(S):
+            logits, cache = m32.decode_step(
+                p32, tokens[:, t], torch.tensor(t, dtype=torch.int32,
+                                                device="cuda"), cache)
+            dec.append(logits)
+    dec = torch.stack(dec, 1)
+    torch.cuda.synchronize()
+    decs = st.summary()
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"the f32 moe forward and decode launched kernels: {ops.LAUNCHES}")
+    check(fwd["dropped_max"] == 0 and decs["dropped_max"] == 0,
+          f"capacity factor 8 dropped tokens: forward {fwd}, decode {decs}")
+    err = (dec - seq_logits).abs().max().item()
+    scale = seq_logits.abs().max().item()
+    ok = bool(torch.isfinite(seq_logits).all()) and torch.allclose(
+        dec, seq_logits, atol=DECODE_TOL, rtol=DECODE_TOL)
+    log(f"[moe-serve] f32, full width, depth {c32.n_layers}, capacity factor "
+        f"8: forward_seq (MLA expanded, query chunks of {rt.seq_chunk}) vs "
+        f"{S} decode steps (absorbed): max_abs_err {err:.3e} (|logits| <= "
+        f"{scale:.3g}; atol/rtol {DECODE_TOL:g}); aux loss {aux.item():.6f}, "
+        f"dropped 0 of the forward's and the decode's routed pairs; decode "
+        f"{(time.perf_counter() - t0) * 1e3 / S:.2f} ms/step "
+        f"{'ok' if ok else 'MISMATCH'}   [{card}]")
+    check(ok, "deepseek forward_seq and step-by-step decode disagree (f32)")
+    results["decode_max_abs_err"] = err
+    del p32, m32, cache, dec, seq_logits, h
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_moe_round(card: str) -> dict:
+    """Three rounds of "ours" at full DeepSeek-V2-Lite-16B width and depth
+    MOE_ROUND_LAYERS (dense0 + 3 moe blocks; the mask-aware engine at each
+    round's cut), seq_len 512, synchronous and through the round scheduler
+    at depth 1, after an untimed warm-up round: the same cohorts and masks,
+    bit-equal params, the launches each round's cut needs (round_want).
+    Round 0 replayed stage by stage (time, launches, the routers' aux loss
+    and dropped fraction in the probe) and against the plain versions; one
+    "top" round whose cut falls inside ``blocks``; one client step
+    profiled; a reduced f32 round on card and CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.core.masks import first_trainable_layer
+    from repro_torch.kernels import masked_update as mu
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, segment_prefix_cuts
+    from repro_torch.models.moe import capacity
+
+    cfg = dataclasses.replace(get_arch("deepseek_v2_lite_16b"),
+                              n_layers=MOE_ROUND_LAYERS)
+    L = cfg.n_layers
+    exp = _round_experiment(cfg, _ssm_task(cfg))
+    fl, params = exp.fl, exp.init_params()
+    sel = sum(v.numel() for k in ("dense0", "blocks")
+              for v in params[k].values())
+    log(f"[moe-round] {cfg.name} at depth {L}: {_param_split(params)}, "
+        f"{sel / 1e9:.4f} B selectable; stacked f32 deltas of a cohort of "
+        f"{fl.cohort_size}: {fl.cohort_size * sel * 4 / 1e9:.2f} GB   "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    exp.run(params, rounds=1)                          # warm-up, untimed
+    torch.cuda.synchronize()
+    log(f"[moe-round] warm-up round (synchronous, untimed) "
+        f"{time.perf_counter() - t0:.3f} s")
+    del exp
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, way in (("synchronous", dict(pipeline=False)),
+                      ("depth 1", dict(pipeline=True, pipeline_depth=1))):
+        r = _run_way(cfg, _ssm_task(cfg), params, way)
+        recs = r["hist"].records
+        cuts = [first_trainable_layer(rec.mask_matrix) for rec in recs]
+        want = round_want(cfg, fl, cuts)
+        for rec in recs:
+            check(all(math.isfinite(v) for v in (rec.train_loss,
+                                                  rec.test_loss)),
+                  f"[moe-round] {name}: non-finite loss")
+            check(np.all(rec.mask_matrix.sum(1) <= fl.budget),
+                  f"[moe-round] {name}: masks break the budget")
+        check(r["launches"] == want,
+              f"[moe-round] {name}: launches {r['launches']}, want {want}")
+        want_each = [{k: v for k, v in round_want(cfg, fl, [c]).items() if v}
+                     for c in cuts]
+        # the scheduler queues round r + 1's probe before round r's eval,
+        # so only the synchronous loop's evals split the launches by round
+        check(way["pipeline"] or r["per_round"] == want_each,
+              f"[moe-round] {name}: launches per round {r['per_round']}, "
+              f"want {want_each}")
+        if runs:
+            base = runs["synchronous"]
+            for ra, rb in zip(recs, base["hist"].records):
+                check(np.array_equal(ra.cohort, rb.cohort)
+                      and np.array_equal(ra.mask_matrix, rb.mask_matrix),
+                      f"[moe-round] {name}, round {ra.round}: other cohorts "
+                      f"or masks than the synchronous loop")
+            r["params_max_diff"] = _tree_max_diff(r["final"], base["final"])
+            check(r["params_max_diff"] == 0.0,
+                  f"[moe-round] {name}: params differ from the synchronous "
+                  f"loop by {r['params_max_diff']:.3e} (want bit-equal)")
+        r["s_per_round"] = r["run_s"] / len(recs)
+        r["cuts"] = cuts
+        for rec, c in zip(recs, cuts):
+            log(f"[moe-round] {name} round {rec.round}: cohort "
+                f"{rec.cohort.tolist()} cut {c} "
+                f"{segment_prefix_cuts(c, cfg)} selected "
+                f"{[np.flatnonzero(m).tolist() for m in rec.mask_matrix]} "
+                f"train_loss {rec.train_loss:.6f} test_loss "
+                f"{rec.test_loss:.6f}")
+        log(f"[moe-round] {name}: {len(recs)} rounds in {r['run_s']:.3f} s = "
+            f"{r['s_per_round']:.4f} s/round; max |Δparams| vs the "
+            f"synchronous loop {r.get('params_max_diff', 0.0):.3e} (bit-equal "
+            f"required); peak {r['peak_gb']:.2f} GB "
+            f"(torch.cuda.max_memory_allocated); launches {r['launches']}; "
+            f"at each queued eval {r['per_round']}   [{card}]")
+        runs[name] = r
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ops.LAUNCHES}
+    hist = runs["synchronous"]["hist"]
+    for r in runs.values():
+        r.pop("final")
+    torch.cuda.empty_cache()
+
+    # round 0 again, stage by stage, then against the plain versions
+    task = _ssm_task(cfg)
+    srv = _round_experiment(cfg, task).build()
+    plain = _round_experiment(cfg, task, model=Model(
+        cfg, RuntimeConfig(remat=False, seq_chunk=128), device="cuda",
+        kernel_mode="torch")).build()
+    stage = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t,
+                       {k: v for k, v in ops.LAUNCHES.items() if v})
+        return res
+    plan, sampled = staged("plan+sample", lambda: (
+        lambda pl: (pl, srv.sample_round(pl)))(srv.plan_round(0)))
+    with MoEStatsLog() as router:
+        stats = staged("probe", lambda: srv.probe_round(params, sampled))
+    routed = router.summary()
+    masks = staged("select", lambda: srv.select_round(plan, stats))
+    new_k, losses = staged("update", lambda: srv.update_round(params, sampled,
+                                                              masks))
+    staged("eval", lambda: srv.client.evaluate(
+        new_k, srv._to_device(task.test_batch())))
+    split = {k: v[0] for k, v in stage.items()}
+    log(f"[moe-round] timed round 0 (synchronised at stage boundaries): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+        + f"; launches per stage {({k: v[1] for k, v in stage.items()})}"
+        f"   [{card}]")
+    log(f"[moe-round] the probe's {routed['layer_calls']} moe layer calls "
+        f"({fl.batch_size} × {SSM_SEQ} tokens each, capacity "
+        f"{capacity(fl.batch_size * SSM_SEQ, cfg)} per expert of "
+        f"{cfg.n_experts}, top {cfg.top_k}): aux loss mean "
+        f"{routed['aux_mean']:.6f} max {routed['aux_max']:.6f}; dropped "
+        f"fraction of routed pairs mean {routed['dropped_mean']:.4f} max "
+        f"{routed['dropped_max']:.4f}   [{card}]")
+    check(np.array_equal(masks, hist.records[0].mask_matrix),
+          "round 0 replayed stage by stage chose other masks than the run")
+    ops.reset_launches()
+    stats_p = plain.probe_round(params, sampled)
+    masks_p = plain.select_round(plan, stats_p)
+    rel = max(float(np.max(np.abs(stats_p[k] - stats[k]) / np.abs(stats[k])))
+              for k in stats)
+    new_p, losses_p = plain.update_round(params, sampled, masks)
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version replay launched kernels: {ops.LAUNCHES}")
+    dp = _tree_max_diff(new_k, new_p)
+    log(f"[moe-round] round 0, kernels vs plain versions: probe stats max "
+        f"rel err {rel:.3e} (rtol 1e-5: the same gradients, summed in "
+        f"another order); masks equal: {bool(np.array_equal(masks_p, masks))};"
+        f" update with the kernel run's masks: max |Δparams| {dp:.3e} "
+        f"(atol {ROUND_PARAM_ATOL:g}), losses "
+        f"{np.abs(losses - losses_p).max():.3e}   [{card}]")
+    check(rel <= 1e-5, "deepseek probe stats: kernel and plain versions "
+                       "disagree")
+    check(np.array_equal(masks_p, masks), "deepseek plain-version probe "
+                                          "stats chose other masks")
+    check(dp <= ROUND_PARAM_ATOL, f"deepseek round 0 update: kernel and "
+                                  f"plain versions differ by {dp:.3e}")
+    del new_k, new_p, srv, plain
+    torch.cuda.empty_cache()
+
+    # one "top" round: every client trains the last `budget` layers, so the
+    # cut falls inside blocks: dense0 frozen and left out of the trainable
+    # rows, the first blocks rows frozen
+    top = _round_experiment(cfg, _ssm_task(cfg), strategy="top", rounds=1)
+    rows_seen = []
+    orig = mu.masked_sgd_update_2d
+
+    def counted(p, g, mask, lr):
+        rows_seen.append(p.shape[0])
+        return orig(p, g, mask, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(mu, "masked_sgd_update_2d", counted):
+        final, hist_top = top.run(params)
+    torch.cuda.synchronize()
+    top_s = time.perf_counter() - t0
+    top_launches = dict(ops.LAUNCHES)
+    top_peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = hist_top.records[0]
+    top_cut = first_trainable_layer(rec.mask_matrix)
+    seg = segment_prefix_cuts(top_cut, cfg)
+    nb = L - cfg.first_dense
+    want_top = {**round_want(cfg, fl, [top_cut]), "layer_grad_norm": 0}
+    frozen = _tree_max_diff(
+        {"dense0": final["dense0"],
+         "blocks": {k: v[:seg["blocks"]] for k, v in final["blocks"].items()}},
+        {"dense0": params["dense0"],
+         "blocks": {k: v[:seg["blocks"]]
+                    for k, v in params["blocks"].items()}})
+    moved = _tree_max_diff(
+        {k: v[seg["blocks"]:] for k, v in final["blocks"].items()},
+        {k: v[seg["blocks"]:] for k, v in params["blocks"].items()})
+    log(f"[moe-round] top round: cut {top_cut} {seg}, train_loss "
+        f"{rec.train_loss:.6f} test_loss {rec.test_loss:.6f}, {top_s:.3f} s, "
+        f"peak {top_peak:.2f} GB; masked_update rows per launch "
+        f"{sorted(set(rows_seen))}; frozen rows moved {frozen:.3e}, trained "
+        f"rows {moved:.3e}; launches {top_launches}, want {want_top}"
+        f"   [{card}]")
+    check(top_cut == L - fl.budget and seg["dense0"] == cfg.first_dense
+          and 0 < seg["blocks"] < nb,
+          f"top round cut at {top_cut} {seg}, want one inside blocks")
+    check(top_launches == want_top, "the top round did not launch the "
+                                    "kernels as its path requires")
+    check(rows_seen and set(rows_seen) == {nb - seg["blocks"]},
+          f"top round: masked_update took {sorted(set(rows_seen))} rows, want "
+          f"only the {nb - seg['blocks']} trainable ones")
+    check(frozen == 0.0 and moved > 0,
+          f"top round: frozen rows moved {frozen:.3e}, trained {moved:.3e}")
+    check(all(math.isfinite(v) for v in (rec.train_loss, rec.test_loss)),
+          "top round: non-finite loss")
+    del final, top, params
+    torch.cuda.empty_cache()
+    prof = phase_profile(card, cfg, SSM_SEQ, "moe-profile", {
+        "routing, dispatch and combine (sort, scan, gather, scatter, "
+        "index)": ("sort", "scan", "gather", "scatter", "index")})
+    torch.cuda.empty_cache()
+    moe_round_exact(card)
+    return {"launches": launches, "top_launches": top_launches,
+            "split": split, "probe_rel_err": rel, "update_max_diff": dp,
+            "router": routed, "top_s": top_s, "top_peak_gb": top_peak,
+            "profile": prof,
+            **{name: {k: r[k] for k in ("s_per_round", "run_s", "peak_gb",
+                                        "cuts")}
+               for name, r in runs.items()}}
+
+
+def moe_round_exact(card: str) -> None:
+    """Reduced deepseek in f32 (3 layers: dense0 + 2 moe blocks, d_model
+    64), 2 rounds: the card and the CPU choose the same cohorts and masks
+    and reach params within atol 1e-5."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("deepseek_v2_lite_16b"), n_layers=3, d_model=64)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        task = SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=8, vocab_size=cfg.vocab_size, seq_len=64,
+            samples_per_client=8, skew="label", objective="lm"))
+        exp = Experiment(cfg, task, "ours", cohort_size=3, rounds=2,
+                         local_steps=2, lr=0.01, batch_size=2, budget=2,
+                         lam=1.0, seed=3, pipeline=False, device=dev,
+                         runtime=RuntimeConfig(remat=False, seq_chunk=16))
+        params = tree_map(lambda t: t.to(dev),
+                          Experiment(cfg, task, device="cpu").init_params())
+        ops.reset_launches()
+        final, hist = exp.run(params)
+        runs[dev] = (tree_map(lambda t: t.cpu(), final), hist,
+                     dict(ops.LAUNCHES))
+    (pg, hg, lg), (pc, hc, lc) = runs["cuda"], runs["cpu"]
+    check(lg["layer_grad_norm"] > 0 and lg["masked_update"] > 0
+          and lc == {k: 0 for k in lc}
+          and all(lg[k] == 0 for k in lg
+                  if k not in ("layer_grad_norm", "masked_update")),
+          f"reduced deepseek run: launches on the card {lg}, on the CPU {lc}")
+    for rg, rc in zip(hg.records, hc.records):
+        check(np.array_equal(rg.cohort, rc.cohort)
+              and np.array_equal(rg.mask_matrix, rc.mask_matrix),
+              f"reduced deepseek run, round {rg.round}: card and CPU chose "
+              f"other cohorts or masks")
+    err = _tree_max_diff(pg, pc)
+    log(f"[moe-round] reduced deepseek f32, 2 rounds: cohorts and masks "
+        f"equal on card and CPU; max |Δparams| {err:.3e} (atol 1e-5); card "
+        f"launches {lg}   [{card}]")
+    check(err <= 1e-5, "reduced deepseek run: card and CPU params differ")
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -3514,6 +4134,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hybrid-serve-long", action="store_true",
                     help="only the measured Zamba2-7B serving run "
                          "(phase_hybrid_serve_long, about 30 min)")
+    ap.add_argument("--moe-serve-long", action="store_true",
+                    help="only the measured DeepSeek-V2-Lite-16B serving "
+                         "run (phase_moe_serve_long)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3530,14 +4153,19 @@ def main(argv=None) -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {card}")
-    if args.hybrid_serve_long:
+    for flag, name, phase in (
+            (args.hybrid_serve_long, "hybrid_serve_long",
+             phase_hybrid_serve_long),
+            (args.moe_serve_long, "moe_serve_long", phase_moe_serve_long)):
+        if not flag:
+            continue
         try:
-            res = phase_hybrid_serve_long(card)
+            res = phase(card)
         except SmokeFailure as exc:
             log(f"FAIL: {exc}")
             return 1
         log(f"[done] {time.perf_counter() - t0:.1f} s")
-        print(json.dumps({"hybrid_serve_long": res}))
+        print(json.dumps({name: res}))
         print(card)
         return 0
     try:
@@ -3566,21 +4194,32 @@ def main(argv=None) -> int:
         pre = phase_pretrain(card)
         ckp = phase_checkpoint(card)
         faults = phase_faults(card, pipe)
-        # slice 9: the earlier phases' models are gone with their frames;
-        # Zamba2-7B's init alone draws a 16.9 GB f32 transient
+        # slice 9: the earlier phases' models are gone with their frames
         gc.collect()
         torch.cuda.empty_cache()
         hyk = phase_hybrid_kernels(card)
         phase_hybrid_serve(card)
         hyr = phase_hybrid_round(card)
+        # slice 10: the full DeepSeek-V2-Lite-16B takes 31.4 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        mok = phase_moe_kernels(card)
+        phase_moe_serve(card)
+        mor = phase_moe_round(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
     total = kern["total"]
     fault_paths = faults["launches"]
+    # the moe paths launch no serving, flash or ssd kernel: they are listed
+    # with their counts (0) beside the training kernels' launches
+    moe_paths = {"deepseek_round": mor["launches"],
+                 "deepseek_top_round": mor["top_launches"]}
     delta_paths = {"serve": served["delta"]["launches"],
                    **{p: l["base_delta_matmul"]
-                      for p, l in fault_paths.items()}}
+                      for p, l in fault_paths.items()},
+                   **{p: l["base_delta_matmul"]
+                      for p, l in moe_paths.items()}}
     line = {"kernels": [{
         "name": "base_delta_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_matmul.cu",
@@ -3623,24 +4262,32 @@ def main(argv=None) -> int:
                        pipe["tinyllama_1_1b"]["launches"][name],
                    "mamba2_pipeline": pipe["mamba2_370m"]["launches"][name],
                    "tinyllama_checkpoint_resume": ckp["launches"][name],
-                   **{p: l[name] for p, l in fault_paths.items()}}
+                   **{p: l[name] for p, l in fault_paths.items()},
+                   **{p: l[name] for p, l in moe_paths.items()}}
+        extra = {"deepseek_v2_lite_16b": {
+            **mok[name]["total"], "shapes": mok[name]["rows"],
+            "timed_as": f"sum over DeepSeek-V2-Lite's 23 leaves: dense0's "
+                        f"10 at L=1, the moe blocks' 13 at "
+                        f"L={MOE_ROUND_LAYERS - 1}"
+                        + (", one probe" if name == "layer_grad_norm"
+                           else ", one local step at cut 0")}}
+        errs = [t["max_abs_err"], tm["max_abs_err"],
+                mok[name]["max_abs_err"]]
         if name == "layer_grad_norm":
             by_path["zamba2_round"] = hyr["launches"][name]
-            extra = {"zamba2_7b": {
+            extra["zamba2_7b"] = {
                 **hyk[name]["total"], "shapes": hyk[name]["rows"],
                 "timed_as": "sum over one Zamba2 probe's 17 leaves: nine "
                             "Mamba2 leaves at L=15, the shared block's "
-                            "eight as single rows"}}
-        else:
-            extra = {}
+                            "eight as single rows"}
+            errs.append(hyk[name]["max_abs_err"])
         line["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{rel}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(t["max_abs_err"], tm["max_abs_err"],
-                               hyk[name]["max_abs_err"] if extra else 0.0),
+            "max_abs_err": max(errs),
             "ms": t["total"]["ms"], "plain_ms": t["total"]["plain_ms"],
             "bound_ms": t["total"]["bound_ms"],
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
@@ -3653,7 +4300,8 @@ def main(argv=None) -> int:
     ssd_paths = {"mamba2_round": ssm_rounds["launches"],
                  "mamba2_top_round": ssm_rounds["top_launches"],
                  "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
-                 **fault_paths, "zamba2_round": hyr["launches"]}
+                 **fault_paths, "zamba2_round": hyr["launches"],
+                 **moe_paths}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -3678,7 +4326,8 @@ def main(argv=None) -> int:
                        pipe["tinyllama_1_1b"]["launches"],
                    "tinyllama_pretrain": pre["launches"],
                    "tinyllama_checkpoint_resume": ckp["launches"],
-                   **fault_paths, "zamba2_round": hyr["launches"]}
+                   **fault_paths, "zamba2_round": hyr["launches"],
+                   **moe_paths}
     flash_shapes = [{k: v for k, v in c.items()}
                     for c in flash["cases"] + hyk["flash"]]
     for name, key, err_keys, extra in (

@@ -225,3 +225,16 @@ def apply_delta_rows(params: dict, rows: dict, deltas: dict,
             d = torch.as_tensor(deltas[key][name], device=p.device)
             out[key][name] = p.index_add(0, idx, scale * d.to(p.dtype))
     return out
+
+
+def add_delta_rows_(params: dict, rows: dict, deltas: dict) -> dict:
+    """:func:`apply_delta_rows` in place: the user's delta rows are added
+    into ``params``' own rows (the same ``index_add``, so the same values),
+    and no second copy of a segment is made.  Returns ``params``."""
+    for key, idx in rows.items():
+        for name, p in params[key].items():
+            p.index_add_(0, torch.as_tensor(idx, dtype=torch.long,
+                                            device=p.device),
+                         torch.as_tensor(deltas[key][name],
+                                         device=p.device).to(p.dtype))
+    return params

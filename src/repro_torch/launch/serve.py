@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+from repro_torch.core.aggregation import add_delta_rows_
 from repro_torch.models.model import Model
 from repro_torch.serve import DeltaOverlay, DeltaStore, stack_tree
 from repro_torch.serve.engine import check_device, tree_slot
@@ -149,11 +150,16 @@ class SlotServer:
             # reset_slot would also reach the JAX package's helper
             reset_cache_slot = self.model.reset_slot
             if self.mode == "dense":
-                # straight into the slot's bank entry: no earlier user's
-                # private copy stays alive while this one is built
-                _copy_into(tree_slot(self.bank, i),
-                           self.store.materialize(self.params, req.user_id)
-                           if req.user_id >= 0 else self.params)
+                # the user's private copy is built in the slot's bank entry
+                # itself: the base params, then their delta rows added in
+                # place, so no second full copy is ever alive (at
+                # DeepSeek-V2-Lite's width the base and one bank slot take
+                # 62.8 GB of the card's 80)
+                bank_slot = tree_slot(self.bank, i)
+                _copy_into(bank_slot, self.params)
+                rec = self._record(req)
+                if rec is not None:
+                    add_delta_rows_(bank_slot, rec.rows(), rec.leaves())
                 reset_cache_slot(self.cache, i, stacked=True)
             else:
                 reset_cache_slot(self.cache, i)

@@ -235,16 +235,26 @@ def init_stacked(gen: torch.Generator, shapes: dict, n: int, dtype,
     ``ssm_D``), so those never fire: ``ssm_A_log``, ``ssm_D``, ``ssm_ln``,
     ``ssm_gate_ln`` and ``ssm_conv_b`` are N(0, 0.02) and only
     ``ssm_dt_bias`` is zeros, so A = −exp(A_log) ≈ −1.  The port keeps
-    exactly those rules."""
+    exactly those rules.
+
+    A stacked leaf is drawn row by row into its ``dtype`` tensor, so the
+    f32 transient is one row, not the whole stack (DeepSeek-V2-Lite's
+    ``moe_wi_e`` is 369 M elements a row: 38.4 GB of f32 over 26 rows)."""
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * scale).to(dtype)
+
     params = {}
     for name, shp in sorted(shapes.items()):
         full = (n, *shp) if n else tuple(shp)
         if name.startswith("b") or name == "ln" or name.endswith("_bias"):
             params[name] = torch.zeros(full, dtype=dtype, device=device)
+        elif n:
+            params[name] = torch.empty(full, dtype=dtype, device=device)
+            for i in range(n):
+                params[name][i] = normal(tuple(shp))
         else:
-            params[name] = (torch.randn(full, generator=gen,
-                                        dtype=torch.float32, device=device)
-                            * scale).to(dtype)
+            params[name] = normal(full)
     return params
 
 
@@ -365,8 +375,10 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 # MLP block
 # ---------------------------------------------------------------------------
 
-def mlp_param_shapes(cfg: ArchConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_param_shapes(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
+    """``d_ff`` overrides the config's width (deepseek's leading dense
+    block: ``d_ff · (top_k + n_shared_experts)``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_act == "gelu_plain":           # non-gated (whisper, vit, roberta)
         return {"ln": (d,), "wi": (d, ff), "wo": (ff, d)}
     return {"ln": (d,), "wi": (d, 2 * ff), "wo": (ff, d)}   # gated: [gate|up]

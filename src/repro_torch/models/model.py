@@ -1,11 +1,12 @@
 """Model facade (counterpart of ``repro/models/model.py``).
 
-For the ``dense``, ``vlm``, ``ssm`` (Mamba2) and ``hybrid`` (zamba2)
-families: the layer layout and the mask helpers of the mask-aware engine
-(``segment_prefix_cuts``, ``trainable_rows``, ``split_mask``,
-``apply_layer_mask``), parameter init, the sequence forward and losses of
-training (:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or
-conv/state cache and :meth:`Model.decode_step`.
+For the ``dense``, ``vlm``, ``ssm`` (Mamba2), ``hybrid`` (zamba2) and
+``moe`` (deepseek-v2, grok-1) families: the layer layout and the mask
+helpers of the mask-aware engine (``segment_prefix_cuts``,
+``trainable_rows``, ``split_mask``, ``apply_layer_mask``), parameter init,
+the sequence forward and losses of training (:meth:`Model.forward_seq`,
+:meth:`Model.loss`), the KV or conv/state cache and
+:meth:`Model.decode_step`.
 
 The hybrid is a Mamba2 stack with ONE attention+MLP block whose weights
 are shared, applied after every ``attn_every`` Mamba2 blocks; its leaves in
@@ -13,6 +14,14 @@ are shared, applied after every ``attn_every`` Mamba2 blocks; its leaves in
 application site has its own KV cache row.  Its mask order is not a
 prefix of the compute graph, so it runs the dense program only
 (``supports_prefix_cut``).
+
+The moe family has two selectable segments: ``dense0`` (deepseek's
+``first_dense`` leading blocks, attention and a plain MLP) and then
+``blocks`` (attention and a routed MoE layer, ``models/moe.py``); the
+attention is MLA (``models/mla.py``) when ``use_mla``, else the dense
+family's GQA.  A prefix cut can fall in either segment; the routers'
+load-balance loss is summed over the ``blocks`` rows into the loss.  Its
+decode has no delta path: capacity dropping couples the slots of a batch.
 
 The functions the streaming round path calls have names of the port's
 own (``segment_prefix_cuts``, ``trainable_rows``, ``Model.hidden_seq``,
@@ -22,9 +31,10 @@ for other callers): the repo lint follows calls by bare name from
 to the reference's jitted functions, whose static ``int(...)`` it would
 then report (so the hybrid's functions are ``_hybrid_sites`` and
 ``_mamba_stack_decode``, not the reference's ``_zamba_*``).  A ``lax.scan``
-over layers becomes a Python loop over the rows of ``params["blocks"]``;
-cache writes happen in place.  The ``moe`` and ``audio`` families raise
-``NotImplementedError`` until their slices land (ROADMAP.md).
+over layers becomes a Python loop over the rows of a stacked segment,
+carrying the hidden state and the aux loss; cache writes happen in place.
+The ``audio`` family raises ``NotImplementedError`` until its slice lands
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,11 +46,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RuntimeConfig
 from repro_torch.models import blocks as B
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssd as SSD
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 _DENSE_FAMILIES = ("dense", "vlm")
-_PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+_PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
 _IMAX = torch.iinfo(torch.int32).max
 
 
@@ -168,6 +180,17 @@ def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
                 **_prefixed("mlp_", B.mlp_param_shapes(cfg))}
     if kind == "ssm":
         return _prefixed("ssm_", SSD.mamba2_param_shapes(cfg))
+    if kind in ("moe", "moe_dense0"):
+        attn = (MLA.mla_param_shapes(cfg) if cfg.use_mla
+                else B.attn_param_shapes(cfg))
+        if kind == "moe":
+            return {**_prefixed("attn_", attn),
+                    **_prefixed("moe_", MOE.moe_param_shapes(cfg))}
+        # deepseek's leading dense block: an MLP as wide as the active
+        # experts together
+        ff = cfg.d_ff * max(cfg.top_k + cfg.n_shared_experts, 1)
+        return {**_prefixed("attn_", attn),
+                **_prefixed("mlp_", B.mlp_param_shapes(cfg, d_ff=ff))}
     raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
@@ -198,9 +221,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     if cfg.family == "vlm":
         embed["patch_proj"] = normal((d, d))
     params["embed"] = embed
-    kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
-    params["blocks"] = B.init_stacked(gen, _block_shapes(cfg, kind),
-                                      cfg.n_layers, dtype, device)
+    if cfg.family == "moe":
+        if cfg.first_dense:
+            params["dense0"] = B.init_stacked(
+                gen, _block_shapes(cfg, "moe_dense0"), cfg.first_dense,
+                dtype, device)
+        params["blocks"] = B.init_stacked(
+            gen, _block_shapes(cfg, "moe"), cfg.n_layers - cfg.first_dense,
+            dtype, device)
+    else:
+        kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
+        params["blocks"] = B.init_stacked(gen, _block_shapes(cfg, kind),
+                                          cfg.n_layers, dtype, device)
     if cfg.family == "hybrid":          # the shared block: unstacked leaves
         params["shared_attn"] = B.init_stacked(
             gen, _block_shapes(cfg, "attn_mlp_shared"), 0, dtype, device)
@@ -210,6 +242,21 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     elif not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab_size))
     return params
+
+
+def count_params(params: dict) -> int:
+    return sum(leaf.numel() for leaf in tree_leaves(params))
+
+
+def count_active_params(cfg: ArchConfig, params: dict) -> int:
+    """Active parameters per token (moe: top_k of n_experts routed)."""
+    total = count_params(params)
+    if not cfg.n_experts:
+        return total
+    blocks = params.get("blocks", {})
+    routed = sum(blocks[name].numel() for name in ("moe_wi_e", "moe_wo_e")
+                 if name in blocks)
+    return int(total - routed + routed * (cfg.top_k / cfg.n_experts))
 
 
 def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -231,6 +278,39 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                             kernel_mode=kernel_mode)
     return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp,
                          delta_slots=dslots, delta_mode=kernel_mode)
+
+
+def _moe_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
+                   window, seq_chunk, cache=None, cache_pos=None,
+                   remat_chunk=False, kernel_mode=None) -> torch.Tensor:
+    """The moe family's (causal) attention sub-block: MLA when
+    ``cfg.use_mla``, else the dense family's GQA (grok-1)."""
+    if cfg.use_mla:
+        return MLA.mla_fwd(p, x, cfg, positions=positions, cache=cache,
+                           cache_pos=cache_pos, window=window,
+                           seq_chunk=seq_chunk)
+    return B.attention_fwd(p, x, cfg, positions=positions, cache=cache,
+                           cache_pos=cache_pos, causal=True, window=window,
+                           seq_chunk=seq_chunk, remat_chunk=remat_chunk,
+                           kernel_mode=kernel_mode)
+
+
+def _moe_dense0_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                    **attn) -> torch.Tensor:
+    """One of deepseek's leading dense blocks: attention, then a plain
+    MLP."""
+    x = x + _moe_attention(_take(p, "attn_"), x, cfg, **attn)
+    return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg)
+
+
+def _moe_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                   moe_local: bool = False, **attn):
+    """One moe block: attention, then the routed MoE layer.  Returns the
+    new hidden state and the router's aux loss."""
+    x = x + _moe_attention(_take(p, "attn_"), x, cfg, **attn)
+    out, stats = MOE.moe_fwd(_take(p, "moe_"), x, cfg,
+                             local_dispatch=moe_local)
+    return x + out, stats.aux_loss
 
 
 def _rows(stack: dict) -> dict:
@@ -290,7 +370,7 @@ class Model:
     def _run_stack(self, layer_fn, x, full: dict, trainable: Optional[dict],
                    cut: int, after_row=None):
         """Apply ``layer_fn(x, layer_params)`` over a stacked segment, split at
-        the frozen-prefix ``cut``.
+        the frozen-prefix ``cut``; ``x`` is the carry, (hidden, aux loss).
 
         Dense path (``trainable is None``): every row from ``full``, each
         followed by ``after_row(i, x)`` when given (the hybrid's shared
@@ -330,11 +410,12 @@ class Model:
             return checkpoint(layer_fn, h, p, use_reentrant=False)
         return layer_fn(h, p)
 
-    def _mamba_layer(self, h, p):
+    def _mamba_layer(self, carry, p):
         """One residual Mamba2 block of the sequence forward."""
+        h, aux = carry
         out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, self.cfg,
                                 mode=self.kernel_mode)
-        return h + out
+        return h + out, aux
 
     def _hybrid_sites(self, shared: dict, positions: torch.Tensor):
         """The zamba2 hook of the Mamba2 row loop (ref
@@ -345,26 +426,65 @@ class Model:
         reference."""
         cfg, rt = self.cfg, self.runtime
 
-        def after_row(i: int, h: torch.Tensor) -> torch.Tensor:
+        def after_row(i: int, carry):
             if (i + 1) % cfg.attn_every:
-                return h
+                return carry
+            h, aux = carry
             return _dense_block_fwd(shared, h, cfg, positions=positions,
                                     causal=True, window=cfg.sliding_window,
                                     seq_chunk=rt.seq_chunk,
                                     remat_chunk=rt.remat_scores,
-                                    kernel_mode=self.kernel_mode)
+                                    kernel_mode=self.kernel_mode), aux
         return after_row
+
+    def _seq_segments(self, params: dict, positions: torch.Tensor,
+                      causal: bool, prefix_len: int) -> list:
+        """The sequence forward's stacked segments in order, as (path,
+        ``layer_fn(carry, row_params)``, ``after_row``); the carry is
+        (hidden, aux loss), which only the moe rows add to."""
+        cfg, rt, km = self.cfg, self.runtime, self.kernel_mode
+        if cfg.family in ("ssm", "hybrid"):
+            after_row = (self._hybrid_sites(params["shared_attn"], positions)
+                         if cfg.family == "hybrid" else None)
+            return [("blocks", self._mamba_layer, after_row)]
+        if cfg.family == "moe":
+            attn = dict(positions=positions, window=cfg.sliding_window,
+                        seq_chunk=rt.seq_chunk, remat_chunk=rt.remat_scores,
+                        kernel_mode=km)
+
+            def dense0_row(carry, p):
+                return _moe_dense0_fwd(p, carry[0], cfg, **attn), carry[1]
+
+            def moe_row(carry, p):
+                h, aux = _moe_block_fwd(p, carry[0], cfg,
+                                        moe_local=rt.moe_local_dispatch,
+                                        **attn)
+                return h, carry[1] + aux
+            return ([("dense0", dense0_row, None)] if cfg.first_dense
+                    else []) + [("blocks", moe_row, None)]
+
+        def dense_row(carry, p):
+            return _dense_block_fwd(p, carry[0], cfg, positions=positions,
+                                    causal=causal, window=cfg.sliding_window,
+                                    prefix_len=prefix_len,
+                                    seq_chunk=rt.seq_chunk,
+                                    remat_chunk=rt.remat_scores,
+                                    kernel_mode=km), carry[1]
+        return [("blocks", dense_row, None)]
 
     def hidden_seq(self, params: dict, batch: dict, *,
                    trainable: Optional[dict] = None, cut: int = 0):
         """Full-sequence forward.  Returns (hidden, aux_loss, prefix_len).
 
-        ``trainable``/``cut`` select the mask-aware path: the block stack is
-        split at mask index ``cut``; rows below it come from ``params``
-        (frozen), rows at or above it from ``trainable`` (the
-        :func:`trainable_rows` dict the caller differentiates).
+        ``trainable``/``cut`` select the mask-aware path: each selectable
+        segment is split at its own cut from :func:`segment_prefix_cuts`;
+        rows below it come from ``params`` (frozen), rows at or above it
+        from ``trainable`` (the :func:`trainable_rows` dict the caller
+        differentiates; a fully frozen segment is absent from it).  The
+        aux loss is the moe routers' load-balance loss summed over the
+        ``blocks`` rows, frozen ones included (zero for other families).
         """
-        cfg, rt = self.cfg, self.runtime
+        cfg = self.cfg
         _need_ported_family(cfg, "forward_seq")
         if trainable is not None and not supports_prefix_cut(cfg):
             raise ValueError(f"family {cfg.family!r} has no prefix-cut path")
@@ -382,30 +502,16 @@ class Model:
             x = self._embed_tokens(params, batch["tokens"])
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        causal = cfg.task == "lm"
-        after_row = None
-        if cfg.family in ("ssm", "hybrid"):
-            layer_fn = self._mamba_layer
-            if cfg.family == "hybrid":
-                after_row = self._hybrid_sites(params["shared_attn"],
-                                               positions)
-        else:
-            def layer_fn(h, p):
-                return _dense_block_fwd(p, h, cfg, positions=positions,
-                                        causal=causal,
-                                        window=cfg.sliding_window,
-                                        prefix_len=prefix_len,
-                                        seq_chunk=rt.seq_chunk,
-                                        remat_chunk=rt.remat_scores,
-                                        kernel_mode=self.kernel_mode)
-
-        blocks_cut = (segment_prefix_cuts(cut, cfg)["blocks"]
-                      if trainable is not None else 0)
-        x = self._run_stack(layer_fn, x, params["blocks"],
-                            None if trainable is None
-                            else trainable.get("blocks", {}), blocks_cut,
-                            after_row)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        cuts = (segment_prefix_cuts(cut, cfg) if trainable is not None
+                else {})
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+        for path, layer_fn, after_row in self._seq_segments(
+                params, positions, cfg.task == "lm", prefix_len):
+            carry = self._run_stack(
+                layer_fn, carry, params[path],
+                None if trainable is None else trainable.get(path, {}),
+                cuts.get(path, 0), after_row)
+        x, aux = carry
         return x, aux, prefix_len
 
     forward_seq = hidden_seq
@@ -464,8 +570,9 @@ class Model:
     def init_cache(self, batch: int, max_seq: int, *, window: int = 0,
                    per_slot: bool = False) -> dict:
         """KV caches (ssm: conv and state caches; hybrid: both, one KV row
-        per application of the shared block) for decode, in ``cfg.dtype``;
-        ``window`` caps the KV cache length.
+        per application of the shared block; moe: per segment, MLA's latent
+        ``ckv`` and ``krope`` rows, or GQA's k/v) for decode, in
+        ``cfg.dtype``; ``window`` caps the KV cache length.
 
         ``per_slot=True`` is the serving layout: ``pos`` is (L, B, W)
         instead of (L, W), so every slot tracks its own position (the ssm
@@ -476,14 +583,27 @@ class Model:
         dt = _torch_dtype(cfg.dtype)
         W = min(window or max_seq, max_seq)
 
+        def pos(n: int) -> torch.Tensor:
+            return torch.full((n, batch, W) if per_slot else (n, W), _IMAX,
+                              dtype=torch.int32, device=self.device)
+
         def kv(n: int) -> dict:
+            if cfg.use_mla:
+                return {"ckv": torch.zeros((n, batch, W, cfg.kv_lora_rank),
+                                           dtype=dt, device=self.device),
+                        "krope": torch.zeros((n, batch, W, cfg.qk_rope_dim),
+                                             dtype=dt, device=self.device),
+                        "pos": pos(n)}
             shp = (n, batch, W, cfg.n_kv_heads, cfg.resolved_head_dim)
             return {"k": torch.zeros(shp, dtype=dt, device=self.device),
                     "v": torch.zeros(shp, dtype=dt, device=self.device),
-                    "pos": torch.full((n, batch, W) if per_slot else (n, W),
-                                      _IMAX, dtype=torch.int32,
-                                      device=self.device)}
+                    "pos": pos(n)}
 
+        if cfg.family == "moe":
+            cache = {"blocks": kv(cfg.n_layers - cfg.first_dense)}
+            if cfg.first_dense:
+                cache["dense0"] = kv(cfg.first_dense)
+            return cache
         if cfg.family not in ("ssm", "hybrid"):
             return {"blocks": kv(cfg.n_layers)}
         shp = SSD.mamba2_cache_shapes(cfg, batch)
@@ -543,6 +663,30 @@ class Model:
                                      kernel_mode=self.kernel_mode)
         return x
 
+    def _moe_stack_decode(self, params: dict, x: torch.Tensor,
+                          positions: torch.Tensor, pos: torch.Tensor,
+                          cache: dict, window: int) -> torch.Tensor:
+        """One decode step through ``dense0`` and then the moe ``blocks``,
+        each row over its own cache row (MLA's latent rows or GQA's k/v),
+        written in place.  The step's B tokens share the routers'
+        capacity, as the reference's do."""
+        cfg, rt = self.cfg, self.runtime
+        attn = dict(positions=positions, window=window,
+                    seq_chunk=rt.seq_chunk, cache_pos=pos,
+                    kernel_mode=self.kernel_mode)
+        for seg in layer_layout(cfg):
+            stack, seg_cache = params[seg.path], cache[seg.path]
+            for li in range(seg.count):
+                p = {name: leaf[li] for name, leaf in stack.items()}
+                c = {name: leaf[li] for name, leaf in seg_cache.items()}
+                if seg.path == "dense0":
+                    x = _moe_dense0_fwd(p, x, cfg, cache=c, **attn)
+                else:
+                    x, _ = _moe_block_fwd(p, x, cfg, cache=c,
+                                          moe_local=rt.moe_local_dispatch,
+                                          **attn)
+        return x
+
     @torch.inference_mode()
     def decode_step(self, params: dict, tokens: torch.Tensor,
                     pos: torch.Tensor, cache: dict, *, window: int = 0,
@@ -570,6 +714,9 @@ class Model:
         w = window or cfg.sliding_window
         if cfg.family in ("ssm", "hybrid"):
             x = self._mamba_stack_decode(params, x, positions, pos, cache, w)
+            return self._head(params, x)[:, 0], cache
+        if cfg.family == "moe":
+            x = self._moe_stack_decode(params, x, positions, pos, cache, w)
             return self._head(params, x)[:, 0], cache
         blocks, kv = params["blocks"], cache["blocks"]
         for li in range(cfg.n_layers):

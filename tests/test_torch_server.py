@@ -119,7 +119,7 @@ def test_experiment_matches_server_run(world):
 
 
 def test_unported_features_raise(world, tmp_path):
-    """Only the other model families are still unported: they raise,
+    """Only the audio family (whisper) is still unported: it raises,
     naming the ROADMAP entry.  Fault injection is ported (a fault plan is
     taken, anything else is rejected as the reference rejects it); the
     scheduler (the vectorized engine's default), checkpoints and
@@ -130,7 +130,7 @@ def test_unported_features_raise(world, tmp_path):
     fl = tcfg.FLConfig(**FL)
     params = params_to_torch(host, "cpu")
     with pytest.raises(NotImplementedError, match="Other model families"):
-        tmodel.Model(tcfg.reduced(tcfg.get_arch("deepseek_v2_lite_16b")),
+        tmodel.Model(tcfg.reduced(tcfg.get_arch("whisper_medium")),
                      tcfg.RuntimeConfig(remat=False), device="cpu").init(0)
     with pytest.raises(TypeError, match="FaultPlan"):
         TServer(tm, fl, data, faults=object())
