@@ -116,9 +116,24 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     fraction logged), a "top" round whose cut falls inside ``blocks``
     (``masked_update`` only on the trainable rows), one profiled client
     step and a reduced f32 card-vs-CPU run;
-21. prints one JSON line of per-kernel results (launches per path, the
-    fault, Zamba2 and DeepSeek paths among them), the card's name and
-    power limit, and a last JSON line ``{"ok": true, "device": {...}}``.
+21. runs the audio family, whisper-medium, at full width and depth (24
+    encoder and 24 decoder layers, 1500 frames, decoder seq_len 448): the
+    flash kernels at the encoder's self-attention (S 1500, non-causal,
+    MHA 16 × 64: a ragged last block) and the decoder's (S 448, causal) on
+    the tensor-core route, and ``layer_grad_norm`` / ``masked_update`` at
+    its 21 leaves (L 24 each), against their plain versions and timed
+    beside bounds and the library; one step of Algorithm 1 composed from
+    ``Client`` as the reference composes it (the probe, "ours" at budget
+    2, the masked cohort update at the selected cut, then masked against
+    dense at cuts 0, 12, 24 and 46), every run's launches against its
+    structure (``masked_update`` only on the rows above the cut), round 0
+    against the plain versions and an f32 probe, one profiled client step
+    and a reduced f32 card-vs-CPU update; then an f32 forward against 64
+    decode steps over a cross cache filled from the port's encoder, and
+    the refused per-slot and delta decode;
+22. prints one JSON line of per-kernel results (launches per path, the
+    fault, Zamba2, DeepSeek and whisper paths among them), the card's name
+    and power limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --hybrid-serve-long
 
@@ -1339,7 +1354,8 @@ def phase_profile(card: str, arch, seq: int, tag: str,
     names a config, or is one.  Reports the step's wall time, the device's
     busy time (the kernels' own time; idle = the rest) and the kernels that
     take most of it, grouped by ``kernels`` (label → substrings of the
-    port's kernel names), matmuls and the rest."""
+    port's kernel names), matmuls and the rest.  An audio config's batch
+    also carries 4 × ``enc_seq`` frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RuntimeConfig, get_arch
@@ -1353,6 +1369,9 @@ def phase_profile(card: str, arch, seq: int, tag: str,
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
                                      generator=gen, device="cuda",
                                      dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device="cuda")
     wrt = {seg.path: {k: v.detach().requires_grad_()
                       for k, v in params[seg.path].items()}
            for seg in layer_layout(cfg)}
@@ -1388,9 +1407,10 @@ def phase_profile(card: str, arch, seq: int, tag: str,
                 "gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")) else other
         groups[key] += ms
     top = sorted(found.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"[{tag}] one full-width client step (fwd+bwd, {cfg.n_layers} "
-        f"layers, 4 × {seq} tokens): wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%; idle "
+    log(f"[{tag}] one full-width client step (fwd+bwd, "
+        f"{cfg.n_layers + cfg.n_enc_layers} layers, 4 × {seq} tokens): wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%; idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%), {n_launch} kernel launches"
         f"   [{card}]")
     log(f"[{tag}] device time by group: " + ", ".join(
@@ -1544,16 +1564,21 @@ def flash_bound(b, s, h, k, d, causal, window, dtype,
                                        else "operations")
 
 
-def flash_inputs(b, s, h, k, d, dtype, gen):
+def flash_inputs(b, s, h, k, d, dtype, gen, fused_kv: bool = True):
     """q, k, v, dO as the model makes them: (B,S,H,D) / (B,S,K,D) slices of
     projections (q of a (B,S,H·D) product, k and v of one (B,S,2·K·D)
-    product, so k and v are strided views), standard normal."""
+    product, so k and v are strided views; with ``fused_kv`` False, of one
+    (B,S,K·D) product each, as ``blocks.attention_fwd`` projects them),
+    standard normal."""
     import torch
     q = torch.randn((b, s, h * d), generator=gen, device="cuda").to(dtype)
     kv = torch.randn((b, s, 2 * k * d), generator=gen, device="cuda").to(dtype)
     do = torch.randn((b, s, h * d), generator=gen, device="cuda").to(dtype)
-    return (q.reshape(b, s, h, d), kv[..., :k * d].reshape(b, s, k, d),
-            kv[..., k * d:].reshape(b, s, k, d), do.reshape(b, s, h, d))
+    kt, vt = kv[..., :k * d], kv[..., k * d:]
+    if not fused_kv:
+        kt, vt = kt.contiguous(), vt.contiguous()
+    return (q.reshape(b, s, h, d), kt.reshape(b, s, k, d),
+            vt.reshape(b, s, k, d), do.reshape(b, s, h, d))
 
 
 def _flash_close(got, want, dtype, grad: bool):
@@ -1644,12 +1669,12 @@ def flash_plan(shp: dict, dtype) -> dict:
             "dkdv_blocks": math.prod(grid)}
 
 
-def flash_check(name: str, shp: dict, dtype, gen):
+def flash_check(name: str, shp: dict, dtype, gen, fused_kv: bool = True):
     """The flash forward and backward kernels against their plain versions
     at one shape (o, dQ, dK, dV as :func:`_flash_close`, lse within 1e-5;
     two launches bit for bit); bf16 at head dims 64, 112 and 128 must take
-    the tensor-core route.  Returns the case's record and its model-layout
-    inputs q, k, v, dO."""
+    the tensor-core route.  ``fused_kv`` as :func:`flash_inputs`.  Returns
+    the case's record and its model-layout inputs q, k, v, dO."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     causal, window = shp["causal"], shp["window"]
@@ -1659,7 +1684,7 @@ def flash_check(name: str, shp: dict, dtype, gen):
                                       f"head dim {shp['d']} took the "
                                       f"{plan['route']} route")
     q, k, v, do = flash_inputs(shp["b"], shp["s"], shp["h"], shp["k"],
-                               shp["d"], dtype, gen)
+                               shp["d"], dtype, gen, fused_kv)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
     o2, lse2 = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
@@ -1673,7 +1698,8 @@ def flash_check(name: str, shp: dict, dtype, gen):
                                        causal=causal, window=window)
     torch.cuda.synchronize()
     dtn = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    res = {"case": name, **shp, "dtype": dtn, **plan}
+    res = {"case": name, **shp, "dtype": dtn, **plan,
+           "kv_strides_bhs": list(kt.stride()[:3])}
     checks = [("o", o, o_p, False), ("dq", g[0], g_p[0], True),
               ("dk", g[1], g_p[1], True), ("dv", g[2], g_p[2], True)]
     msgs = []
@@ -3173,7 +3199,8 @@ def _param_split(params) -> str:
     """The parameter count, in all and per group of leaves."""
     n = {k: sum(v.numel() for v in sub.values())
          for k, sub in params.items() if isinstance(sub, dict)}
-    total = sum(n.values()) + params["final_norm"].numel()
+    total = sum(n.values()) + sum(v.numel() for v in params.values()
+                                  if not isinstance(v, dict))
     return (f"{total / 1e9:.4f} B params ("
             + ", ".join(f"{k} {v / 1e9:.4f} B" for k, v in n.items()) + ")")
 
@@ -3625,6 +3652,27 @@ class MoEStatsLog:
                 "dropped_max": drop.max().item()}
 
 
+class RowsSeen:
+    """The rows of every ``masked_update`` launch while active (a patch of
+    ``kernels.masked_update.masked_sgd_update_2d`` that calls it)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import masked_update as mu
+        orig = mu.masked_sgd_update_2d
+        self.rows = []
+
+        def counted(p, g, mask, lr):
+            self.rows.append(p.shape[0])
+            return orig(p, g, mask, lr)
+        self._patch = mock.patch.object(mu, "masked_sgd_update_2d", counted)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        return False
+
+
 def phase_moe_kernels(card: str) -> dict:
     """The two training kernels of the DeepSeek-V2-Lite-16B round against
     their plain versions at its leaves, each timed beside its bound and
@@ -3869,7 +3917,6 @@ def phase_moe_round(card: str) -> dict:
     import torch
     from repro_torch.configs.base import RuntimeConfig, get_arch
     from repro_torch.core.masks import first_trainable_layer
-    from repro_torch.kernels import masked_update as mu
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model, segment_prefix_cuts
     from repro_torch.models.moe import capacity
@@ -4017,18 +4064,13 @@ def phase_moe_round(card: str) -> dict:
     # cut falls inside blocks: dense0 frozen and left out of the trainable
     # rows, the first blocks rows frozen
     top = _round_experiment(cfg, _ssm_task(cfg), strategy="top", rounds=1)
-    rows_seen = []
-    orig = mu.masked_sgd_update_2d
-
-    def counted(p, g, mask, lr):
-        rows_seen.append(p.shape[0])
-        return orig(p, g, mask, lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(mu, "masked_sgd_update_2d", counted):
+    with RowsSeen() as seen:
         final, hist_top = top.run(params)
+    rows_seen = seen.rows
     torch.cuda.synchronize()
     top_s = time.perf_counter() - t0
     top_launches = dict(ops.LAUNCHES)
@@ -4127,6 +4169,599 @@ def moe_round_exact(card: str) -> None:
     check(err <= 1e-5, "reduced deepseek run: card and CPU params differ")
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the audio family, whisper-medium
+# ---------------------------------------------------------------------------
+
+# whisper-medium at full width and depth: 24 encoder and 24 decoder layers
+# over 1500 stub frame embeddings, 758.9 M params (1.52 GB in bf16), 704.8
+# M of them selectable in 48 mask entries (a cohort of 4's stacked f32
+# deltas take 11.3 GB).  The reference's whisper path is Model + Client
+# (it has no whisper task, and its SlotServer cannot serve whisper), so
+# the round is composed from the port's parts: the probe, "ours", the
+# masked cohort update at the selected cut and at the cuts below.
+AUDIO_SEQ = 448                     # the decoder's text context
+AUDIO_ROUND = dict(cohort=4, tau=2, batch=4, budget=2, lr=0.01, lam=1.0)
+AUDIO_CUTS = (0, 12, 24, 46)        # cut 0, mid-encoder, the boundary, deep
+AUDIO_DECODE_STEPS = 64
+# one layer's attention on the round's batch: the encoder's (non-causal,
+# S 1500 = 23·64 + 28, a ragged last block) and the decoder's (causal)
+FLASH_WHISPER = (("whisper_encoder", dict(b=4, s=1500, h=16, k=16, d=64,
+                                          causal=False, window=0)),
+                 ("whisper_decoder", dict(b=4, s=AUDIO_SEQ, h=16, k=16, d=64,
+                                          causal=True, window=0)))
+
+
+def phase_audio_kernels(card: str) -> dict:
+    """The three kernels of the whisper-medium round against their plain
+    versions at its shapes, each timed beside its bound and the library
+    call: the flash forward and backward at the encoder's self-attention
+    (B 4, S 1500, MHA 16 heads of 64, bf16, non-causal: the ragged last
+    block) and the decoder's (S 448, causal), both on the tensor-core
+    route, on separate k and v projections as the model makes them (their
+    (b, h, s) strides 1 536 000 / 64 / 1024 at the encoder), SDPA on the
+    same function beside them; ``layer_grad_norm`` over the 21 leaves of
+    one probe (the encoder's 8 and the decoder's 13, L 24 each, 704.8 M
+    elements) and ``masked_update`` over the same rows with a mixed 0/1
+    mask (one τ step at cut 0)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import _block_shapes
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    out = {"flash": []}
+    for name, shp in FLASH_WHISPER:
+        causal = shp["causal"]
+        res, (q, k, v, do) = flash_check(name, shp, bf16, gen, fused_kv=False)
+        check(res["route"] == "mma", f"flash_attention {name} took the "
+                                     f"{res['route']} route")
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        o, lse = fa.flash_attention(qt, kt, vt, causal=causal)
+        res["bound_ms"], res["bound_by"] = flash_bound(**shp, dtype=bf16)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = flash_bound(
+            **shp, dtype=bf16, backward=True)
+        res["ms"] = time_ms(lambda: fa.flash_attention(
+            qt, kt, vt, causal=causal), flush)
+        res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            qt, kt, vt, o, lse, dot, causal=causal), flush)
+        res["plain_ms"] = time_ms(lambda: fa.flash_attention_torch(
+            qt, kt, vt, causal=causal), flush)
+        res["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_torch(
+            qt, kt, vt, o, lse, dot, causal=causal), flush)
+        lq, lk, lv = (t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for t in (q, k, v))
+        ldo = dot.contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv,
+                                                  is_causal=causal)
+        res["library_ms"] = time_ms(sdpa, flush)
+        l_out = sdpa()
+        res["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            l_out, (lq, lk, lv), ldo, retain_graph=True), flush)
+        l_err = (l_out.transpose(1, 2).float() - o.transpose(1, 2).float()
+                 ).abs().max().item()
+        log(f"[audio-kernel] flash {name}: (b, h, s) strides of k "
+            f"{tuple(res['kv_strides_bhs'])}; forward {res['ms']:.4f} ms | "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) | "
+            f"kernel/bound {res['ms'] / res['bound_ms']:.1f} | plain "
+            f"{res['plain_ms']:.4f} ms | SDPA {res['library_ms']:.4f} ms "
+            f"(|Δo| vs kernel {l_err:.3e}); backward {res['bwd_ms']:.4f} ms "
+            f"| bound {res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}) "
+            f"| kernel/bound {res['bwd_ms'] / res['bwd_bound_ms']:.1f} | "
+            f"plain {res['plain_bwd_ms']:.4f} ms | SDPA backward "
+            f"{res['library_bwd_ms']:.4f} ms   [{card}]")
+        out["flash"].append(res)
+        del q, k, v, do, qt, kt, vt, dot, o, lse, lq, lk, lv, ldo, l_out
+
+    cfg = get_arch("whisper_medium")
+    rows = {"layer_grad_norm": [], "masked_update": []}
+    errs = {"layer_grad_norm": 0.0, "masked_update": 0.0}
+    for path, kind, L in (("enc_blocks", "dense", cfg.n_enc_layers),
+                          ("blocks", "encdec", cfg.n_layers)):
+        mask = torch.tensor([float(i % 3 != 1) for i in range(L)],
+                            device="cuda")
+        for name, shp in sorted(_block_shapes(cfg, kind).items()):
+            F_ = math.prod(shp)
+            tag = f"{path}/{name}"
+            g = torch.randn((L, F_), generator=gen,
+                            device="cuda").to(bf16)
+            err, r = lgn_check(g, tag, card, flush)
+            errs["layer_grad_norm"] = max(errs["layer_grad_norm"], err)
+            rows["layer_grad_norm"].append(r)
+            p = torch.randn((L, F_), generator=gen, device="cuda").to(bf16)
+            err, r = mu_check(p, g, mask, 0.01, tag, card, flush)
+            errs["masked_update"] = max(errs["masked_update"], err)
+            rows["masked_update"].append(r)
+            del p, g
+    for kname, rs in rows.items():
+        total = kernel_totals(rs)
+        log(f"[audio-kernel] {kname} over whisper-medium's {len(rs)} leaves "
+            f"(the encoder's 8 and the decoder's 13, L 24 each): kernel "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"(kernel/bound {total['ms'] / total['bound_ms']:.2f}), plain "
+            f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} "
+            f"ms   [{card}]")
+        out[kname] = {"rows": rs, "total": total, "max_abs_err": errs[kname]}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_batches(cfg, lead: tuple, gen) -> dict:
+    """whisper batches on the card: stub frame embeddings (…, B,
+    enc_seq, d_model) standard normal in f32, as the reference draws them,
+    and decoder tokens (…, B, AUDIO_SEQ)."""
+    import torch
+    b = AUDIO_ROUND["batch"]
+    return {"frames": torch.randn(lead + (b, cfg.enc_seq, cfg.d_model),
+                                  generator=gen, device="cuda"),
+            "tokens": torch.randint(0, cfg.vocab_size, lead + (b, AUDIO_SEQ),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32)}
+
+
+def audio_want(cfg, n: int, steps: int, *, probe: bool = False,
+               cut=None) -> dict:
+    """Kernel launches of a whisper probe (``probe``: ``steps`` batches per
+    client) or cohort update (τ = ``steps``; ``cut`` None is the dense
+    program) over ``n`` clients: one bf16 flash forward per attention site
+    (24 encoder and 24 decoder self-attentions; cross-attention runs the
+    plain path) per sequence forward, one backward per differentiated site
+    (all in the probe and the dense program, those at or above the cut in
+    the masked one), one ``layer_grad_norm`` per leaf per probe batch and
+    one ``masked_update`` per leaf of a segment with trainable rows per
+    masked τ step."""
+    from repro_torch.models.model import _block_shapes, segment_prefix_cuts
+    L = cfg.n_selectable_layers()
+    n_enc = len(_block_shapes(cfg, "dense"))
+    n_dec = len(_block_shapes(cfg, "encdec"))
+    seqs = n * steps
+    bwd = seqs * (L - (cut or 0))
+    want = {k: 0 for k in ("base_delta_matmul", "layer_grad_norm",
+                           "masked_update")}
+    want.update({**SSD_NONE, **FLASH_NONE, "flash_attention": seqs * L,
+                 "flash_attention_mma": seqs * L,
+                 "flash_attention_bwd": bwd, "flash_attention_bwd_mma": bwd})
+    if probe:
+        want["layer_grad_norm"] = seqs * (n_enc + n_dec)
+    elif cut is not None:
+        cuts = segment_prefix_cuts(cut, cfg)
+        want["masked_update"] = seqs * (
+            (n_enc if cuts["enc_blocks"] < cfg.n_enc_layers else 0)
+            + (n_dec if cuts["blocks"] < cfg.n_layers else 0))
+    return want
+
+
+def audio_rows_want(cfg, n: int, tau: int, cut: int) -> list:
+    """The rows each ``masked_update`` launch of a masked update at ``cut``
+    takes, in launch order: per client and τ step, the encoder's 8 leaves
+    (its rows above the cut) and then the decoder's 13."""
+    from repro_torch.models.model import _block_shapes, segment_prefix_cuts
+    cuts = segment_prefix_cuts(cut, cfg)
+    step = []
+    for path, kind, count in (("enc_blocks", "dense", cfg.n_enc_layers),
+                              ("blocks", "encdec", cfg.n_layers)):
+        if cuts[path] < count:
+            step += [count - cuts[path]] * len(_block_shapes(cfg, kind))
+    return step * (n * tau)
+
+
+def audio_cut_masks(n: int, L: int, cut: int):
+    """Masks whose first selected layer is ``cut``: client i selects layer
+    cut + (i % 2) and the last layer (two layers at most, rows that
+    differ)."""
+    import numpy as np
+    m = np.zeros((n, L), np.float32)
+    for i in range(n):
+        m[i, min(cut + i % 2, L - 1)] = 1.0
+        m[i, L - 1] = 1.0
+    return m
+
+
+def audio_run(fn) -> dict:
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, the rows of each ``masked_update`` launch, the time (the card
+    synchronised at both ends) and the peak device memory."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RowsSeen() as seen:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    return {"result": res, "s": s, "launches": launches, "rows": seen.rows,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _rows_equal(a: dict, b: dict, upto: dict) -> float:
+    """Largest |a − b| over the first ``upto[path]`` rows of each stacked
+    segment."""
+    return max(_tree_max_diff({k: v[:upto[p]] for k, v in a[p].items()},
+                              {k: v[:upto[p]] for k, v in b[p].items()})
+               if upto[p] else 0.0 for p in upto)
+
+
+def phase_audio_round(card: str) -> dict:
+    """One step of Algorithm 1 at full whisper-medium width and depth
+    (bf16, random weights from seed 0), cohort 4, τ 2, local batch 4,
+    decoder seq_len 448 over 1500 random frames, composed from the port's
+    parts as the reference composes its whisper path: ``probe_cohort_raw``
+    (its ‖g‖² through ``layer_grad_norm``), "ours" at budget 2 on a
+    ``ProbeReport`` of the stats, ``cohort_update_raw`` at
+    ``first_trainable_layer`` of the masks; then the masked update against
+    the dense program on masks that start at cuts 0, 12 (mid-encoder), 24
+    (the boundary) and 46 (deep).  Every run's launches against
+    :func:`audio_want` (flash on the tensor-core route at every site),
+    ``masked_update`` only on the rows above the cut, the frozen rows
+    unmoved, masked = dense within ROUND_PARAM_ATOL, finite losses; round
+    0 replayed against the plain versions (the probes part by less than
+    the plain one sits from an f32 probe; the kernel path at most
+    E2E_ERR_RATIO times as far from it; the same masks); ms per client
+    step and peak memory; one client step
+    profiled; a reduced f32 cohort update on card and CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.api.strategy import SelectionContext, get_strategy
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.core.client import Client
+    from repro_torch.core.masks import first_trainable_layer
+    from repro_torch.core.strategies import ProbeReport
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, segment_prefix_cuts
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch("whisper_medium")
+    rt = RuntimeConfig(remat=False, seq_chunk=128)
+    ar = AUDIO_ROUND
+    n, tau, L = ar["cohort"], ar["tau"], cfg.n_selectable_layers()
+    model = Model(cfg, rt, device="cuda")
+    params = model.init(0)
+    client = Client(model)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = audio_batches(cfg, (n, tau), gen)
+    probe_b = audio_batches(cfg, (n, 1), gen)
+    sizes = np.array([16.0, 12.0, 20.0, 8.0][:n])
+    reqs = ("grad_sq_norms",)
+    sel = sum(v.numel() for k in ("enc_blocks", "blocks")
+              for v in params[k].values())
+    log(f"[audio-round] {cfg.name}: {_param_split(params)}, "
+        f"{sel / 1e6:.1f} M selectable in {L} mask entries; stacked f32 "
+        f"deltas of a cohort of {n}: {n * sel * 4 / 1e9:.2f} GB; frames "
+        f"{tuple(batches['frames'].shape)}, tokens "
+        f"{tuple(batches['tokens'].shape)}   [{card}]")
+    t0 = time.perf_counter()
+    client.probe_cohort_raw(params, probe_b, reqs)            # warm-up
+    torch.cuda.synchronize()
+    log(f"[audio-round] warm-up probe (untimed) "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def held(tag, run, want, rows=None):
+        check(run["launches"] == want,
+              f"[audio-round] {tag}: launches {run['launches']}, want {want}")
+        if rows is not None:
+            check(run["rows"] == rows,
+                  f"[audio-round] {tag}: masked_update took rows "
+                  f"{sorted(set(run['rows']))} in {len(run['rows'])} "
+                  f"launches, want {sorted(set(rows))} in {len(rows)}")
+    paths = {}
+    probe = audio_run(lambda: client.probe_cohort_raw(params, probe_b, reqs))
+    held("probe", probe, audio_want(cfg, n, 1, probe=True))
+    paths["whisper_probe"] = probe["launches"]
+    g = probe["result"]["grad_sq_norms"].cpu().numpy()
+    check(g.shape == (n, L) and np.isfinite(g).all() and (g > 0).all(),
+          "[audio-round] probe stats not finite and positive")
+    ctx = SelectionContext(client_ids=np.arange(n), lam=ar["lam"],
+                           n_layers=L)
+    masks = get_strategy("ours").select(ProbeReport(grad_sq_norms=g),
+                                        ar["budget"], ctx)
+    cut0 = first_trainable_layer(masks)
+    check(masks.shape == (n, L) and (masks.sum(1) <= ar["budget"]).all(),
+          "[audio-round] masks break the budget")
+    log(f"[audio-round] probe {probe['s']:.3f} s ({n} clients × one batch), "
+        f"peak {probe['peak_gb']:.2f} GB; ‖g‖² encoder rows "
+        f"{np.round(g[0, :cfg.n_enc_layers:6], 6).tolist()}…, decoder rows "
+        f"{np.round(g[0, cfg.n_enc_layers::6], 6).tolist()}…; \"ours\" "
+        f"selected {[np.flatnonzero(m).tolist() for m in masks]}, cut "
+        f"{cut0} {segment_prefix_cuts(cut0, cfg)}   [{card}]")
+    upd = audio_run(lambda: client.cohort_update_raw(
+        params, batches, masks, sizes, ar["lr"], cut=cut0))
+    new_k, losses_k = upd["result"]
+    held(f"update at cut {cut0}", upd, audio_want(cfg, n, tau, cut=cut0),
+         audio_rows_want(cfg, n, tau, cut0))
+    paths[f"whisper_update_cut{cut0}"] = upd["launches"]
+    losses_k = losses_k.cpu().numpy()
+    check(np.isfinite(losses_k).all(), "[audio-round] non-finite loss")
+    step_ms = upd["s"] * 1e3 / (n * tau)
+    log(f"[audio-round] update at cut {cut0}: {upd['s']:.3f} s = "
+        f"{step_ms:.1f} ms per client step ({ar['batch']} × {AUDIO_SEQ} "
+        f"tokens over {ar['batch']} × {cfg.enc_seq} frames); losses "
+        f"{np.round(losses_k, 6).tolist()}; peak {upd['peak_gb']:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); launches {upd['launches']}"
+        f"   [{card}]")
+
+    cut_runs = {}
+    for cut in AUDIO_CUTS:
+        mc = audio_cut_masks(n, L, cut)
+        check(first_trainable_layer(mc) == cut, f"masks for cut {cut}")
+        seg = segment_prefix_cuts(cut, cfg)
+        m = audio_run(lambda: client.cohort_update_raw(
+            params, batches, mc, sizes, ar["lr"], cut=cut))
+        held(f"masked update at cut {cut}", m,
+             audio_want(cfg, n, tau, cut=cut),
+             audio_rows_want(cfg, n, tau, cut))
+        d = audio_run(lambda: client.cohort_update_raw(
+            params, batches, mc, sizes, ar["lr"]))
+        held(f"dense update on cut {cut}'s masks", d,
+             audio_want(cfg, n, tau))
+        (pm, lm), (pd, ld) = m["result"], d["result"]
+        lm, ld = lm.cpu().numpy(), ld.cpu().numpy()
+        diff = _tree_max_diff(pm, pd)
+        frozen = _rows_equal(pm, params, seg)
+        moved = _tree_max_diff({k: v[seg["blocks"]:]
+                                for k, v in pm["blocks"].items()},
+                               {k: v[seg["blocks"]:]
+                                for k, v in params["blocks"].items()})
+        log(f"[audio-round] cut {cut} {seg}: masked {m['s']:.3f} s "
+            f"({m['s'] * 1e3 / (n * tau):.1f} ms per client step, peak "
+            f"{m['peak_gb']:.2f} GB) vs dense {d['s']:.3f} s "
+            f"({d['s'] * 1e3 / (n * tau):.1f} ms, peak {d['peak_gb']:.2f} "
+            f"GB); max |Δparams| masked vs dense {diff:.3e} (atol "
+            f"{ROUND_PARAM_ATOL:g}), losses {np.abs(lm - ld).max():.3e}; "
+            f"frozen rows moved {frozen:.3e}, trained decoder rows "
+            f"{moved:.3e}; masked_update rows per launch "
+            f"{sorted(set(m['rows']))} × {len(m['rows'])}   [{card}]")
+        check(np.isfinite(lm).all() and np.isfinite(ld).all(),
+              f"[audio-round] cut {cut}: non-finite loss")
+        check(diff <= ROUND_PARAM_ATOL and np.abs(lm - ld).max() <= 1e-3,
+              f"[audio-round] cut {cut}: masked and dense differ by "
+              f"{diff:.3e}")
+        check(frozen == 0.0 and moved > 0,
+              f"[audio-round] cut {cut}: frozen rows moved {frozen:.3e}, "
+              f"trained {moved:.3e}")
+        paths[f"whisper_update_cut{cut}"] = m["launches"]
+        paths[f"whisper_dense_cut{cut}"] = d["launches"]
+        cut_runs[cut] = {"masked_s": m["s"], "dense_s": d["s"],
+                         "masked_peak_gb": m["peak_gb"],
+                         "dense_peak_gb": d["peak_gb"],
+                         "masked_vs_dense": diff}
+        del pm, pd, m, d
+        torch.cuda.empty_cache()
+
+    # round 0 against the plain versions, and both probes against f32
+    plain = Client(Model(cfg, rt, device="cuda", kernel_mode="torch"))
+    ops.reset_launches()
+    g_p = plain.probe_cohort_raw(params, probe_b, reqs)[
+        "grad_sq_norms"].cpu().numpy()
+    masks_p = get_strategy("ours").select(ProbeReport(grad_sq_norms=g_p),
+                                          ar["budget"], ctx)
+    new_p, losses_p = plain.cohort_update_raw(params, batches, masks, sizes,
+                                              ar["lr"], cut=cut0)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES},
+          f"the plain-version replay launched kernels: {ops.LAUNCHES}")
+    rel = float(np.max(np.abs(g_p - g) / np.abs(g)))
+    dp = _tree_max_diff(new_k, new_p)
+    dl = float(np.abs(losses_k - losses_p.cpu().numpy()).max())
+    del new_p, plain
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    ref = Client(Model(c32, rt, device="cuda", kernel_mode="torch"))
+    g_32 = ref.probe_cohort_raw(tree_map(lambda t: t.float(), params),
+                                probe_b, reqs)["grad_sq_norms"].cpu().numpy()
+    del ref
+    torch.cuda.empty_cache()
+    err_k = float(np.max(np.abs(g - g_32) / np.abs(g_32)))
+    err_p = float(np.max(np.abs(g_p - g_32) / np.abs(g_32)))
+    # 48 bf16 layers (24 of them over 1500 frames): each bf16 path sits
+    # ~1.5e-2 off the f32 probe on an H100, six times TinyLlama's gap, so
+    # TinyLlama's ROUND_PROBE_RTOL does not carry over.  The two paths must
+    # part by less than the plain path sits from f32, and the kernel path
+    # be at most E2E_ERR_RATIO times as far from it.
+    log(f"[audio-round] round 0, kernels vs plain versions: probe stats max "
+        f"rel err {rel:.3e} (at most the plain path's distance from f32); "
+        f"against the f32 probe: kernel path {err_k:.3e}, plain path "
+        f"{err_p:.3e} (kernel at most {E2E_ERR_RATIO:g}x plain); masks "
+        f"equal: "
+        f"{bool(np.array_equal(masks_p, masks))}; update with the kernel "
+        f"run's masks: max |Δparams| {dp:.3e} (atol {ROUND_PARAM_ATOL:g}), "
+        f"losses {dl:.3e}   [{card}]")
+    check(rel <= err_p, "whisper probe stats: kernel and plain versions "
+                        "part by more than the plain path sits from f32")
+    check(err_k <= E2E_ERR_RATIO * err_p,
+          "whisper probe stats: the kernel path is less accurate than the "
+          "plain versions'")
+    check(np.array_equal(masks_p, masks), "whisper plain-version probe "
+                                          "stats chose other masks")
+    check(dp <= ROUND_PARAM_ATOL, f"whisper update: kernel and plain "
+                                  f"versions differ by {dp:.3e}")
+    del new_k, params, batches, probe_b, client, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = phase_profile(card, cfg, AUDIO_SEQ, "audio-profile", {
+        "flash_attention (forward kernel)": ("flash_fwd",),
+        "flash_attention_bwd (dQ, dK/dV kernels, the split's sum)": (
+            "flash_dq", "flash_dkdv")})
+    torch.cuda.empty_cache()
+    audio_round_exact(card)
+    return {"launches": paths, "cut": cut0, "probe_s": probe["s"],
+            "update_s": upd["s"], "ms_per_client_step": step_ms,
+            "update_peak_gb": upd["peak_gb"], "cuts": cut_runs,
+            "probe_rel_err": rel, "probe_err_vs_f32": (err_k, err_p),
+            "update_max_diff": dp, "profile": prof}
+
+
+def audio_round_exact(card: str) -> None:
+    """Reduced whisper in f32 (2 encoder and 2 decoder layers, d_model 64:
+    head dim 16, the flash kernels' SIMT route): the probe and one cohort
+    update at cut 1 (mid-encoder) on the card and on the CPU give the same
+    stats (rtol 1e-5) and "ours" masks, and params within atol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.api.strategy import SelectionContext, get_strategy
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.core.client import Client
+    from repro_torch.core.strategies import ProbeReport
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("whisper_medium"), n_layers=2, d_model=64)
+    rng = np.random.RandomState(11)
+    n, tau, b, s = 3, 2, 2, 8
+
+    def batch(lead):
+        return {"frames": torch.from_numpy(rng.standard_normal(
+                    lead + (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)),
+                "tokens": torch.from_numpy(rng.randint(
+                    0, cfg.vocab_size, lead + (b, s)).astype(np.int32))}
+    batches, probe_b = batch((n, tau)), batch((n, 1))
+    sizes = np.array([8.0, 5.0, 11.0])
+    masks = audio_cut_masks(n, cfg.n_selectable_layers(), 1)
+    params = Model(cfg, device="cpu").init(0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        client = Client(Model(cfg, RuntimeConfig(remat=False, seq_chunk=4),
+                              device=dev))
+        on = tree_map(lambda t: t.to(dev), {"p": params, "b": batches,
+                                            "q": probe_b})
+        ops.reset_launches()
+        g = client.probe_cohort(on["p"], on["q"],
+                                ("grad_sq_norms",))["grad_sq_norms"]
+        new, losses = client.cohort_update(on["p"], on["b"], masks, sizes,
+                                           0.01, cut=1)
+        sel = get_strategy("ours").select(
+            ProbeReport(grad_sq_norms=g), 2,
+            SelectionContext(client_ids=np.arange(n), lam=1.0))
+        runs[dev] = (g, sel, tree_map(lambda t: t.cpu(), new), losses,
+                     dict(ops.LAUNCHES))
+    (gg, sg, pg, lg, kg), (gc_, sc, pc, lc, kc) = runs["cuda"], runs["cpu"]
+    want = {k: 0 for k in kg}
+    want.update(layer_grad_norm=n * 21, masked_update=n * tau * 21,
+                flash_attention=(n + n * tau) * 4,
+                flash_attention_simt=(n + n * tau) * 4,
+                flash_attention_bwd=n * 4 + n * tau * 3,
+                flash_attention_bwd_simt=n * 4 + n * tau * 3)
+    check(kg == want and kc == {k: 0 for k in kc},
+          f"reduced whisper: launches on the card {kg} (want {want}), on the "
+          f"CPU {kc}")
+    err = _tree_max_diff(pg, pc)
+    g_rel = float(np.max(np.abs(gg - gc_) / np.abs(gc_)))
+    log(f"[audio-round] reduced whisper f32, probe and a cohort update at "
+        f"cut 1 (mid-encoder): probe stats max rel err card vs CPU "
+        f"{g_rel:.3e} (rtol 1e-5), masks equal {bool(np.array_equal(sg, sc))}"
+        f"; max |Δparams| {err:.3e} (atol 1e-5), losses "
+        f"{np.abs(lg - lc).max():.3e}; card launches {kg}   [{card}]")
+    check(g_rel <= 1e-5 and np.array_equal(sg, sc),
+          "reduced whisper: card and CPU probes differ")
+    check(err <= 1e-5 and np.abs(lg - lc).max() <= 1e-5,
+          "reduced whisper: card and CPU params differ")
+
+
+def phase_audio_decode(card: str) -> dict:
+    """Full-width whisper-medium in f32 (random weights, seed 0; the flash
+    kernels' exact SIMT route): the sequence forward's logits over
+    AUDIO_DECODE_STEPS decoder tokens against as many ``decode_step``s
+    over a cross cache filled from the port's own encoder, row by row
+    through ``make_cross_kv`` (as the reference's
+    tests/test_decode_consistency.py fills it), within DECODE_TOL; the
+    forward launches one SIMT flash forward per site, decode none; a
+    per-slot position vector and delta decode are refused."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_arch("whisper_medium"), dtype="float32")
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=128),
+                  device="cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, S = 2, AUDIO_DECODE_STEPS
+    frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    with torch.no_grad():
+        h, _, _ = model.hidden_seq(params, {"frames": frames,
+                                            "tokens": tokens})
+        want = model._head(params, h).float()
+    fwd_launches = dict(ops.LAUNCHES)
+    sites = cfg.n_selectable_layers()
+    check(fwd_launches == {**{k: 0 for k in ops.LAUNCHES},
+                           "flash_attention": sites,
+                           "flash_attention_simt": sites},
+          f"[audio-decode] f32 forward launches {fwd_launches}")
+    cache = model.init_cache(B, S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = model.encode(params, frames)
+        xkv = cache["cross_kv"]
+        for li in range(cfg.n_layers):
+            row = {k[len("xattn_"):]: v[li]
+                   for k, v in params["blocks"].items()
+                   if k.startswith("xattn_")}
+            xkv["k"][li], xkv["v"][li] = blocks.make_cross_kv(row, enc, cfg)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    ops.reset_launches()
+    got = []
+    t0 = time.perf_counter()
+    for t in range(S):
+        logits, cache = model.decode_step(
+            params, tokens[:, t], torch.tensor(t, dtype=torch.int32,
+                                               device="cuda"), cache)
+        got.append(logits.float())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / S
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"[audio-decode] decode launched kernels {ops.LAUNCHES}")
+    got = torch.stack(got, 1)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+    log(f"[audio-decode] whisper-medium f32, {B} × {S} decoder tokens over "
+        f"{cfg.enc_seq} frames: the forward's logits vs {S} decode steps "
+        f"over the encoder-filled cross cache: max |Δ| {err:.3e} (max "
+        f"|logit| {scale:.3e}; rtol/atol {DECODE_TOL:g}); cross cache "
+        f"{2 * xkv['k'].numel() * 4 / 1e6:.0f} MB filled in {fill_s:.3f} s; "
+        f"{step_ms:.2f} ms per decode step (f32, host-timed); forward "
+        f"launches {({k: v for k, v in fwd_launches.items() if v})}"
+        f"   [{card}]")
+    check(ok, "[audio-decode] decode disagrees with the sequence forward")
+    refused = []
+    for label, args in (
+            ("per-slot positions", dict(pos=torch.zeros(
+                B, dtype=torch.int32, device="cuda"),
+                cache=model.init_cache(B, S, per_slot=True))),
+            ("delta decode", dict(pos=torch.tensor(0, dtype=torch.int32,
+                                                   device="cuda"),
+                                  cache=model.init_cache(B, S), delta={}))):
+        try:
+            model.decode_step(params, tokens[:, 0], **args)
+        except ValueError as exc:
+            refused.append(f"{label}: {exc}")
+        else:
+            raise SmokeFailure(f"[audio-decode] {label} was not refused")
+    log(f"[audio-decode] refused: " + "; ".join(refused))
+    del params, cache, enc, got, want, h
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "step_ms": step_ms, "fill_s": fill_s,
+            "forward_launches": fwd_launches}
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -4206,6 +4841,12 @@ def main(argv=None) -> int:
         mok = phase_moe_kernels(card)
         phase_moe_serve(card)
         mor = phase_moe_round(card)
+        # slice 11: whisper-medium, after the 31.4 GB DeepSeek model
+        gc.collect()
+        torch.cuda.empty_cache()
+        auk = phase_audio_kernels(card)
+        aur = phase_audio_round(card)
+        phase_audio_decode(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -4215,11 +4856,16 @@ def main(argv=None) -> int:
     # with their counts (0) beside the training kernels' launches
     moe_paths = {"deepseek_round": mor["launches"],
                  "deepseek_top_round": mor["top_launches"]}
+    # the whisper paths: the probe, the update at "ours"' cut, and the
+    # masked and dense updates at each of AUDIO_CUTS
+    audio_paths = aur["launches"]
     delta_paths = {"serve": served["delta"]["launches"],
                    **{p: l["base_delta_matmul"]
                       for p, l in fault_paths.items()},
                    **{p: l["base_delta_matmul"]
-                      for p, l in moe_paths.items()}}
+                      for p, l in moe_paths.items()},
+                   **{p: l["base_delta_matmul"]
+                      for p, l in audio_paths.items()}}
     line = {"kernels": [{
         "name": "base_delta_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_matmul.cu",
@@ -4263,16 +4909,23 @@ def main(argv=None) -> int:
                    "mamba2_pipeline": pipe["mamba2_370m"]["launches"][name],
                    "tinyllama_checkpoint_resume": ckp["launches"][name],
                    **{p: l[name] for p, l in fault_paths.items()},
-                   **{p: l[name] for p, l in moe_paths.items()}}
+                   **{p: l[name] for p, l in moe_paths.items()},
+                   **{p: l[name] for p, l in audio_paths.items()}}
         extra = {"deepseek_v2_lite_16b": {
             **mok[name]["total"], "shapes": mok[name]["rows"],
             "timed_as": f"sum over DeepSeek-V2-Lite's 23 leaves: dense0's "
                         f"10 at L=1, the moe blocks' 13 at "
                         f"L={MOE_ROUND_LAYERS - 1}"
                         + (", one probe" if name == "layer_grad_norm"
+                           else ", one local step at cut 0")},
+            "whisper_medium": {
+            **auk[name]["total"], "shapes": auk[name]["rows"],
+            "timed_as": "sum over whisper-medium's 21 leaves: the "
+                        "encoder's 8 and the decoder's 13, L=24 each"
+                        + (", one probe" if name == "layer_grad_norm"
                            else ", one local step at cut 0")}}
         errs = [t["max_abs_err"], tm["max_abs_err"],
-                mok[name]["max_abs_err"]]
+                mok[name]["max_abs_err"], auk[name]["max_abs_err"]]
         if name == "layer_grad_norm":
             by_path["zamba2_round"] = hyr["launches"][name]
             extra["zamba2_7b"] = {
@@ -4301,7 +4954,7 @@ def main(argv=None) -> int:
                  "mamba2_top_round": ssm_rounds["top_launches"],
                  "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
                  **fault_paths, "zamba2_round": hyr["launches"],
-                 **moe_paths}
+                 **moe_paths, **audio_paths}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4327,9 +4980,10 @@ def main(argv=None) -> int:
                    "tinyllama_pretrain": pre["launches"],
                    "tinyllama_checkpoint_resume": ckp["launches"],
                    **fault_paths, "zamba2_round": hyr["launches"],
-                   **moe_paths}
+                   **moe_paths, **audio_paths}
     flash_shapes = [{k: v for k, v in c.items()}
-                    for c in flash["cases"] + hyk["flash"]]
+                    for c in flash["cases"] + hyk["flash"] + auk["flash"]]
+    whisper_flash = {c["case"]: c for c in auk["flash"]}
     for name, key, err_keys, extra in (
             ("flash_attention", "flash_attention", ("o_max_abs_err",),
              {"ms": fm["ms"], "plain_ms": fm["plain_ms"],
@@ -4337,7 +4991,12 @@ def main(argv=None) -> int:
               "library_ms": fm["library_ms"], "simt_ms": fm["simt_ms"],
               "library_call": "F.scaled_dot_product_attention(q, k, v, "
                               "is_causal=True, enable_gqa=True), (B,H,S,D) "
-                              "contiguous bf16"}),
+                              "contiguous bf16",
+              "whisper_medium": {
+                  c: {k: whisper_flash[c][k] for k in (
+                      "ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms", "o_max_abs_err")}
+                  for c in whisper_flash}}),
             ("flash_attention_bwd", "flash_attention_bwd",
              ("dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err"),
              {"ms": fm["bwd_ms"], "plain_ms": fm["plain_bwd_ms"],
@@ -4350,7 +5009,14 @@ def main(argv=None) -> int:
                               "three reads)",
               "fwd_bwd_ms": fm["fwd_bwd_ms"],
               "library_fwd_bwd_ms": fm["library_fwd_bwd_ms"],
-              "attend_full_fwd_bwd_ms": fm["attend_full_fwd_bwd_ms"]})):
+              "attend_full_fwd_bwd_ms": fm["attend_full_fwd_bwd_ms"],
+              "whisper_medium": {
+                  c: {"ms": whisper_flash[c]["bwd_ms"],
+                      "plain_ms": whisper_flash[c]["plain_bwd_ms"],
+                      "bound_ms": whisper_flash[c]["bwd_bound_ms"],
+                      "bound_by": whisper_flash[c]["bwd_bound_by"],
+                      "library_ms": whisper_flash[c]["library_bwd_ms"]}
+                  for c in whisper_flash}})):
         by_path = {p: l[key] for p, l in flash_paths.items()}
         by_route = {r: sum(l[f"{key}_{r}"] for l in flash_paths.values())
                     for r in ("mma", "simt")}
@@ -4361,7 +5027,8 @@ def main(argv=None) -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "launches_by_kernel_route": by_route,
             "kernel_split_ms": fm["kernel_split_ms"],
-            "max_abs_err": max(fm[k] for k in err_keys), **extra,
+            "max_abs_err": max(c[k] for c in [fm] + auk["flash"]
+                               for k in err_keys), **extra,
             "timed_as": "one TinyLlama-1.1B layer on the seq-1024 round's "
                         "batch: B 4, S 1024, H 32, K 4, D 64, bf16, causal",
             "shapes": flash_shapes})

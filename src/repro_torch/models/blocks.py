@@ -15,7 +15,10 @@ plain jnp there); the kernel choice follows the tensor's device, never
 which the kernel's mask lacks, keeps the reference's path: in one piece,
 or query chunk by query chunk (:func:`attend_chunked`) when the sequence
 is a multiple of ``seq_chunk`` longer than it.  Encoder-decoder
-cross-attention (whisper) is not ported.
+cross-attention (whisper: :func:`make_cross_kv`, then
+``attention_fwd(cross_kv=…)``) takes the same plain path, since its
+queries and keys differ in length and the kernel takes one sequence
+length.
 """
 from __future__ import annotations
 
@@ -283,7 +286,17 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     kernel's mask cannot say) keeps the reference's path: in one piece, or
     by query chunks of ``seq_chunk`` when the sequence is a longer multiple
     of it (``remat_chunk`` recomputes each chunk in the backward).
-    ``cross_kv`` (whisper) is not ported.
+
+    ``cross_kv`` = (k, v), each (B, Se, Kh, hd): whisper's decoder
+    cross-attention over the encoder's output (:func:`make_cross_kv`).  q
+    is projected from ``x`` (with ``bq`` and, when ``cfg.rope_theta`` is
+    set, RoPE at ``positions``); k and v are used as given, at key
+    positions ``arange(Se)``, never causal.  S_q ≠ S_k, which the flash
+    kernel does not take, so this is always the reference's plain path:
+    by query chunks of ``seq_chunk`` when S is a longer multiple of it,
+    else in one piece.  ``cache`` is ignored here: in decode the
+    self-attention writes the KV row and the cross-attention reads the
+    encoder's k/v (S 1).
 
     cache: {"k": (B,W,Kh,hd), "v": ..., "pos": (W,) int32} — decode writes
     the current token at ring index ``cache_pos % W`` (in place) and attends
@@ -295,10 +308,6 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     then go through :func:`repro_torch.kernels.ops.base_delta_matmul`
     (``kernel_mode`` likewise).
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "encoder-decoder cross-attention (whisper) is not ported yet: "
-            "ROADMAP.md Queue 1 item 10, 'Other model families'")
     B, S, d = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -314,6 +323,9 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         ln = per_slot_param(ln, delta["ln"], delta_slots, B)
     h = rms_norm(x, ln, cfg.norm_eps)
     q = proj(h, "wq").reshape(B, S, H, hd)
+    if cross_kv is not None:
+        return _cross_attention(p, q, cross_kv, cfg, positions=positions,
+                                seq_chunk=seq_chunk, scale=scale)
     k = proj(h, "wk").reshape(B, S, Kh, hd)
     v = proj(h, "wv").reshape(B, S, Kh, hd)
     if cfg.qkv_bias:
@@ -369,6 +381,44 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                           k_valid=k_valid)
     out = attend_full(q, ck, cv, bias, scale)
     return proj(out.reshape(B, S, H * hd), "wo")
+
+
+def _cross_attention(p: dict, q: torch.Tensor, cross_kv: tuple,
+                     cfg: ArchConfig, *, positions: torch.Tensor,
+                     seq_chunk: int, scale: float) -> torch.Tensor:
+    """The cross-attention tail of :func:`attention_fwd`: q (B,S,H,hd)
+    over the given encoder k/v, non-causal, on the plain path."""
+    B, S, H, hd = q.shape
+    k, v = cross_kv
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, hd)
+    if cfg.rope_theta:
+        cos_q, sin_q = rope_tables(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos_q, sin_q)
+    k_positions = torch.arange(k.shape[1], dtype=torch.int32,
+                               device=q.device)
+    if S > seq_chunk and S % seq_chunk == 0:
+        out = attend_chunked(q, k, v, q_positions=positions,
+                             k_positions=k_positions, causal=False, window=0,
+                             prefix_len=0, chunk=seq_chunk, scale=scale)
+    else:
+        bias = _mask_bias(positions, k_positions, causal=False, window=0)
+        out = attend_full(q, k, v, bias, scale)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def make_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ArchConfig):
+    """Cross-attention k/v, each (B, Se, Kh, hd), from the encoder's output
+    and one decoder row's ``xattn_`` leaves (``wk``, ``wv``, and ``bk``,
+    ``bv`` under ``qkv_bias``)."""
+    B, Se, _ = enc_out.shape
+    Kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(B, Se, Kh, hd)
+    v = (enc_out @ p["wv"]).reshape(B, Se, Kh, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].reshape(Kh, hd)
+        v = v + p["bv"].reshape(Kh, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

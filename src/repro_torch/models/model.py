@@ -1,12 +1,12 @@
 """Model facade (counterpart of ``repro/models/model.py``).
 
-For the ``dense``, ``vlm``, ``ssm`` (Mamba2), ``hybrid`` (zamba2) and
-``moe`` (deepseek-v2, grok-1) families: the layer layout and the mask
-helpers of the mask-aware engine (``segment_prefix_cuts``,
-``trainable_rows``, ``split_mask``, ``apply_layer_mask``), parameter init,
-the sequence forward and losses of training (:meth:`Model.forward_seq`,
-:meth:`Model.loss`), the KV or conv/state cache and
-:meth:`Model.decode_step`.
+For every family of the reference, ``dense``, ``vlm``, ``ssm`` (Mamba2),
+``hybrid`` (zamba2), ``moe`` (deepseek-v2, grok-1) and ``audio``
+(whisper): the layer layout and the mask helpers of the mask-aware engine
+(``segment_prefix_cuts``, ``trainable_rows``, ``split_mask``,
+``apply_layer_mask``), parameter init, the sequence forward and losses of
+training (:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or
+conv/state cache and :meth:`Model.decode_step`.
 
 The hybrid is a Mamba2 stack with ONE attention+MLP block whose weights
 are shared, applied after every ``attn_every`` Mamba2 blocks; its leaves in
@@ -23,6 +23,20 @@ family's GQA.  A prefix cut can fall in either segment; the routers'
 load-balance loss is summed over the ``blocks`` rows into the loss.  Its
 decode has no delta path: capacity dropping couples the slots of a batch.
 
+The audio family (whisper) is an encoder-decoder with two selectable
+segments, ``enc_blocks`` (non-causal attention+MLP blocks over stub frame
+embeddings) and then ``blocks`` (causal self-attention, cross-attention
+over the encoder's output, MLP).  Its sequence forward
+(:meth:`Model.hidden_seq`, the reference's ``_whisper_seq``) runs the
+encoder (:meth:`Model.encode`) and then the decoder, each decoder row
+building its cross k/v from its own ``xattn_`` leaves; a prefix cut can
+fall in either segment, and gradients reach the encoder rows through the
+cross k/v.  Its decode reads a cross cache the caller fills from the
+encoder (``cache["cross_kv"]``, as the reference's own test fills it: the
+reference has no encoder-prefill entry point) at one shared position;
+per-slot positions and delta decode are refused, as they cannot run in
+the reference either.
+
 The functions the streaming round path calls have names of the port's
 own (``segment_prefix_cuts``, ``trainable_rows``, ``Model.hidden_seq``,
 ``Model.seq_loss``; the last three keep the reference's names as aliases
@@ -30,11 +44,10 @@ for other callers): the repo lint follows calls by bare name from
 ``RoundScheduler.run``, and a shared name would link the port's eager path
 to the reference's jitted functions, whose static ``int(...)`` it would
 then report (so the hybrid's functions are ``_hybrid_sites`` and
-``_mamba_stack_decode``, not the reference's ``_zamba_*``).  A ``lax.scan``
-over layers becomes a Python loop over the rows of a stacked segment,
-carrying the hidden state and the aux loss; cache writes happen in place.
-The ``audio`` family raises ``NotImplementedError`` until its slice lands
-(ROADMAP.md).
+``_mamba_stack_decode``, not the reference's ``_zamba_*``, and whisper's
+encoder is ``encode``, not ``_whisper_seq``).  A ``lax.scan`` over layers
+becomes a Python loop over the rows of a stacked segment, carrying the
+hidden state and the aux loss; cache writes happen in place.
 """
 from __future__ import annotations
 
@@ -52,7 +65,7 @@ from repro_torch.models import ssd as SSD
 from repro_torch.tree import tree_leaves, tree_map
 
 _DENSE_FAMILIES = ("dense", "vlm")
-_PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
+_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe", "audio")
 _IMAX = torch.iinfo(torch.int32).max
 
 
@@ -60,11 +73,9 @@ def _torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _need_ported_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{what} for family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, 'Other model families')")
+def _need_known_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +189,10 @@ def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
     if kind in ("dense", "attn_mlp_shared"):   # the latter: zamba2's shared
         return {**_prefixed("attn_", B.attn_param_shapes(cfg)),
                 **_prefixed("mlp_", B.mlp_param_shapes(cfg))}
+    if kind == "encdec":                      # whisper's decoder block
+        return {**_prefixed("attn_", B.attn_param_shapes(cfg)),
+                **_prefixed("xattn_", B.attn_param_shapes(cfg)),
+                **_prefixed("mlp_", B.mlp_param_shapes(cfg))}
     if kind == "ssm":
         return _prefixed("ssm_", SSD.mamba2_param_shapes(cfg))
     if kind in ("moe", "moe_dense0"):
@@ -191,7 +206,7 @@ def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
         ff = cfg.d_ff * max(cfg.top_k + cfg.n_shared_experts, 1)
         return {**_prefixed("attn_", attn),
                 **_prefixed("mlp_", B.mlp_param_shapes(cfg, d_ff=ff))}
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    raise ValueError(kind)
 
 
 def _prefixed(prefix: str, shapes: dict) -> dict:
@@ -206,7 +221,7 @@ def _take(p: dict, prefix: str) -> dict:
 def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     """Random parameters with the reference's paths, shapes, types and key
     order, drawn from ``gen`` (which lives on ``device``)."""
-    _need_ported_family(cfg, "init_params")
+    _need_known_family(cfg)
     dtype = _torch_dtype(cfg.dtype)
     d = cfg.d_model
 
@@ -220,8 +235,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
         embed["tok"] = normal((cfg.vocab_size, d))
     if cfg.family == "vlm":
         embed["patch_proj"] = normal((d, d))
+    if cfg.family == "audio":
+        embed["frame_proj"] = normal((d, d))
     params["embed"] = embed
-    if cfg.family == "moe":
+    if cfg.family == "audio":
+        params["enc_blocks"] = B.init_stacked(
+            gen, _block_shapes(cfg, "dense"), cfg.n_enc_layers, dtype, device)
+        params["blocks"] = B.init_stacked(
+            gen, _block_shapes(cfg, "encdec"), cfg.n_layers, dtype, device)
+        params["enc_norm"] = torch.zeros((d,), dtype=dtype, device=device)
+    elif cfg.family == "moe":
         if cfg.first_dense:
             params["dense0"] = B.init_stacked(
                 gen, _block_shapes(cfg, "moe_dense0"), cfg.first_dense,
@@ -245,6 +268,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
 
 
 def count_params(params: dict) -> int:
+    """Elements over every leaf: the selectable segments, the embeddings
+    (whisper's ``frame_proj`` too), the norms (``enc_norm`` too) and any
+    head."""
     return sum(leaf.numel() for leaf in tree_leaves(params))
 
 
@@ -262,9 +288,12 @@ def count_active_params(cfg: ArchConfig, params: dict) -> int:
 def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                      positions, window, cache=None, cache_pos=None,
                      causal=True, prefix_len=0, seq_chunk=1024,
-                     remat_chunk=False, delta=None, kernel_mode=None):
+                     remat_chunk=False, delta=None, kernel_mode=None,
+                     cross_kv=None):
     # delta: (slots (C,), {leaf_name: (C, *shape)}) — this layer's row of
-    # the per-slot serving overlay; leaf names are split by sub-block prefix
+    # the per-slot serving overlay; leaf names are split by sub-block prefix.
+    # cross_kv: whisper's decoder rows (an ``xattn_`` sub-block) attend over
+    # the encoder's (k, v) after their self-attention.
     dslots = dattn = dmlp = None
     if delta is not None:
         dslots, dleaves = delta
@@ -276,6 +305,10 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                             seq_chunk=seq_chunk, remat_chunk=remat_chunk,
                             delta=dattn, delta_slots=dslots,
                             kernel_mode=kernel_mode)
+    if "xattn_ln" in p:
+        x = x + B.attention_fwd(_take(p, "xattn_"), x, cfg,
+                                positions=positions, cross_kv=cross_kv,
+                                causal=False, seq_chunk=seq_chunk)
     return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp,
                          delta_slots=dslots, delta_mode=kernel_mode)
 
@@ -332,6 +365,7 @@ class Model:
     def __init__(self, cfg: ArchConfig, runtime: RuntimeConfig = RuntimeConfig(),
                  *, device="cuda", kernel_mode: Optional[str] = None):
         cfg.validate()
+        _need_known_family(cfg)
         self.cfg = cfg
         self.runtime = runtime
         self.device = resolve_device(device)
@@ -437,12 +471,56 @@ class Model:
                                     kernel_mode=self.kernel_mode), aux
         return after_row
 
+    def encode(self, params: dict, frames: torch.Tensor, *,
+               trainable: Optional[dict] = None,
+               cut: int = 0) -> torch.Tensor:
+        """whisper's encoder (the first half of the reference's
+        ``_whisper_seq``): the stub frame embeddings (B, enc_seq, d) cast
+        to ``frame_proj``'s type and projected, plus sinusoid positions;
+        the ``enc_blocks`` rows (attention over all frames, no window)
+        through :meth:`_run_stack`, split at ``cut`` when ``trainable`` (the
+        segment's trainable rows) is given; then ``enc_norm``.  Returns the
+        encoder's output (B, enc_seq, d), from which every decoder row
+        builds its cross k/v (:func:`blocks.make_cross_kv`)."""
+        cfg, rt = self.cfg, self.runtime
+        proj = params["embed"]["frame_proj"]
+        e = frames.to(proj.dtype) @ proj
+        pos = torch.arange(e.shape[1], dtype=torch.int32, device=e.device)
+        e = e + B.sinusoid_positions(pos, cfg.d_model).to(e.dtype)
+
+        def enc_row(carry, p):
+            return _dense_block_fwd(p, carry[0], cfg, positions=pos,
+                                    causal=False, window=0,
+                                    seq_chunk=rt.seq_chunk,
+                                    remat_chunk=rt.remat_scores,
+                                    kernel_mode=self.kernel_mode), carry[1]
+        zero = torch.zeros((), dtype=torch.float32, device=e.device)
+        e, _ = self._run_stack(enc_row, (e, zero), params["enc_blocks"],
+                               trainable, cut)
+        return B.rms_norm(e, params["enc_norm"], cfg.norm_eps)
+
     def _seq_segments(self, params: dict, positions: torch.Tensor,
-                      causal: bool, prefix_len: int) -> list:
+                      causal: bool, prefix_len: int,
+                      enc_out: Optional[torch.Tensor] = None) -> list:
         """The sequence forward's stacked segments in order, as (path,
         ``layer_fn(carry, row_params)``, ``after_row``); the carry is
-        (hidden, aux loss), which only the moe rows add to."""
+        (hidden, aux loss), which only the moe rows add to.  whisper's
+        decoder rows (``enc_out`` given) each build their cross k/v from
+        the encoder's output: under ``runtime.remat`` the recomputed row
+        reads ``enc_out`` as a closed-over tensor, which non-reentrant
+        checkpointing differentiates like an argument."""
         cfg, rt, km = self.cfg, self.runtime, self.kernel_mode
+        if enc_out is not None:
+            def encdec_row(carry, p):
+                xkv = B.make_cross_kv(_take(p, "xattn_"), enc_out, cfg)
+                return _dense_block_fwd(p, carry[0], cfg,
+                                        positions=positions, causal=True,
+                                        window=cfg.sliding_window,
+                                        seq_chunk=rt.seq_chunk,
+                                        remat_chunk=rt.remat_scores,
+                                        kernel_mode=km,
+                                        cross_kv=xkv), carry[1]
+            return [("blocks", encdec_row, None)]
         if cfg.family in ("ssm", "hybrid"):
             after_row = (self._hybrid_sites(params["shared_attn"], positions)
                          if cfg.family == "hybrid" else None)
@@ -483,13 +561,26 @@ class Model:
         differentiates; a fully frozen segment is absent from it).  The
         aux loss is the moe routers' load-balance loss summed over the
         ``blocks`` rows, frozen ones included (zero for other families).
+
+        whisper (batch ``frames`` (B, enc_seq, d) and ``tokens``): the
+        encoder (:meth:`encode`, at ``enc_blocks``' cut) and then the
+        decoder's rows over the token embeddings; a fully frozen encoder
+        (a cut at or past ``n_enc_layers``) runs without a graph.
         """
         cfg = self.cfg
-        _need_ported_family(cfg, "forward_seq")
         if trainable is not None and not supports_prefix_cut(cfg):
             raise ValueError(f"family {cfg.family!r} has no prefix-cut path")
-        prefix_len = 0
-        if cfg.family == "vlm":
+        cuts = (segment_prefix_cuts(cut, cfg) if trainable is not None
+                else {})
+        prefix_len, enc_out = 0, None
+        if cfg.family == "audio":
+            enc_out = self.encode(
+                params, batch["frames"],
+                trainable=(None if trainable is None
+                           else trainable.get("enc_blocks", {})),
+                cut=cuts.get("enc_blocks", 0))
+            x = self._embed_tokens(params, batch["tokens"])
+        elif cfg.family == "vlm":
             proj = params["embed"]["patch_proj"]
             px = batch["patches"].to(proj.dtype) @ proj
             prefix_len = px.shape[1]
@@ -502,11 +593,9 @@ class Model:
             x = self._embed_tokens(params, batch["tokens"])
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        cuts = (segment_prefix_cuts(cut, cfg) if trainable is not None
-                else {})
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
         for path, layer_fn, after_row in self._seq_segments(
-                params, positions, cfg.task == "lm", prefix_len):
+                params, positions, cfg.task == "lm", prefix_len, enc_out):
             carry = self._run_stack(
                 layer_fn, carry, params[path],
                 None if trainable is None else trainable.get(path, {}),
@@ -571,15 +660,16 @@ class Model:
                    per_slot: bool = False) -> dict:
         """KV caches (ssm: conv and state caches; hybrid: both, one KV row
         per application of the shared block; moe: per segment, MLA's latent
-        ``ckv`` and ``krope`` rows, or GQA's k/v) for decode, in
-        ``cfg.dtype``; ``window`` caps the KV cache length.
+        ``ckv`` and ``krope`` rows, or GQA's k/v; audio: the decoder's KV
+        rows and ``cross_kv``, k and v (L, B, enc_seq, Kh, hd), which the
+        caller fills from the encoder) for decode, in ``cfg.dtype``;
+        ``window`` caps the KV cache length.
 
         ``per_slot=True`` is the serving layout: ``pos`` is (L, B, W)
         instead of (L, W), so every slot tracks its own position (the ssm
         caches have no positions: every row is one slot already).
         """
         cfg = self.cfg
-        _need_ported_family(cfg, "init_cache")
         dt = _torch_dtype(cfg.dtype)
         W = min(window or max_seq, max_seq)
 
@@ -604,6 +694,12 @@ class Model:
             if cfg.first_dense:
                 cache["dense0"] = kv(cfg.first_dense)
             return cache
+        if cfg.family == "audio":
+            shp = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+            return {"blocks": kv(cfg.n_layers), "cross_kv": {
+                "k": torch.zeros(shp, dtype=dt, device=self.device),
+                "v": torch.zeros(shp, dtype=dt, device=self.device)}}
         if cfg.family not in ("ssm", "hybrid"):
             return {"blocks": kv(cfg.n_layers)}
         shp = SSD.mamba2_cache_shapes(cfg, batch)
@@ -621,7 +717,8 @@ class Model:
         place: its position rows become int32-max ("empty") and ssm conv
         and state rows are zeroed, in every segment of the cache (the
         hybrid's ``shared_attn`` too); k/v stay, unreachable until
-        overwritten.  ``stacked`` addresses the dense baseline's per-slot
+        overwritten, and whisper's ``cross_kv`` (no positions) is left
+        alone.  ``stacked`` addresses the dense baseline's per-slot
         layout (slot axis first)."""
         fills = {"pos": _IMAX, "conv": 0, "state": 0}
         for segment in cache.values():
@@ -697,13 +794,22 @@ class Model:
         ``delta``: the serving overlay ``{"slots": (L, C) int32 owner ids
         (-1 = empty), "leaves": {name: (L, C, *shape) f32}}``.
 
+        whisper: each decoder row's self-attention over its KV row, then
+        its cross-attention over ``cache["cross_kv"]`` row ``li``, which
+        the caller has filled from the encoder; one shared position only.
+
         Returns (logits (B, V), cache) — the cache updated in place.
         """
         cfg = self.cfg
-        _need_ported_family(cfg, "decode_step")
         if delta is not None and not supports_delta_decode(cfg):
             raise ValueError(f"family {cfg.family!r} has no delta-decode path")
         per_slot = pos.dim() == 1
+        if per_slot and cfg.family == "audio":
+            raise ValueError(
+                "family 'audio' decodes at one shared position only: the "
+                "reference's cross-attention under per-slot positions does "
+                "not run, and neither package fills a slot's cross cache "
+                "from the encoder")
         x = self._embed_tokens(params, tokens[:, None])
         if cfg.rope_theta == 0.0:
             # sinusoidal position of the *current* slot
@@ -719,6 +825,7 @@ class Model:
             x = self._moe_stack_decode(params, x, positions, pos, cache, w)
             return self._head(params, x)[:, 0], cache
         blocks, kv = params["blocks"], cache["blocks"]
+        xkv = cache.get("cross_kv")
         for li in range(cfg.n_layers):
             p = {name: leaf[li] for name, leaf in blocks.items()}
             kv_l = {name: leaf[li] for name, leaf in kv.items()}
@@ -728,5 +835,7 @@ class Model:
                       {name: leaf[li] for name, leaf in delta["leaves"].items()})
             x = _dense_block_fwd(p, x, cfg, positions=positions, window=w,
                                  cache=kv_l, cache_pos=pos, delta=dl,
-                                 kernel_mode=self.kernel_mode)
+                                 kernel_mode=self.kernel_mode,
+                                 cross_kv=None if xkv is None
+                                 else (xkv["k"][li], xkv["v"][li]))
         return self._head(params, x)[:, 0], cache

@@ -214,17 +214,18 @@ def test_delta_mode_is_refused(world):
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "whisper_medium"])
 def test_other_families_still_raise(arch):
-    """audio is the family left: its init names the ROADMAP entry.  moe,
-    the other family this test held, is ported now and builds its two
-    selectable segments."""
+    """The two families this test once held as unported both build now,
+    each with its two selectable segments in the reference's key order:
+    moe (``dense0``, ``blocks``) and audio (``enc_blocks``, ``blocks``,
+    with the encoder's norm; tied embeddings, no head)."""
     cfg = tcfg.reduced(tcfg.get_arch(arch))
     model = tmodel.Model(cfg, tcfg.RuntimeConfig(remat=False), device="cpu")
-    if cfg.family == "moe":
-        assert list(model.init(0)) == ["embed", "dense0", "blocks",
-                                       "final_norm", "head"]
-        return
-    with pytest.raises(NotImplementedError, match="Other model families"):
-        model.init(0)
+    want = {"moe": ["embed", "dense0", "blocks", "final_norm", "head"],
+            "audio": ["embed", "enc_blocks", "blocks", "enc_norm",
+                      "final_norm"]}[cfg.family]
+    assert list(model.init(0)) == want
+    assert [s.path for s in tmodel.layer_layout(cfg)] == [
+        k for k in want if k in ("dense0", "enc_blocks", "blocks")]
 
 
 def test_full_config_builds_on_the_cpu_at_its_layout():

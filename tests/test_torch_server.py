@@ -119,19 +119,28 @@ def test_experiment_matches_server_run(world):
 
 
 def test_unported_features_raise(world, tmp_path):
-    """Only the audio family (whisper) is still unported: it raises,
-    naming the ROADMAP entry.  Fault injection is ported (a fault plan is
-    taken, anything else is rejected as the reference rejects it); the
-    scheduler (the vectorized engine's default), checkpoints and
-    pretraining run."""
+    """Every model family is ported; what the reference cannot run stays
+    refused: whisper's per-slot decode (the reference's fails in its
+    cross-attention) and its delta decode.  Fault injection is ported (a
+    fault plan is taken, anything else is rejected as the reference
+    rejects it); the scheduler (the vectorized engine's default),
+    checkpoints and pretraining run."""
     _, tm, _, host = world
     data = tsyn.SyntheticFederatedData(tsyn.FederatedTaskConfig(
         vocab_size=tm.cfg.vocab_size, **TASK))
     fl = tcfg.FLConfig(**FL)
     params = params_to_torch(host, "cpu")
-    with pytest.raises(NotImplementedError, match="Other model families"):
-        tmodel.Model(tcfg.reduced(tcfg.get_arch("whisper_medium")),
-                     tcfg.RuntimeConfig(remat=False), device="cpu").init(0)
+    whisper = tmodel.Model(tcfg.reduced(tcfg.get_arch("whisper_medium")),
+                           tcfg.RuntimeConfig(remat=False), device="cpu")
+    wp = whisper.init(0)
+    with pytest.raises(ValueError, match="one shared position"):
+        whisper.decode_step(wp, torch.zeros(2, dtype=torch.long),
+                            torch.zeros(2, dtype=torch.int32),
+                            whisper.init_cache(2, 4, per_slot=True))
+    with pytest.raises(ValueError, match="delta-decode"):
+        whisper.decode_step(wp, torch.zeros(2, dtype=torch.long),
+                            torch.tensor(0, dtype=torch.int32),
+                            whisper.init_cache(2, 4), delta={})
     with pytest.raises(TypeError, match="FaultPlan"):
         TServer(tm, fl, data, faults=object())
     with pytest.raises(TypeError, match="FaultPlan"):

@@ -171,17 +171,34 @@ def test_chunked_attention_matches_full():
         torch.testing.assert_close(chunked, full, rtol=1e-6, atol=1e-6)
 
 
-def test_cross_attention_not_ported_raises():
-    tc = tcfg.reduced(tcfg.get_arch("tinyllama_1_1b"), n_layers=1, d_model=64)
-    p = tmodel.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    layer = {n[5:]: a[0] for n, a in p["blocks"].items()
+@pytest.mark.parametrize("chunk", [4, 1024])
+def test_cross_attention_matches_reference(chunk):
+    """``attention_fwd(cross_kv=…)`` on a TinyLlama attention row (GQA,
+    RoPE on q only) over 12 given keys, by query chunks of 4 and in one
+    piece, against the reference's on the same inputs."""
+    from repro.models import blocks as jblocks
+    from repro_torch.models import blocks as tblocks
+    jm, tm, _, host, _ = _world("tinyllama")
+    layer = {n[5:]: a[0] for n, a in host["blocks"].items()
              if n.startswith("attn_")}
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from repro_torch.models import blocks as tblocks
-        tblocks.attention_fwd(layer, x, tc,
-                              positions=torch.arange(4, dtype=torch.int32),
-                              cross_kv=(x, x))
+    rng = np.random.RandomState(13)
+    x = rng.standard_normal((2, 8, 64)).astype(np.float32)
+    kh, hd = tm.cfg.n_kv_heads, tm.cfg.resolved_head_dim
+    k, v = (rng.standard_normal((2, 12, kh, hd)).astype(np.float32)
+            for _ in range(2))
+    pos = np.arange(8, dtype=np.int32)
+    want, _ = jblocks.attention_fwd(
+        {n: jnp.asarray(a) for n, a in layer.items()}, jnp.asarray(x),
+        jm.cfg, positions=jnp.asarray(pos),
+        cross_kv=(jnp.asarray(k), jnp.asarray(v)), causal=False,
+        seq_chunk=chunk)
+    got = tblocks.attention_fwd(
+        {n: torch.from_numpy(a.copy()) for n, a in layer.items()},
+        torch.from_numpy(x), tm.cfg, positions=torch.from_numpy(pos),
+        cross_kv=(torch.from_numpy(k), torch.from_numpy(v)), causal=False,
+        seq_chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL,
+                               rtol=GRAD_RTOL)
 
 
 def test_classifier_attends_bidirectionally():
