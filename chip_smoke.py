@@ -131,9 +131,26 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     and a reduced f32 card-vs-CPU update; then an f32 forward against 64
     decode steps over a cross cache filled from the port's encoder, and
     the refused per-slot and delta decode;
-22. prints one JSON line of per-kernel results (launches per path, the
-    fault, Zamba2, DeepSeek and whisper paths among them), the card's name
-    and power limit, and a last JSON line ``{"ok": true, "device": {...}}``.
+22. runs examples/heterogeneous_budgets.py at full TinyLlama-1.1B width
+    (``phase_theory``, bf16, seq 128, 16 clients, 30 pretraining steps):
+    κ_l over 22 layers from 16 full-batch client gradients and the f32
+    global gradient, E_t1 and E_t2 of "ours" and "top" (3 rounds each under
+    the example's half-normal budgets), σ_l, the Theorem 4.7 right-hand
+    side and the Table 3 costs; checks E_t1 = 0 at a full union and growing
+    as it shrinks, κ_l above every client's deviation, E_t2 ≈ 0 for a full
+    uniform cohort, the norm kernel against the plain route, a reduced f32
+    world against the CPU; prints the peak memory;
+23. runs ``phase_contracts``: three pipelined "ours" TinyLlama rounds to
+    warm up, then the same under ``strict_region`` (sync-debug mode
+    "error", the kernel-cache sentinel) at depth 1 and 4 with the warm
+    run's summary; then the program auditor at full width (TinyLlama f32
+    training at all 23 cuts, Mamba2-370M f32 at every sixth, TinyLlama bf16
+    serving): no contract violation, the kernels' work reported to the
+    audit (FLOPs series, cut-L / cut-0, delta weight bytes per (B, C));
+24. prints one JSON line of per-kernel results (launches per path, the
+    fault, Zamba2, DeepSeek, whisper, theory, strict and audit paths among
+    them), the card's name and power limit, and a last JSON line
+    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --hybrid-serve-long
 
@@ -1050,11 +1067,12 @@ def ssd_bound(b, s, h, p, g, n, q, dtype) -> tuple[float, str]:
     inter-chunk term for the first chunk, no state update after the last)
     over the peak rate of the inputs' type."""
     import torch
+
+    from repro_torch.kernels.ops import ssd_flops
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * s * h * p * es + 2 * b * s * g * n * es
               + b * s * h * 4 + 2 * h * 4)
-    nc, tri = s // q, q * (q + 1) // 2
-    flops = 2 * b * h * (nc * tri * (n + p) + 2 * (nc - 1) * q * n * p)
+    flops = ssd_flops(b, s, h, p, n, q)
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_OPS_PER_S[name]
@@ -1535,14 +1553,6 @@ def flash_want(fl, L: int, cuts) -> dict:
             "flash_attention_bwd": bwd, "flash_attention_bwd_mma": bwd}
 
 
-def flash_visible_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, per head."""
-    i = list(range(s))
-    lo = [max(0, q - window + 1) if window else 0 for q in i]
-    hi = [q if causal else s - 1 for q in i]
-    return sum(h - l + 1 for l, h in zip(lo, hi) if h >= l)
-
-
 def flash_bound(b, s, h, k, d, causal, window, dtype,
                 backward=False) -> tuple[float, str]:
     """Least time in ms for the forward (or the backward): the larger of
@@ -1552,11 +1562,12 @@ def flash_bound(b, s, h, k, d, causal, window, dtype,
     backward's five products, 10·d) over the peak rate of the inputs'
     type."""
     import torch
+
+    from repro_torch.kernels.ops import flash_flops
     es = torch.tensor([], dtype=dtype).element_size()
     qo, kv, lse = b * h * s * d * es, b * k * s * d * es, b * h * s * 4
     nbytes = (4 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
-    flops = (10 if backward else 4) * b * h * d * flash_visible_pairs(
-        s, causal, window)
+    flops = flash_flops(b, h, d, s, causal, window, backward=backward)
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_OPS_PER_S[name]
@@ -4762,6 +4773,426 @@ def phase_audio_decode(card: str) -> dict:
             "forward_launches": fwd_launches}
 
 
+# Slice 12: the theory and cost modules, strict mode and the auditor.
+# examples/heterogeneous_budgets.py at full TinyLlama-1.1B width: 16 clients,
+# 30 pretraining steps (the example's REPRO_SMOKE count; AdamW at the
+# smoke's PRETRAIN lr, since the example's 3e-3 diverges at this width),
+# full-batch client gradients of 8 × 128 tokens, "ours" and "top" for 3
+# rounds (cohort 4, τ 2, lr 0.01, λ 1, the example's batch 16), σ_l from 4
+# minibatches of 8 against a batch of 32, the Theorem 4.7 floor at γ 1.
+THEORY = dict(clients=16, seq=128, pretrain_steps=30, grad_batch=8,
+              rounds=3, cohort=4, tau=2, lr=0.01, lam=1.0, batch=16,
+              sigma_batches=4, sigma_batch=8, sigma_full=32, gamma=1.0)
+THEORY_RTOL = 1e-5       # kernel vs plain route, card vs CPU
+THEORY_PEAK_GB = 70.0    # above this, the phase should run 8 clients
+# The full-width audit: Mamba2 at every sixth cut, to keep time.
+STRICT_DEPTHS = (1, 4)
+
+
+def half_normal_budgets(n, lo=1, hi=4, seed=0):
+    """The example's client budgets R_i: a half-normal on [lo, hi]."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    v = np.abs(rng.randn(n)) * (hi - lo) / 2 + lo
+    return tuple(int(x) for x in np.clip(np.round(v), lo, hi))
+
+
+def _rel_err(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def theory_reduced(card: str) -> float:
+    """κ, E_t1 and E_t2 of a reduced f32 TinyLlama (3 layers, d 64) on the
+    card (the flash kernels' exact f32 SIMT route, the norm kernel) and on
+    the CPU (the plain versions), on the same params and batches."""
+    import numpy as np
+    from repro_torch.bridge import params_to_numpy, params_to_torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.core import theory
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = reduced(get_arch("tinyllama_1_1b"), n_layers=3, d_model=64)
+    rt = RuntimeConfig(remat=False, seq_chunk=16)
+    host = params_to_numpy(Model(cfg, rt, device="cpu").init(0))
+    rng = np.random.RandomState(4)
+    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (4, 16)).astype(
+        np.int32)} for _ in range(4)]
+    alpha = np.array([0.1, 0.2, 0.3, 0.4])
+    masks = np.array([[1, 0, 1], [0, 1, 0]], np.float32)
+    sizes, idx = np.array([10.0, 30.0]), np.array([3, 1])
+    def quantities(dev):
+        model = Model(cfg, rt, device=dev)
+        p = params_to_torch(host, dev)
+        gg = theory.global_gradient(model, p, batches, alpha)
+        kappa = theory.kappa_per_layer(model, gg, theory.per_client_gradients(
+            model, p, batches))
+        return [*kappa, theory.e_t1(model, gg, np.array([1, 0, 0],
+                                                        np.float32)),
+                theory.e_t2(masks, sizes, kappa),
+                theory.e_t2(masks, sizes, kappa, population_alpha=alpha,
+                            cohort_idx=idx)]
+    ops.reset_launches()
+    card_v = quantities("cuda")
+    card_launches = dict(ops.LAUNCHES)
+    check(card_launches["flash_attention_simt"] > 0
+          and card_launches["layer_grad_norm"] > 0,
+          f"[theory] the reduced card run took no kernel: {card_launches}")
+    cpu_v = quantities("cpu")
+    err = _rel_err(card_v, cpu_v)
+    log(f"[theory] reduced f32 TinyLlama (3 layers, d 64): κ, E_t1, E_t2 "
+        f"(cohort α, population α) card {np.round(card_v, 6).tolist()} "
+        f"vs CPU: max rel err {err:.3e} (limit {THEORY_RTOL:g})   [{card}]")
+    check(err <= THEORY_RTOL, "[theory] the card's κ / E_t1 / E_t2 differ "
+                              "from the CPU's on the reduced f32 world")
+    return err
+
+
+def phase_theory(card: str) -> dict:
+    """examples/heterogeneous_budgets.py at full TinyLlama-1.1B width in
+    bf16 (seq 128, 16 clients): κ_l over 22 layers from 16 full-batch client
+    gradients (the global gradient in f32), E_t1 and E_t2 of the last round
+    of "ours" and "top" under the example's half-normal budgets, σ_l, the
+    Theorem 4.7 right-hand side and the Table 3 costs of each strategy's
+    selection; checks E_t1 = 0 at a full union and growing as the union
+    shrinks, κ_l above every client's deviation (plain f64 norms), E_t2 ≈ 0
+    for a full uniform cohort, the norm kernel against the plain route, and
+    a reduced f32 world against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.core import costs, theory
+    from repro_torch.core.masks import count_layer_params, union_mask
+    from repro_torch.data.pretrain import pretrain
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+
+    th = THEORY
+    cfg = get_arch("tinyllama_1_1b")
+    L = cfg.n_layers
+    model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=th["seq"]),
+                  device="cuda")
+    data = SyntheticFederatedData(FederatedTaskConfig(
+        n_clients=th["clients"], vocab_size=cfg.vocab_size,
+        seq_len=th["seq"], test_samples=32, objective="lm", skew="feature",
+        seed=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    params = pretrain(model, model.init(0), data,
+                      steps=th["pretrain_steps"], lr=PRETRAIN["lr"])
+    budgets = half_normal_budgets(th["clients"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [data.client_batch(i, th["grad_batch"])
+               for i in range(th["clients"])]
+    gg = theory.global_gradient(model, params, batches, data.alpha)
+    cg = theory.per_client_gradients(model, params, batches)
+    kappa = theory.kappa_per_layer(model, gg, cg)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grads_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kappa_plain = theory.kappa_per_layer(model, gg, cg, mode="torch")
+    kappa_err = _rel_err(kappa, kappa_plain)
+    log(f"[theory] TinyLlama-1.1B bf16, {th['clients']} clients, "
+        f"{th['pretrain_steps']} pretraining steps, budgets {budgets}; "
+        f"κ_l ({L} layers) {np.round(kappa, 6).tolist()}; kernel vs plain "
+        f"route max rel err {kappa_err:.3e} (limit {THEORY_RTOL:g}); global "
+        f"+ {th['clients']} client gradients and κ in {grad_s:.3f} s, peak "
+        f"{grads_peak_gb:.2f} GB   [{card}]")
+    check(kappa.shape == (L,) and np.all(np.isfinite(kappa))
+          and np.all(kappa > 0), "[theory] κ is not finite and positive")
+    check(kappa_err <= THEORY_RTOL,
+          "[theory] κ differs between the kernel and the plain route")
+    # each client's deviation apart from theory.layer_diff and the norm
+    # kernel: plain f64 row norms of the blocks' f32 differences (TinyLlama's
+    # one selectable segment), held under the kernel route's κ
+    worst = -np.inf
+    for g_i in cg:
+        sq = sum(torch.linalg.vector_norm(
+                     (a.float() - b.float()).reshape(L, -1), dim=1,
+                     dtype=torch.float64) ** 2
+                 for a, b in zip(tree_leaves(gg["blocks"]),
+                                 tree_leaves(g_i["blocks"])))
+        worst = max(worst, float(np.max(np.sqrt(sq.cpu().numpy()) / kappa)
+                                 - 1.0))
+    log(f"[theory] each client's deviation (plain f64 norms) against κ "
+        f"(kernel route): largest excess {worst:.3e} relative (limit "
+        f"{THEORY_RTOL:g})   [{card}]")
+    check(worst <= THEORY_RTOL, f"[theory] a client's deviation exceeds κ "
+                                f"by {worst:.3e} relative (limit "
+                                f"{THEORY_RTOL:g})")
+    del cg
+    torch.cuda.empty_cache()
+
+    # E_t1 over a shrinking union: 0 when every layer is selected
+    chain = [np.ones(L, np.float32)]
+    for layer in range(L):
+        u = chain[-1].copy()
+        u[layer] = 0.0
+        chain.append(u)
+    e1_chain = [theory.e_t1(model, gg, u) for u in chain]
+    e1_plain = [theory.e_t1(model, gg, u, mode="torch") for u in chain]
+    e1_err = _rel_err(e1_chain[1:], e1_plain[1:])
+    log(f"[theory] E_t1 as the union shrinks from all {L} layers to none: "
+        f"{[float(f'{e:.6g}') for e in e1_chain]}; kernel vs plain route "
+        f"max rel err {e1_err:.3e}   [{card}]")
+    check(e1_chain[0] == 0.0 and e1_plain[0] == 0.0,
+          "[theory] E_t1 at a full union is not exactly 0")
+    check(all(b >= a for a, b in zip(e1_chain, e1_chain[1:]))
+          and e1_chain[-1] > 0.0, "[theory] E_t1 does not grow as the "
+                                  "union shrinks")
+    check(e1_err <= THEORY_RTOL,
+          "[theory] E_t1 differs between the kernel and the plain route")
+    full = np.ones((th["clients"], L), np.float32)
+    e2_uniform = [theory.e_t2(full, data.sizes, kappa),
+                  theory.e_t2(full, data.sizes, kappa,
+                              population_alpha=data.alpha,
+                              cohort_idx=np.arange(th["clients"]))]
+    scale = float(np.sum(kappa ** 2))
+    log(f"[theory] E_t2, full cohort with equal full masks: "
+        f"{e2_uniform} (Σκ² {scale:.6g})   [{card}]")
+    check(max(e2_uniform) <= 1e-6 * scale,
+          "[theory] E_t2 of a full uniform cohort is not 0 up to f32 "
+          "rounding")
+
+    # σ_l and the Theorem 4.7 floor, then each strategy's rounds
+    sigma = theory.sigma_per_layer(
+        model, params, [data.client_batch(0, th["sigma_batch"])
+                        for _ in range(th["sigma_batches"])],
+        data.client_batch(0, th["sigma_full"]))
+    check(np.all(np.isfinite(sigma)) and sigma.shape == (L,),
+          "[theory] σ is not finite")
+    with torch.no_grad():
+        test = {k: torch.from_numpy(v).to("cuda")
+                for k, v in data.test_batch().items()}
+        f0 = model.seq_loss(params, test).item()
+    layer_params = count_layer_params(params, cfg)
+    tokens = th["grad_batch"] * th["seq"]
+    out = {"kappa": kappa.tolist(), "sigma": sigma.tolist(),
+           "e1_chain": e1_chain, "e2_uniform": e2_uniform,
+           "kappa_route_rel_err": kappa_err, "e1_route_rel_err": e1_err,
+           "budgets": budgets, "strategies": {}}
+    for strategy in ("ours", "top"):
+        exp = Experiment(model, data, strategy, cohort_size=th["cohort"],
+                         rounds=th["rounds"], local_steps=th["tau"],
+                         lr=th["lr"], batch_size=th["batch"],
+                         budgets=budgets, lam=th["lam"], device="cuda")
+        t0 = time.perf_counter()
+        new_params, hist = exp.run(params)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        del new_params
+        e1s, e2s = [], []
+        for rec in hist.records:
+            e1s.append(theory.e_t1(model, gg, union_mask(rec.mask_matrix)))
+            e2s.append(theory.e_t2(rec.mask_matrix, data.sizes[rec.cohort],
+                                   kappa, population_alpha=data.alpha,
+                                   cohort_idx=rec.cohort))
+        rhs = theory.theorem_4_7_rhs(
+            f0, 0.0, eta=th["lr"], gamma=th["gamma"], T=len(hist.records),
+            sigma_sq=float(np.sum(sigma ** 2)), e1_sum=sum(e1s),
+            e2_sum=sum(e2s))
+        union = union_mask(hist.records[-1].mask_matrix)
+        exact = costs.backward_cost_exact(layer_params, union, th["tau"],
+                                          tokens_per_batch=tokens)
+        uniform = costs.backward_cost_uniform(L, float(np.mean(budgets)),
+                                              th["tau"])
+        s = hist.summary()
+        log(f"[theory] {strategy}: {len(hist.records)} rounds in "
+            f"{run_s:.3f} s, final test loss {s['final_loss']:.6f}; last "
+            f"round E_t1 {e1s[-1]:.6g}, E_t2 {e2s[-1]:.6g} (union "
+            f"{np.flatnonzero(union).tolist()}); per round E_t1 "
+            f"{[float(f'{e:.6g}') for e in e1s]}, E_t2 "
+            f"{[float(f'{e:.6g}') for e in e2s]}; Theorem 4.7 RHS "
+            f"{rhs:.6g} (f0 {f0:.6f}, f* 0, η {th['lr']}, γ {th['gamma']}, "
+            f"Σσ² {float(np.sum(sigma ** 2)):.6g}); Table 3 exact: backward "
+            f"{exact.compute_flops:.6g} FLOPs ({exact.ratio_compute:.4f} of "
+            f"full), upload {exact.transmit_bits:.6g} bits "
+            f"({exact.ratio_transmit:.4f}); uniform Eq.(16)/(17) at R̄ "
+            f"{float(np.mean(budgets)):.4g}: {uniform.ratio_compute:.4f} / "
+            f"{uniform.ratio_transmit:.4f}   [{card}]")
+        check(all(np.isfinite([*e1s, *e2s, rhs])) and min(e1s + e2s) >= 0,
+              f"[theory] {strategy}: non-finite or negative E terms")
+        out["strategies"][strategy] = {
+            "e1": e1s, "e2": e2s, "rhs": rhs, "run_s": run_s,
+            "final_loss": s["final_loss"],
+            "cost_exact": dataclasses.asdict(exact),
+            "cost_uniform": dataclasses.asdict(uniform)}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_s = time.perf_counter() - t_phase
+    log(f"[theory] launches {({k: v for k, v in launches.items() if v})}; "
+        f"σ_l {np.round(sigma, 6).tolist()}; phase {phase_s:.1f} s, peak "
+        f"device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated; "
+        f"more than {THEORY_PEAK_GB:g} GB would call for 8 clients)"
+        f"   [{card}]")
+    check(all(launches[k] > 0 for k in ("layer_grad_norm", "masked_update",
+                                        "flash_attention_mma",
+                                        "flash_attention_bwd_mma"))
+          and launches["flash_attention_simt"] == 0,
+          f"[theory] the path did not go through the kernels: {launches}")
+    del params, gg
+    torch.cuda.empty_cache()
+    out.update(launches=launches, peak_gb=peak_gb, grads_peak_gb=grads_peak_gb,
+               phase_s=phase_s, reduced_rel_err=theory_reduced(card))
+    return out
+
+
+def phase_contracts(card: str) -> dict:
+    """(a) Strict mode: three pipelined "ours" TinyLlama-1.1B rounds at seq
+    128 to warm up, then the same run under ``strict_region`` (the card's
+    sync-debug mode at "error", the kernel-cache sentinel) at each of
+    STRICT_DEPTHS: nothing may sync or grow, and the summary must equal the
+    warm run's.  (b) The program auditor at full width on the card: the
+    reference's three audit configs (TinyLlama f32 training, Mamba2-370M
+    f32 training at every sixth cut, TinyLlama bf16 serving) at the specs'
+    cohort 2, τ 2, 2 × 16 tokens; ``check_all`` must find nothing, and the
+    kernels' work must reach the facts through the recorder."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.contracts import FORWARD_ONLY_MAX_FRAC, check_all
+    from repro_torch.analysis.program import (audit_models, enumerate_specs,
+                                              run_audit)
+    from repro_torch.analysis.strict import strict_region
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import (FederatedTaskConfig,
+                                            SyntheticFederatedData)
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_arch("tinyllama_1_1b")
+
+    def task():
+        return SyntheticFederatedData(FederatedTaskConfig(
+            n_clients=16, vocab_size=cfg.vocab_size, seq_len=CKPT_SEQ,
+            test_samples=32, objective="lm", skew="feature", seed=0))
+    exp = _round_experiment(cfg, task(), pipeline=True, pipeline_depth=1)
+    params = exp.init_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, h_warm = exp.run(params)
+    torch.cuda.synchronize()
+    warm = {"s_per_round": (time.perf_counter() - t0) / len(h_warm.records),
+            "summary": h_warm.summary()}
+    log(f"[strict] warm run (depth 1): {warm['s_per_round']:.4f} s/round, "
+        f"summary {warm['summary']}   [{card}]")
+    # the guard guards: a card .item() inside the region raises
+    try:
+        with strict_region("tripwire", enabled=True, device="cuda"):
+            torch.ones(2, device="cuda").sum().item()
+    except RuntimeError as exc:
+        log(f"[strict] a card .item() inside strict_region raised: "
+            f"{str(exc).splitlines()[0]}")
+    else:
+        raise SmokeFailure("[strict] strict_region let a card .item() "
+                           "through")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "[strict] the sync-debug mode was not restored")
+    strict, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    for depth in STRICT_DEPTHS:
+        exp = _round_experiment(cfg, task(), pipeline=True,
+                                pipeline_depth=depth)
+        exp.build()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with strict_region(f"TinyLlama rounds at depth {depth}",
+                           enabled=True, device="cuda"):
+            _, hist = exp.run(params)
+        torch.cuda.synchronize()
+        s_round = (time.perf_counter() - t0) / len(hist.records)
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        same = hist.summary() == warm["summary"]
+        log(f"[strict] depth {depth} under strict_region: no host sync, no "
+            f"kernel cache grew; {s_round:.4f} s/round (warm "
+            f"{warm['s_per_round']:.4f}); summary equal to the warm run's: "
+            f"{same}   [{card}]")
+        check(same, f"[strict] depth {depth}: the strict run's summary "
+                    f"{hist.summary()} differs from the warm run's")
+        strict[f"depth {depth}"] = {"s_per_round": s_round}
+    del params, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the auditor at full width
+    t0 = time.perf_counter()
+    specs = enumerate_specs(audit_models("cuda", reduced=False))
+    ops.reset_launches()
+    facts = run_audit(specs)
+    torch.cuda.synchronize()
+    audit_launches = dict(ops.LAUNCHES)
+    audit_s = time.perf_counter() - t0
+    violations = check_all(facts)
+    for v in violations:
+        log(f"[audit] CONTRACT {v.contract} :: {v.program}: {v.message}")
+    series = {}
+    for label in ("dense", "ssm"):
+        cuts = sorted((f.meta["cut"], f.flops) for f in facts.values()
+                      if f.meta.get("kind") == "fl_step_masked"
+                      and f.meta["config"] == label)
+        series[label] = {"cuts": [c for c, _ in cuts],
+                         "flops": [x for _, x in cuts],
+                         "forward_only_frac": cuts[-1][1] / cuts[0][1]}
+        log(f"[audit] {label}: fl_step_masked FLOPs by cut "
+            f"{[(c, float(f'{x:.6g}')) for c, x in cuts]}; cut "
+            f"{cuts[-1][0]} / cut 0 = {series[label]['forward_only_frac']:.4f}"
+            f" (limit {FORWARD_ONLY_MAX_FRAC})   [{card}]")
+    delta = {f"B{f.meta['batch']}/C{f.meta['capacity']}": f.weight_bytes
+             for f in facts.values()
+             if f.meta.get("kind") == "serve_decode_delta"
+             and f.meta["config"] == "dense_bf16"}
+    dense = {f"B{f.meta['batch']}": f.weight_bytes for f in facts.values()
+             if f.meta.get("kind") == "serve_decode_dense"
+             and f.meta["config"] == "dense_bf16"}
+    log(f"[audit] TinyLlama bf16 serving weight bytes: delta {delta}; dense "
+        f"baseline {dense}   [{card}]")
+    n_layers = get_arch("tinyllama_1_1b").n_layers
+    for name, f in facts.items():
+        if "/serve_decode_delta/" in name:
+            check(f.kernel_launches.get("base_delta_matmul") == 6 * n_layers,
+                  f"[audit] {name}: delta launches {f.kernel_launches}")
+        if name.startswith("dense/fl_step_masked/cut0"):
+            check(f.kernel_launches.get("flash_attention", 0) > 0
+                  and f.kernel_launches.get("flash_attention_bwd", 0) > 0,
+                  f"[audit] {name}: no flash work reached the facts")
+    log(f"[audit] {len(facts)} programs in {audit_s:.1f} s, "
+        f"{len(violations)} contract violation(s); launches "
+        f"{({k: v for k, v in audit_launches.items() if v})}; largest "
+        f"temp {max(f.temp_bytes for f in facts.values()) / 1e9:.2f} GB"
+        f"   [{card}]")
+    check(not violations, f"[audit] {len(violations)} contract violation(s)")
+    n_programs = len(facts)
+    check(all(audit_launches[k] > 0 for k in (
+        "base_delta_matmul", "flash_attention_simt", "layer_grad_norm",
+        "masked_update", "ssd_scan_simt")), f"[audit] the programs did not "
+                                            f"go through the kernels: "
+                                            f"{audit_launches}")
+    del specs, facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[contracts] phase {phase_s:.1f} s   [{card}]")
+    return {"warm": warm, "strict": strict, "strict_launches": launches,
+            "audit_launches": audit_launches, "audit_s": audit_s,
+            "flops_series": series, "delta_weight_bytes": delta,
+            "dense_weight_bytes": dense, "phase_s": phase_s,
+            "violations": len(violations), "programs": n_programs}
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -4847,6 +5278,11 @@ def main(argv=None) -> int:
         auk = phase_audio_kernels(card)
         aur = phase_audio_round(card)
         phase_audio_decode(card)
+        # slice 12: theory at full TinyLlama width, strict mode, the auditor
+        gc.collect()
+        torch.cuda.empty_cache()
+        thr = phase_theory(card)
+        con = phase_contracts(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -4859,13 +5295,19 @@ def main(argv=None) -> int:
     # the whisper paths: the probe, the update at "ours"' cut, and the
     # masked and dense updates at each of AUDIO_CUTS
     audio_paths = aur["launches"]
+    # the theory phase, the strict rounds and the full-width audit
+    slice12_paths = {"tinyllama_theory": thr["launches"],
+                     "tinyllama_strict": con["strict_launches"],
+                     "audit_full_width": con["audit_launches"]}
     delta_paths = {"serve": served["delta"]["launches"],
                    **{p: l["base_delta_matmul"]
                       for p, l in fault_paths.items()},
                    **{p: l["base_delta_matmul"]
                       for p, l in moe_paths.items()},
                    **{p: l["base_delta_matmul"]
-                      for p, l in audio_paths.items()}}
+                      for p, l in audio_paths.items()},
+                   **{p: l["base_delta_matmul"]
+                      for p, l in slice12_paths.items()}}
     line = {"kernels": [{
         "name": "base_delta_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_matmul.cu",
@@ -4910,7 +5352,8 @@ def main(argv=None) -> int:
                    "tinyllama_checkpoint_resume": ckp["launches"][name],
                    **{p: l[name] for p, l in fault_paths.items()},
                    **{p: l[name] for p, l in moe_paths.items()},
-                   **{p: l[name] for p, l in audio_paths.items()}}
+                   **{p: l[name] for p, l in audio_paths.items()},
+                   **{p: l[name] for p, l in slice12_paths.items()}}
         extra = {"deepseek_v2_lite_16b": {
             **mok[name]["total"], "shapes": mok[name]["rows"],
             "timed_as": f"sum over DeepSeek-V2-Lite's 23 leaves: dense0's "
@@ -4954,7 +5397,7 @@ def main(argv=None) -> int:
                  "mamba2_top_round": ssm_rounds["top_launches"],
                  "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
                  **fault_paths, "zamba2_round": hyr["launches"],
-                 **moe_paths, **audio_paths}
+                 **moe_paths, **audio_paths, **slice12_paths}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4980,7 +5423,7 @@ def main(argv=None) -> int:
                    "tinyllama_pretrain": pre["launches"],
                    "tinyllama_checkpoint_resume": ckp["launches"],
                    **fault_paths, "zamba2_round": hyr["launches"],
-                   **moe_paths, **audio_paths}
+                   **moe_paths, **audio_paths, **slice12_paths}
     flash_shapes = [{k: v for k, v in c.items()}
                     for c in flash["cases"] + hyk["flash"] + auk["flash"]]
     whisper_flash = {c["case"]: c for c in auk["flash"]}

@@ -77,8 +77,9 @@ def corrupt_delta_rows(deltas: dict, codes, explode_scale) -> dict:
     """
     codes = np.asarray(codes, np.int32)
     for x in tree_leaves(deltas):
-        # the scale rounded to the leaf's dtype, on the host
-        scale = torch.tensor(explode_scale, dtype=x.dtype).item()
+        # the scale rounded to the leaf's dtype: a host 0-d tensor, which
+        # a kernel reads as a scalar (no copy back from any device)
+        scale = torch.tensor(explode_scale, dtype=x.dtype)
         for i in np.flatnonzero(codes).tolist():
             if codes[i] == 3:
                 x[i].mul_(scale)

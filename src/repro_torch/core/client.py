@@ -44,9 +44,9 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import masks as M
 from repro_torch.core.strategies import PROBE_KEYS
 from repro_torch.kernels import ops
-from repro_torch.models.model import (Model, apply_layer_mask, layer_layout,
-                                      segment_prefix_cuts, split_mask,
-                                      trainable_rows)
+from repro_torch.models.model import (Model, _torch_dtype, apply_layer_mask,
+                                      layer_layout, segment_prefix_cuts,
+                                      split_mask, trainable_rows)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -102,8 +102,120 @@ class HostCopy:
     def to_numpy(self) -> dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
-        return {k: v.numpy() if isinstance(v, torch.Tensor) else v
-                for k, v in self._host.items()}
+        # the sanctioned readback: strict mode's CPU guard (a torch-function
+        # mode on its thread) flags every other ``.numpy()``
+        with torch._C.DisableTorchFunction():
+            return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in self._host.items()}
+
+
+# -- program-auditor enumeration hook ---------------------------------------
+
+def audit_batch(cfg, lead: tuple, seq: int, rng: np.random.RandomState,
+                device: torch.device) -> dict:
+    """A random batch with leading axes ``lead`` (family-aware: vlm
+    patches, whisper frames, labels for a classifier) on ``device``."""
+    dt = _torch_dtype(cfg.dtype)
+
+    def ints(shape, hi):
+        return torch.from_numpy(rng.randint(0, hi, shape).astype(np.int32)
+                                ).to(device)
+
+    def floats(shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                ).to(device, dt)
+    if cfg.family == "vlm":
+        batch = {"patches": floats(lead + (cfg.n_prefix_tokens, cfg.d_model))}
+        if cfg.task == "lm":
+            batch["tokens"] = ints(lead + (max(seq - cfg.n_prefix_tokens, 4),),
+                                   cfg.vocab_size)
+        else:
+            batch["label"] = ints(lead, cfg.n_classes)
+        return batch
+    if cfg.family == "audio":
+        return {"frames": floats(lead + (cfg.enc_seq, cfg.d_model)),
+                "tokens": ints(lead + (seq,), cfg.vocab_size)}
+    batch = {"tokens": ints(lead + (seq,), cfg.vocab_size)}
+    if cfg.task == "classification":
+        batch["label"] = ints(lead, cfg.n_classes)
+    return batch
+
+
+def suite_program_specs(model: Model, *, cohort: int = 2, tau: int = 2,
+                        batch: int = 2, seq: int = 16, sel_batches: int = 1,
+                        cuts: Optional[tuple] = None) -> list[dict]:
+    """Audit specs for every training program family (the reference's
+    list): the dense round step, every masked-cut variant (``cuts``
+    defaults to all L+1, including the cut=L forward-only program), the
+    cohort probe, the probe queued behind the update (dense and one masked
+    representative) and the guarded step.
+
+    Eager PyTorch has no abstract lowering, so each entry's ``args`` is a
+    zero-argument callable that builds concrete inputs at these sizes on
+    the model's device when the auditor (``repro_torch.analysis.program``)
+    runs it: params from ``model.init(0)`` (one copy, shared by every
+    entry), random tokens from a fixed seed, all-ones masks, equal sizes.
+    Plain dicts: core does not import the auditor.
+    """
+    client = Client(model)
+    cfg, dev = model.cfg, model.device
+    params = model.init(0)
+    L = model.n_selectable
+    reqs = ("grad_sq_norms",)
+    masks = np.ones((cohort, L), np.float32)
+    sizes = np.ones(cohort, np.float32)
+    lr = 0.01
+    if cuts is None:
+        cuts = tuple(range(L + 1))
+
+    def audit_inputs():
+        rng = np.random.RandomState(0)
+        return (audit_batch(cfg, (cohort, tau, batch), seq, rng, dev),
+                audit_batch(cfg, (cohort, sel_batches, batch), seq, rng, dev))
+
+    def update_args(*tail):
+        return lambda: (params, audit_inputs()[0], masks, sizes, lr, *tail)
+
+    def probe_update_args(*tail):
+        def probe_update_inputs():
+            b, pb = audit_inputs()
+            return (params, b, masks, sizes, lr, pb, reqs, None, *tail)
+        return probe_update_inputs
+
+    # training entries declare no donation: the round's params feed the
+    # probe and the sequential oracle too (meta records it, as the
+    # reference's do)
+    base = dict(donate_argnums=(), weight_argnums=(0,))
+    specs = [
+        dict(base, name="fl_step", fn=client.cohort_update_raw,
+             args=update_args(None),
+             meta={"kind": "fl_step", "single_host": True}),
+        dict(base, name="probe", fn=client.probe_cohort_raw,
+             args=lambda: (params, audit_inputs()[1], reqs, None),
+             meta={"kind": "probe", "single_host": True}),
+        dict(base, name="probe_update", fn=client.probe_update_cohort_raw,
+             args=probe_update_args(None),
+             meta={"kind": "probe_update", "single_host": True}),
+        # the fault path's one variant: every row survives, none corrupted
+        dict(base, name="fl_step_guarded",
+             fn=client.cohort_update_guarded_raw,
+             args=update_args(np.ones(cohort, np.float32),
+                         np.zeros(cohort, np.int32), 1.0, float("inf")),
+             meta={"kind": "fl_step_guarded", "single_host": True}),
+    ]
+    mid = cuts[len(cuts) // 2] if cuts else 0
+    for cut in cuts:
+        specs.append(dict(
+            base, name=f"fl_step_masked/cut{cut}",
+            fn=client.cohort_update_raw, args=update_args(int(cut)),
+            meta={"kind": "fl_step_masked", "cut": int(cut),
+                  "n_selectable": L, "single_host": True}))
+    specs.append(dict(
+        base, name=f"probe_update_masked/cut{mid}",
+        fn=client.probe_update_cohort_raw, args=probe_update_args(int(mid)),
+        meta={"kind": "probe_update_masked", "cut": int(mid),
+              "single_host": True}))
+    return specs
 
 
 def probe_stats_dict(stats: dict) -> dict[str, np.ndarray]:

@@ -37,6 +37,62 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# The work recorder that ``repro_torch.analysis.facts`` installs while it
+# runs a program, else None.  The kernels launch through ``ctypes``, which
+# PyTorch's dispatcher (and so ``FlopCounterMode``) never sees, so each
+# launch below reports its operations and its weight operands here:
+# ``RECORDER.launched(kernel, flops, weights)``.  Operations are those of
+# ``chip_smoke.py``'s bounds (PERF.md §6): flash and ``ssd_scan`` through
+# :func:`flash_flops` and :func:`ssd_flops`, which the bounds call too, 2
+# per element for ``layer_grad_norm`` and ``masked_update``, and for
+# ``delta_matmul`` 2·d·f per row for the base and for every one of the C
+# entries (live or not: which are live is on the card).  With no recorder,
+# one None check.
+RECORDER = None
+
+
+def cache_stats() -> dict[str, int]:
+    """Entries of every cache the kernels keep (the counterpart of the
+    reference's ``jit_cache_stats()["programs"]``; eager PyTorch has no
+    compiled-program cache): the libraries ``_build`` built or loaded, each
+    kernel module's bound library, ``delta_matmul.plan``'s grids (one per
+    shape) and flash's SM count (one per device).  Nothing else in the port
+    caches by shape."""
+    from repro_torch.kernels import _build
+    caches = {"_build.load_library": _build.load_library,
+              "delta_matmul._launcher": _dmm._launcher,
+              "delta_matmul.plan": _dmm.plan,
+              "flash_attention._lib": _fa._lib,
+              "flash_attention._sm_count": _fa._sm_count,
+              "layer_grad_norm._lib": _lgn._lib,
+              "masked_update._lib": _mu._lib,
+              "ssd_scan._lib": _ssd._lib}
+    return {name: fn.cache_info().currsize for name, fn in caches.items()}
+
+
+def flash_flops(b: int, h: int, d: int, s: int, causal: bool, window: int,
+                backward: bool = False) -> int:
+    """Operations of one flash forward (QKᵀ and PV, 4·d per visible
+    (query, key) pair and head) or backward (its five products, 10·d):
+    what the recorder is told and the ``flops`` of ``chip_smoke.py``'s
+    flash bound."""
+    pairs = 0
+    for q in range(s):
+        lo = max(0, q - window + 1) if window else 0
+        hi = q if causal else s - 1
+        pairs += max(hi - lo + 1, 0)
+    return (10 if backward else 4) * b * h * d * pairs
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """Operations of one ``ssd_scan`` at chunk ``q``: the causal half of
+    each chunk's Q × Q products, and the inter-chunk terms (none for the
+    first chunk, no state update after the last).  The recorder's and
+    ``chip_smoke.py``'s scan bound's count."""
+    nc, tri = s // q, q * (q + 1) // 2
+    return 2 * b * h * (nc * tri * (n + p) + 2 * (nc - 1) * q * n * p)
+
+
 def _resolve_mode(mode: Optional[str], t: torch.Tensor) -> str:
     if mode not in (None, "cuda", "torch"):
         raise ValueError(f"mode must be None, 'cuda' or 'torch', got {mode!r}")
@@ -73,6 +129,10 @@ class _FlashAttention(torch.autograd.Function):
                                          window=window)
             LAUNCHES["flash_attention"] += 1
             LAUNCHES["flash_attention_" + _fa.route(q.dtype, q.shape[-1])] += 1
+            if RECORDER is not None:
+                B, S, H, D = q.shape
+                RECORDER.launched("flash_attention", flash_flops(
+                    B, H, D, S, causal, window), ())
         else:
             o, lse = _fa.flash_attention_torch(qt, kt, vt, causal=causal,
                                                window=window)
@@ -92,6 +152,10 @@ class _FlashAttention(torch.autograd.Function):
             LAUNCHES["flash_attention_bwd"] += 1
             LAUNCHES["flash_attention_bwd_" + _fa.route(q.dtype,
                                                         q.shape[-1])] += 1
+            if RECORDER is not None:
+                B, S, H, D = q.shape
+                RECORDER.launched("flash_attention_bwd", flash_flops(
+                    B, H, D, S, ctx.causal, ctx.window, backward=True), ())
         else:
             grads = _fa.flash_attention_bwd_torch(*args, causal=ctx.causal,
                                                   window=ctx.window)
@@ -125,6 +189,10 @@ def _ssd_forward(x, dt, A_log, Bmat, Cmat, D, chunk: int, mode: str):
         LAUNCHES["ssd_scan"] += 1
         LAUNCHES["ssd_scan_" + _ssd.route(x.dtype, x.shape[-1],
                                           Bmat.shape[-1])] += 1
+        if RECORDER is not None:
+            b, s, h, p = x.shape
+            RECORDER.launched("ssd_scan", ssd_flops(
+                b, s, h, p, Bmat.shape[-1], chunk), ())
         return y
     # the plain version on the reference wrapper's per-head layout
     b, s, h, p = x.shape
@@ -193,6 +261,8 @@ def layer_grad_norms(stacked_grads, *,
         if _resolve_mode(mode, leaf) == "cuda":
             sq = _lgn.layer_sq_norms_2d(flat.contiguous())
             LAUNCHES["layer_grad_norm"] += 1
+            if RECORDER is not None:
+                RECORDER.launched("layer_grad_norm", 2 * flat.numel(), ())
         else:
             sq = _lgn.layer_sq_norms_2d_torch(flat)
         total = sq if total is None else total + sq
@@ -218,6 +288,8 @@ def masked_sgd_update(stacked_params: dict, stacked_grads: dict,
                                            g.reshape(L, -1).contiguous(),
                                            mask, lr)
             LAUNCHES["masked_update"] += 1
+            if RECORDER is not None:
+                RECORDER.launched("masked_update", 2 * p.numel(), ())
         else:
             out = _mu.masked_sgd_update_2d_torch(p.reshape(L, -1),
                                                  g.reshape(L, -1), mask, lr)
@@ -247,6 +319,9 @@ def base_delta_matmul(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
     if mode == "cuda":
         out = _dmm.base_delta_matmul_2d(x2.contiguous(), w, dw, slots)
         LAUNCHES["base_delta_matmul"] += 1
+        if RECORDER is not None:
+            RECORDER.launched("base_delta_matmul", 2 * x2.shape[0]
+                              * w.numel() * (1 + dw.shape[0]), (w, dw))
     else:
         out = _dmm.base_delta_matmul_2d_torch(x2, w, dw, slots)
     return out[:, None] if squeeze else out

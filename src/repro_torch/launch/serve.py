@@ -37,7 +37,9 @@ from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
 from repro_torch.core.aggregation import add_delta_rows_
 from repro_torch.models.model import Model
 from repro_torch.serve import DeltaOverlay, DeltaStore, stack_tree
-from repro_torch.serve.engine import check_device, tree_slot
+from repro_torch.serve.engine import (check_device, decode_delta,
+                                      decode_dense, decode_shared, tree_slot,
+                                      write_params)
 
 
 @dataclass
@@ -155,11 +157,11 @@ class SlotServer:
                 # place, so no second full copy is ever alive (at
                 # DeepSeek-V2-Lite's width the base and one bank slot take
                 # 62.8 GB of the card's 80)
-                bank_slot = tree_slot(self.bank, i)
-                _copy_into(bank_slot, self.params)
+                write_params(self.bank, self.params, i)
                 rec = self._record(req)
                 if rec is not None:
-                    add_delta_rows_(bank_slot, rec.rows(), rec.leaves())
+                    add_delta_rows_(tree_slot(self.bank, i), rec.rows(),
+                                    rec.leaves())
                 reset_cache_slot(self.cache, i, stacked=True)
             else:
                 reset_cache_slot(self.cache, i)
@@ -167,19 +169,15 @@ class SlotServer:
             self.pos[i] = 0
 
     def _decode(self, toks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        model = self.model
         if self.mode == "shared":
-            return model.decode_step(self.params, toks, pos, self.cache,
-                                     window=self.window)[0]
+            return decode_shared(self.model, self.params, toks, pos,
+                                 self.cache, self.window)[0]
         if self.mode == "delta":
-            return model.decode_step(self.params, toks, pos, self.cache,
-                                     window=self.window,
-                                     delta=self.overlay.device())[0]
-        return torch.cat([
-            model.decode_step(tree_slot(self.bank, i), toks[i:i + 1],
-                              pos[i:i + 1], tree_slot(self.cache, i),
-                              window=self.window)[0]
-            for i in range(self.slots)])
+            return decode_delta(self.model, self.params, toks, pos,
+                                self.cache, self.overlay.device(),
+                                self.window)[0]
+        return decode_dense(self.model, self.bank, toks, pos, self.cache,
+                            self.window)[0]
 
     @torch.inference_mode()
     def run(self, requests: list[Request], verbose: bool = False):
@@ -242,14 +240,6 @@ class SlotServer:
                       "tok_per_s": gen / dt if dt > 1e-9 else 0.0,
                       "dropped_requests": self._dropped_requests,
                       "slot_failures": self._slot_failures}
-
-
-def _copy_into(dst: dict, src: dict) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _copy_into(dst[k], v)
-        else:
-            dst[k].copy_(v)
 
 
 def demo_store(model: Model, params: dict, users: int, layers_per_user: int,

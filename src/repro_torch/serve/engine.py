@@ -16,6 +16,7 @@ is rolled back whole, so no user is ever half-admitted.  The reference's
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -127,9 +128,10 @@ class DeltaOverlay:
                     return False
                 self.stats["upload_retries"] += 1
                 continue
-            for name, leaf in self.leaves.items():
-                leaf[li, c].copy_(torch.from_numpy(
-                    np.ascontiguousarray(leaves[name][j], np.float32)))
+            write_entry(self.leaves, li, c, {
+                name: torch.from_numpy(
+                    np.ascontiguousarray(leaves[name][j], np.float32))
+                for name in self.leaves})
             return True
 
     def release(self, slot: int) -> None:
@@ -156,3 +158,144 @@ def tree_slot(tree: dict, i: int) -> dict:
     """Views of entry ``i`` of every leaf of a stacked tree."""
     return {k: tree_slot(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+# -- the serving programs (``SlotServer`` and the audit run these) ----------
+
+def decode_shared(model: Model, params: dict, tokens, pos, cache,
+                  window: int):
+    """One decode step of every slot against the shared base params."""
+    return model.decode_step(params, tokens, pos, cache, window=window)
+
+
+def decode_delta(model: Model, params: dict, tokens, pos, cache,
+                 delta: dict, window: int):
+    """One decode step, every projection through base + the slot's live
+    overlay entries (``DeltaOverlay.device()``)."""
+    return model.decode_step(params, tokens, pos, cache, window=window,
+                             delta=delta)
+
+
+def decode_dense(model: Model, bank: dict, tokens, pos, cache,
+                 window: int):
+    """The dense baseline: slot i decodes against its private copy
+    ``bank[i]`` with its batch-1 cache ``cache[i]`` (the reference vmaps
+    over slots); the caches advance in place."""
+    logits = torch.cat([
+        model.decode_step(tree_slot(bank, i), tokens[i:i + 1],
+                          pos[i:i + 1], tree_slot(cache, i),
+                          window=window)[0]
+        for i in range(tokens.shape[0])])
+    return logits, cache
+
+
+def write_params(bank: dict, params: dict, b: int) -> dict:
+    """Set bank slot ``b`` to ``params``, in place (the dense refill)."""
+    _set_slot(bank, params, b)
+    return bank
+
+
+def _set_slot(bank: dict, params: dict, b: int) -> None:
+    for k, v in params.items():
+        if isinstance(v, dict):
+            _set_slot(bank[k], v, b)
+        else:
+            bank[k][b].copy_(v)
+
+
+def write_entry(leaves: dict, li: int, c: int, rows: dict) -> dict:
+    """Set entry (li, c) of every overlay leaf to the user's delta row, in
+    place: an admit moves only its (k,)-layer rows, never the (L, C, …)
+    table.  ``rows`` may lie on the host (an admit's upload)."""
+    for name, leaf in leaves.items():
+        leaf[li, c].copy_(rows[name])
+    return leaves
+
+
+# -- program-auditor enumeration hook ---------------------------------------
+
+def serve_program_specs(model: Model, *, slots: int = 3, capacity: int = 2,
+                        capacities: tuple = (1, 2, 3), max_seq: int = 16,
+                        window: int = 0) -> list[dict]:
+    """Audit specs for every serving program family (the reference's list).
+
+    Shared decode and the dense per-slot baseline at batch ``slots`` and
+    ``2·slots`` (the baseline's weight traffic must scale with B: the
+    contrast that makes the delta contract meaningful), delta decode at
+    both batches for each overlay capacity in ``capacities`` (the
+    B-independence / C-linearity contract reads these), and the two
+    donated writes: an overlay entry and a dense bank slot, in place.
+    Every ``fn`` is the function the server itself runs
+    (:func:`decode_shared`, :func:`decode_delta`, :func:`decode_dense`,
+    :func:`write_entry`, :func:`write_params`), and the entry write takes
+    its rows from the host, as an admit's upload does.
+
+    Each entry's ``args`` is a zero-argument callable that builds concrete
+    inputs on the model's device when the auditor runs it (params from
+    ``model.init(0)``, one copy shared; per-slot caches; overlay entries
+    owned round-robin by the slots), so a full-width audit holds one
+    program's tables at a time.  Plain dicts.
+    """
+    cfg, dev = model.cfg, model.device
+    params = model.init(0)
+    L = cfg.n_layers
+
+    def cache_for(b):
+        return model.init_cache(b, max_seq, window=window, per_slot=True)
+
+    def toks_pos(b):
+        toks = torch.arange(b, dtype=torch.int32, device=dev) % cfg.vocab_size
+        return toks, torch.zeros(b, dtype=torch.int32, device=dev)
+
+    base = dict(donate_argnums=(), weight_argnums=(0,))
+    common = {"single_host": True, "dtype": cfg.dtype}
+    specs = []
+    for b in (slots, 2 * slots):
+        specs.append(dict(
+            base, name=f"serve_decode/B{b}",
+            fn=functools.partial(decode_shared, model),
+            args=lambda b=b: (params, *toks_pos(b), cache_for(b), window),
+            meta=dict(common, kind="serve_decode", batch=b)))
+    if supports_delta_decode(cfg):
+        shapes = _block_shapes(cfg, "dense")
+
+        def overlay(b, C):
+            owner = torch.arange(C, dtype=torch.int32, device=dev) % b
+            return {"slots": owner[None].repeat(L, 1).contiguous(),
+                    "leaves": {name: torch.zeros(
+                        (L, C) + tuple(shp), dtype=torch.float32, device=dev)
+                        for name, shp in shapes.items()}}
+        for b in (slots, 2 * slots):
+            for C in capacities:
+                specs.append(dict(
+                    base, name=f"serve_decode_delta/B{b}/C{C}",
+                    fn=functools.partial(decode_delta, model),
+                    args=lambda b=b, C=C: (params, *toks_pos(b),
+                                           cache_for(b), overlay(b, C),
+                                           window),
+                    weight_argnums=(0, 4),
+                    meta=dict(common, kind="serve_decode_delta", batch=b,
+                              capacity=C)))
+        specs.append(dict(
+            base, name="serve_write_delta_entry", fn=write_entry,
+            args=lambda: (
+                {name: torch.zeros((L, capacity) + tuple(shp),
+                                   dtype=torch.float32, device=dev)
+                 for name, shp in shapes.items()}, L // 2, capacity - 1,
+                {name: torch.ones(tuple(shp), dtype=torch.float32)
+                 for name, shp in shapes.items()}),
+            donate_argnums=(0,),
+            meta=dict(common, kind="delta_write", donates=True)))
+    for b in (slots, 2 * slots):
+        specs.append(dict(
+            base, name=f"serve_decode_dense/B{b}",
+            fn=functools.partial(decode_dense, model),
+            args=lambda b=b: (stack_tree(params, b), *toks_pos(b),
+                              stack_tree(cache_for(1), b), window),
+            meta=dict(common, kind="serve_decode_dense", batch=b)))
+    specs.append(dict(
+        base, name="serve_write_params", fn=write_params,
+        args=lambda: (stack_tree(params, slots), params, 0),
+        donate_argnums=(0,), weight_argnums=(0, 1),
+        meta=dict(common, kind="dense_write", donates=True)))
+    return specs
