@@ -147,10 +147,28 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     training at all 23 cuts, Mamba2-370M f32 at every sixth, TinyLlama bf16
     serving): no contract violation, the kernels' work reported to the
     audit (FLOPs series, cut-L / cut-0, delta weight bytes per (B, C));
-24. prints one JSON line of per-kernel results (launches per path, the
-    fault, Zamba2, DeepSeek, whisper, theory, strict and audit paths among
-    them), the card's name and power limit, and a last JSON line
-    ``{"ok": true, "device": {...}}``.
+24. runs ``phase_distributed``: a world of 1 on NCCL in this process (no
+    fallback) and a (1, 1) mesh; through ``repro_torch.sharding`` at full
+    TinyLlama-1.1B width (bf16, 4 × 1024 tokens, ZeRO-3 storage) the τ = 1
+    step against the single-host math (autograd of ``Model.loss``,
+    ``apply_layer_mask``, ``aggregate``, ``apply_update``) on the card, the
+    same step with ``sel_upload`` over two rows (equal to it) and a τ = 2
+    step over them against ``Client.local_update`` + ``aggregate``, each
+    with its update on the selected rows against the reference's (most
+    elements moved, the other rows and groups bit-unchanged), its kernel
+    launches and its collectives (counted by the step and
+    seen by the profiler) against its structure, ms/step beside the
+    single-host step and peak memory; the Mamba2-370M step (4 × 512,
+    ``ssd_scan`` counted) likewise; a reduced f32 step on the card against
+    the CPU's (gloo, a child process); mesh prefill (4 × 1024) against
+    ``Model.logits_seq`` and 32 greedy mesh decode steps against
+    ``Model.decode_step``; then the train CLI for three rounds under
+    ``torch.distributed.run`` (finite losses, the probe's
+    ``layer_grad_norm`` launches);
+25. prints one JSON line of per-kernel results (launches per path, the
+    fault, Zamba2, DeepSeek, whisper, theory, strict, audit and
+    distributed paths among them), the card's name and power limit, and a
+    last JSON line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --hybrid-serve-long
 
@@ -5193,6 +5211,555 @@ def phase_contracts(card: str) -> dict:
             "violations": len(violations), "programs": n_programs}
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: the distributed round and mesh serving (torch.distributed)
+# ---------------------------------------------------------------------------
+
+DIST_SEL = (5, 17)          # 2 of TinyLlama's 22 rows: sel_upload, τ = 2
+DIST_SSM_SEL = (3, 40)      # Mamba2's selected rows
+# Learning rates at which a step moves a large share of the selected rows'
+# bf16 elements by whole ulps, so that the update itself is held against
+# the reference's (at 0.01 most updates fell under half an ulp).  On an
+# H100 at full depth, 1.0 moved 52% of TinyLlama's elements (rows 5, 17)
+# and 0.3 moved 37% of Mamba2's (rows 3, 40), by up to 9.0e-2.  Both are
+# powers of two: the single-host Eq.(6) (``apply_update``, as the
+# reference's) rounds lr·Δ to bf16 before it subtracts, the distributed
+# step (as the reference's sharded one) subtracts in f32 and rounds once,
+# and only a power of two makes the two agree bit for bit (at 0.3 Mamba2's
+# update parted from the reference's by 2.8e-2).  Mamba2's is lower: its
+# largest gradients (D) are far larger than TinyLlama's, and at 1.0 one
+# ulp of a moved D would exceed ROUND_PARAM_ATOL.
+DIST_LR = 1.0
+DIST_SSM_LR = 0.25
+DIST_UPDATE_RTOL = 0.05     # ‖new − ref‖₂ / ‖ref − old‖₂, selected rows
+DIST_MIN_MOVED = 0.2        # share of the selected rows' elements moved
+DIST_TAU = 2
+DIST_REPS = 3
+DIST_DECODE = dict(batch=4, prompt=8, steps=32)
+DIST_CPU_TOL = 1e-6
+CLI_ROUNDS = 3
+COLLECTIVE_OPS = {"all_gather": "c10d::_allgather_base_",
+                  "reduce_scatter": "c10d::_reduce_scatter_base_",
+                  "all_reduce": "c10d::allreduce_"}
+
+
+def run_child(cmd: list, timeout: float, env=None) -> tuple[int, str]:
+    """Run ``cmd`` in a session of its own; on timeout kill the whole
+    session (a launcher's workers too).  Returns (exit code, output)."""
+    import signal
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise SmokeFailure(f"{cmd[:6]} did not finish in {timeout} s:\n"
+                           f"{out[-3000:]}")
+    return p.returncode, out
+
+
+def dist_update_check(new, old, ref, rows) -> dict:
+    """How far a step moved the params, against its reference: on the
+    selected ``blocks`` rows the update's distance from the reference's,
+    ‖new − ref‖₂ / ‖ref − old‖₂ (``update_rel``), the share of their
+    elements the step changed (``moved_frac``) and its largest change
+    (``moved_max``); whether every other row and every other group is
+    bit-unchanged (``rest_unchanged``)."""
+    import torch
+    num = den = 0.0
+    moved = total = 0
+    top, same = 0.0, True
+    rows = list(rows)
+    for key, sub in old.items():
+        if key != "blocks":
+            same &= _params_equal(new[key], sub)
+            continue
+        for nm, o in sub.items():
+            nw, rf = new["blocks"][nm], ref["blocks"][nm]
+            other = [i for i in range(o.shape[0]) if i not in rows]
+            same &= torch.equal(nw[other], o[other])
+            d_new = nw[rows].float() - o[rows].float()
+            d_ref = rf[rows].float() - o[rows].float()
+            num += float(((d_new - d_ref) ** 2).sum())
+            den += float((d_ref ** 2).sum())
+            moved += int((d_new != 0).sum())
+            total += d_new.numel()
+            top = max(top, float(d_new.abs().max()))
+    return {"update_rel": math.sqrt(num / den) if den > 0 else math.inf,
+            "moved_frac": moved / total, "moved_max": top,
+            "rest_unchanged": same}
+
+
+def dist_collectives_want(model, specs, *, tau: int = 1, sel=None,
+                          sel_upload: bool = False) -> dict:
+    """One step's collectives by its structure (``blocks`` the only
+    selectable segment, as for TinyLlama and Mamba2): an all-gather per
+    sharded leaf of the groups gathered whole and, per layer, of each
+    sharded ``blocks`` leaf (τ > 1: of the unselected rows each local
+    step, the selected rows once); a reduce-scatter per sharded block
+    leaf and layer (sel_upload and τ > 1: once, on the R rows); an
+    all-reduce for Eq.(7)'s denominators, each replicated block leaf's
+    residual sum and the two metrics."""
+    from repro_torch.models.model import layer_layout
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+    layout = layer_layout(model.cfg)
+    check([s.path for s in layout] == ["blocks"],
+          f"[dist] the structure count takes blocks only: {layout}")
+    L = layout[0].count
+
+    def n_sharded(tree):
+        return sum(rules.zero3_gather_axis(s) is not None
+                   for s in tree_leaves(tree))
+    blocks = n_sharded(specs["blocks"])
+    rest = sum(n_sharded(v) for k, v in specs.items() if k != "blocks")
+    replicated = len(specs["blocks"]) - blocks
+    if tau > 1:
+        ag = rest + blocks + tau * (L - len(sel)) * blocks
+    elif sel_upload:
+        ag = rest + 2 * blocks
+    else:
+        ag = rest + L * blocks
+    rs = blocks if (tau > 1 or sel_upload) else L * blocks
+    return {"all_gather": ag, "reduce_scatter": rs,
+            "all_reduce": 1 + replicated + 2}
+
+
+def dist_profiled(fn):
+    """``fn()`` under torch.profiler: (its result, the collectives the
+    profiler saw as ``c10d::`` ops, the device ms of the NCCL ops, the
+    device's busy ms, the six ops with the most host time)."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name for e in prof.events())
+    seen = {k: names[op] for k, op in COLLECTIVE_OPS.items()}
+    averages = prof.key_averages()
+    nccl_ms = sum(getattr(e, "device_time_total", 0) or 0
+                  for e in averages if e.key.startswith("nccl:")) / 1e3
+    host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                   for e in averages), reverse=True)[:6]
+    return out, seen, nccl_ms, device_busy_ms(prof), host
+
+
+def dist_time_ms(fn, reps: int = DIST_REPS) -> float:
+    """Median wall ms of ``fn()`` over ``reps`` synchronised runs."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def single_host_step(model, params, batch, masks, sizes, lr):
+    """One client's round on one device: ``torch.autograd.grad`` of
+    ``Model.loss`` over the selectable segments, ``apply_layer_mask``,
+    ``aggregation.aggregate``, ``apply_update``."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.models.model import apply_layer_mask, layer_layout
+    from repro_torch.tree import tree_leaves, tree_map
+    paths = [s.path for s in layer_layout(model.cfg)]
+    wrt = {k: tree_map(lambda t: t.detach().requires_grad_(), params[k])
+           for k in paths}
+    loss = model.seq_loss({**params, **wrt}, batch)
+    it = iter(torch.autograd.grad(loss, tree_leaves(wrt)))
+    g = {k: tree_map(lambda _: next(it), wrt[k]) if k in wrt
+         else tree_map(torch.zeros_like, v) for k, v in params.items()}
+    delta = apply_layer_mask(g, masks[0], model.cfg)
+    update = agg.aggregate([delta], masks, sizes, model.cfg)
+    return agg.apply_update(params, update, lr)
+
+
+def dist_reduced_step(device: str) -> dict:
+    """One τ = 1 zero3 step of a reduced f32 TinyLlama (3 layers, d 64) on
+    a (1, 1) mesh of ``device`` (the caller has joined the world): the
+    params, from a CPU seed, as numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import gather_params, params_to_numpy
+    from repro_torch.bridge import params_to_local
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.fl_step import make_fl_train_step
+    cfg = reduced(get_arch("tinyllama_1_1b"), n_layers=3, d_model=64)
+    rt = RuntimeConfig(remat=False, seq_chunk=16)
+    host = params_to_numpy(Model(cfg, rt, device="cpu").init(0))
+    mesh = make_host_mesh(1, 1, device=device)
+    model = Model(cfg, rt, device=mesh.device)
+    step, specs = make_fl_train_step(model, mesh)(host)
+    rng = np.random.RandomState(6)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (1, 4, 32)).astype(np.int32)).to(mesh.device)}
+    masks = torch.tensor([[1.0, 0.0, 1.0]], device=mesh.device)
+    sizes = torch.tensor([5.0], device=mesh.device)
+    new, _ = step(params_to_local(host, specs, mesh), batch, masks, sizes,
+                  0.1)
+    return params_to_numpy(gather_params(new, specs, mesh))
+
+
+def dist_cpu_step(out_path: str) -> int:
+    """The CPU side of the reduced card-vs-CPU check: a gloo world of 1
+    in this process, :func:`dist_reduced_step` on the CPU, saved to
+    ``out_path`` (npz, leaves by path)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    from repro_torch.tree import tree_items
+    try:
+        new = dist_reduced_step("cpu")
+    finally:
+        dist.destroy_process_group()
+    np.savez(out_path, **{"/".join(path): v for path, v in tree_items(new)})
+    return 0
+
+
+def phase_distributed(card: str) -> dict:
+    """Slice 13 on one card: a world of 1 on NCCL in this process (no
+    fallback), a (1, 1) mesh, and through it (a) full-width TinyLlama-1.1B
+    (bf16, batch 1 client × 4 × 1024, zero3): the τ = 1 step against the
+    single-host math on the same card, the same step with ``sel_upload``
+    over DIST_SEL (equal to the plain one), a τ = 2 step over DIST_SEL
+    against ``Client.local_update`` + ``aggregate``, each step's update
+    on the selected rows against its reference's (``dist_update_check``,
+    at DIST_LR, where most of the rows' bf16 elements move); launches and
+    the collectives (counted by the step and seen by the profiler) against
+    each step's structure, ms/step beside the single-host step, peak
+    memory; (b) full-width Mamba2-370M (4 × 512): the τ = 1 step, held the
+    same way, ``ssd_scan`` counted; (c) a reduced f32 TinyLlama step
+    against the CPU's (gloo, world 1, a child process); (d) mesh serving:
+    a 4 × 1024 prefill against ``Model.logits_seq``, 32 greedy decode
+    steps against ``Model.decode_step``; then (e) the train CLI under
+    ``torch.distributed.run`` for CLI_ROUNDS rounds."""
+    import json as _json
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.core.client import Client
+    from repro_torch.core import aggregation as agg
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import (COLLECTIVES, make_fl_train_step,
+                                              make_fl_train_step_tau,
+                                              reset_collectives)
+    from repro_torch.sharding.serve import make_prefill_step, make_serve_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out, paths = {}, {}
+    try:
+        mesh = make_host_mesh(1, 1)
+        check(dist.get_backend() == "nccl", "[dist] the world is not NCCL")
+        log(f"[dist] world of {dist.get_world_size()} on "
+            f"{dist.get_backend()}, mesh {mesh.shape} on {mesh.device}")
+        gen = torch.Generator(device="cuda")
+
+        def run_step(tag, model, step, local, batch, masks, sizes, want_c,
+                     want_l, ref, old, rows, lr=DIST_LR, ref_fn=None):
+            """Profile one step (collectives, launches), time it against
+            ``ref_fn`` and hold its params against ``ref``: within
+            ROUND_PARAM_ATOL, the update on the selected ``rows`` of
+            ``blocks`` against ``ref``'s from ``old``, every other row
+            and group bit-unchanged."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_collectives()
+            ops.reset_launches()
+            (new, metrics), seen, nccl_ms, busy, host = dist_profiled(
+                lambda: step(local, batch, masks, sizes, lr))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launches, counted = dict(ops.LAUNCHES), dict(COLLECTIVES)
+            loss = float(metrics["loss"])
+            check(math.isfinite(loss), f"[dist] {tag}: loss {loss}")
+            check(counted == want_c and seen == want_c,
+                  f"[dist] {tag}: collectives counted {counted}, seen by "
+                  f"the profiler {seen}, structure {want_c}")
+            bad = {k: (launches[k], v) for k, v in want_l.items()
+                   if launches[k] != v}
+            check(not bad, f"[dist] {tag}: launches (got, want) {bad}")
+            ms = dist_time_ms(lambda: step(local, batch, masks, sizes, lr))
+            res = {"loss": loss, "ms": ms, "peak_gb": peak, "lr": lr,
+                   "collectives": counted, "nccl_device_ms": nccl_ms,
+                   "busy_ms_profiled": busy, "launches": launches,
+                   "param_err": _tree_max_diff(new, ref),
+                   **dist_update_check(new, old, ref, rows)}
+            log(f"[dist] {tag}: lr {lr:g}; params off the reference "
+                f"{res['param_err']:.3e} (limit {ROUND_PARAM_ATOL:g}); rows "
+                f"{rows}: {res['moved_frac']:.4f} of the elements moved "
+                f"(limit {DIST_MIN_MOVED:g}), by up to "
+                f"{res['moved_max']:.3e}; update off the reference's "
+                f"{res['update_rel']:.3e} (limit {DIST_UPDATE_RTOL:g}); the "
+                f"other rows and groups bit-unchanged: "
+                f"{res['rest_unchanged']}   [{card}]")
+            check(res["param_err"] <= ROUND_PARAM_ATOL,
+                  f"[dist] {tag}: params {res['param_err']:.3e} off the "
+                  f"reference (limit {ROUND_PARAM_ATOL})")
+            check(res["moved_frac"] >= DIST_MIN_MOVED
+                  and res["update_rel"] <= DIST_UPDATE_RTOL
+                  and res["rest_unchanged"],
+                  f"[dist] {tag}: the update is not the reference's: "
+                  f"moved {res['moved_frac']:.4f}, off it "
+                  f"{res['update_rel']:.3e}, the rest unchanged "
+                  f"{res['rest_unchanged']}")
+            if ref_fn is not None:
+                torch.cuda.reset_peak_memory_stats()
+                res["single_host_ms"] = dist_time_ms(ref_fn)
+                res["single_host_peak_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+            log(f"[dist] {tag}: loss {loss:.4f}; {ms:.2f} ms/step "
+                f"(single-host {res.get('single_host_ms', float('nan')):.2f}), peak "
+                f"{peak:.2f} GB; collectives {counted} (profiler "
+                f"{seen}; NCCL device {nccl_ms:.3f} ms; busy {busy:.2f} ms "
+                f"profiled); launches "
+                f"{({k: v for k, v in launches.items() if v})}   [{card}]")
+            log(f"[dist] {tag}: most host time in the profiled step (self "
+                f"ms, op, calls): "
+                f"{[(round(t, 2), k[:40], n) for t, k, n in host]}")
+            res["host_top"] = [[t, k, n] for t, k, n in host]
+            return new, res
+
+        # (a) full-width TinyLlama-1.1B
+        cfg = get_arch("tinyllama_1_1b")
+        rt = RuntimeConfig(remat=False, seq_chunk=LONG_SEQ)
+        model = Model(cfg, rt)
+        params = model.init(0)
+        L = model.n_selectable
+        gen.manual_seed(23)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 4, LONG_SEQ),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        mask_np = np.zeros((1, L), np.float32)
+        mask_np[0, list(DIST_SEL)] = 1.0
+        masks = torch.from_numpy(mask_np).cuda()
+        sizes = torch.tensor([7.0], device="cuda")
+        step, specs = make_fl_train_step(model, mesh)(params)
+        local = rules.shard_tree(params, specs, mesh)
+        batch = {"tokens": tokens}
+        one = {"tokens": tokens[0]}
+        ref = single_host_step(model, params, one, masks, sizes, DIST_LR)
+        flash = {"flash_attention": L, "flash_attention_bwd": L,
+                 "masked_update": 0, "layer_grad_norm": 0, "ssd_scan": 0}
+        plain, out["tinyllama_step"] = run_step(
+            "TinyLlama-1.1B τ = 1", model, step, local, batch, masks, sizes,
+            dist_collectives_want(model, specs), flash, ref, params,
+            DIST_SEL, ref_fn=lambda: single_host_step(
+                model, params, one, masks, sizes, DIST_LR))
+        paths["distributed_tinyllama_step"] = out["tinyllama_step"]["launches"]
+        del ref
+        sel_model = Model(cfg, dataclasses.replace(rt, sel_upload=True))
+        sel_step, _ = make_fl_train_step(sel_model, mesh,
+                                         sel_idx=DIST_SEL)(params)
+        sel_new, out["tinyllama_sel_upload"] = run_step(
+            f"TinyLlama-1.1B τ = 1, sel_upload over rows {DIST_SEL}",
+            sel_model, sel_step, local, batch, masks, sizes,
+            dist_collectives_want(model, specs, sel_upload=True), flash,
+            plain, params, DIST_SEL)
+        out["tinyllama_sel_upload"]["vs_plain"] = \
+            out["tinyllama_sel_upload"]["param_err"]
+        paths["distributed_tinyllama_sel_upload"] = \
+            out["tinyllama_sel_upload"]["launches"]
+        del sel_new, plain
+        gen.manual_seed(24)
+        tau_tokens = torch.randint(0, cfg.vocab_size,
+                                   (1, DIST_TAU, 4, LONG_SEQ), device="cuda",
+                                   generator=gen, dtype=torch.int32)
+        client = Client(model)
+
+        def tau_ref():
+            delta, _ = client.local_update(params, {"tokens": tau_tokens[0]},
+                                           mask_np[0], DIST_LR)
+            return agg.apply_update(params, agg.aggregate(
+                [delta], masks, sizes, cfg), DIST_LR)
+        tau_step, _ = make_fl_train_step_tau(
+            model, mesh, sel_idx=DIST_SEL, tau=DIST_TAU)(params)
+        n_leaves = len(params["blocks"])
+        _, out["tinyllama_tau2"] = run_step(
+            f"TinyLlama-1.1B τ = {DIST_TAU} over rows {DIST_SEL}", model,
+            tau_step, local, {"tokens": tau_tokens}, masks, sizes,
+            dist_collectives_want(model, specs, tau=DIST_TAU, sel=DIST_SEL),
+            {"flash_attention": DIST_TAU * L,
+             "flash_attention_bwd": DIST_TAU * (L - min(DIST_SEL)),
+             "masked_update": DIST_TAU * n_leaves, "layer_grad_norm": 0},
+            tau_ref(), params, DIST_SEL, ref_fn=tau_ref)
+        paths["distributed_tinyllama_tau2"] = out["tinyllama_tau2"]["launches"]
+
+        # (d) mesh serving on the same params
+        prefill, _ = make_prefill_step(model, mesh)(params, batch)
+        ops.reset_launches()
+        got = prefill(local, one)
+        torch.cuda.synchronize()
+        paths["distributed_prefill"] = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            want = model.logits_seq(params, one)
+        err = (got.float() - want.float()).abs().max().item()
+        pre_ms = dist_time_ms(lambda: prefill(local, one))
+        with torch.no_grad():
+            plain_ms = dist_time_ms(lambda: model.logits_seq(params, one))
+        out["prefill"] = {"max_abs_err": err, "ms": pre_ms,
+                          "model_ms": plain_ms,
+                          "launches": paths["distributed_prefill"]}
+        log(f"[dist] prefill 4 × {LONG_SEQ}: last-position logits against "
+            f"Model.logits_seq {err:.3e}; {pre_ms:.2f} ms (Model alone "
+            f"{plain_ms:.2f}); flash "
+            f"{paths['distributed_prefill']['flash_attention']}"
+            f"   [{card}]")
+        check(err <= TOL["bfloat16"]
+              and paths["distributed_prefill"]["flash_attention"] == L,
+              "[dist] the mesh prefill's logits differ from Model.logits_seq")
+        dd = DIST_DECODE
+        gen.manual_seed(25)
+        prompt = torch.randint(0, cfg.vocab_size, (dd["batch"], dd["prompt"]),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        total = dd["prompt"] + dd["steps"]
+        serve, _ = make_serve_step(model, mesh)(
+            params, model.init_cache(dd["batch"], total), dd["batch"])
+
+        def greedy(step_fn):
+            cache = model.init_cache(dd["batch"], total)
+            tok, toks = prompt[:, 0], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(total - 1):
+                nxt, cache = step_fn(tok, torch.tensor(t, dtype=torch.int32,
+                                                       device="cuda"), cache)
+                tok = prompt[:, t + 1] if t + 1 < dd["prompt"] else nxt
+                if t + 1 >= dd["prompt"]:
+                    toks.append(nxt)
+            torch.cuda.synchronize()
+            return (torch.stack(toks, 1),
+                    (time.perf_counter() - t0) * 1e3 / (total - 1))
+
+        def mesh_step(tok, pos, cache):
+            nxt, _, cache = serve(local, tok, pos, cache)
+            return nxt, cache
+
+        def model_step(tok, pos, cache):
+            logits, cache = model.decode_step(params, tok, pos, cache)
+            return logits.argmax(-1).to(torch.int32), cache
+        ops.reset_launches()
+        mesh_toks, mesh_ms = greedy(mesh_step)
+        paths["distributed_decode"] = dict(ops.LAUNCHES)
+        model_toks, model_ms = greedy(model_step)
+        same = bool(torch.equal(mesh_toks, model_toks))
+        out["decode"] = {"same_tokens": same, "ms_per_step": mesh_ms,
+                         "model_ms_per_step": model_ms}
+        log(f"[dist] {dd['steps']} greedy decode steps (batch {dd['batch']}, "
+            f"prompt {dd['prompt']} fed a token a step): the same tokens as "
+            f"Model.decode_step: {same}; {mesh_ms:.2f} ms/step (Model alone "
+            f"{model_ms:.2f})   [{card}]")
+        check(same, "[dist] the mesh decode's tokens differ from "
+                    "Model.decode_step's")
+        del params, local, prefill, serve, step, sel_step, tau_step, client
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) full-width Mamba2-370M
+        cfg = get_arch("mamba2_370m")
+        model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=SSM_SEQ))
+        params = model.init(0)
+        L = model.n_selectable
+        gen.manual_seed(26)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 4, SSM_SEQ),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        mask_np = np.zeros((1, L), np.float32)
+        mask_np[0, list(DIST_SSM_SEL)] = 1.0
+        masks = torch.from_numpy(mask_np).cuda()
+        step, specs = make_fl_train_step(model, mesh)(params)
+        local = rules.shard_tree(params, specs, mesh)
+        one = {"tokens": tokens[0]}
+        _, out["mamba2_step"] = run_step(
+            "Mamba2-370M τ = 1", model, step, local, {"tokens": tokens},
+            masks, sizes, dist_collectives_want(model, specs),
+            {"ssd_scan": L, "ssd_scan_mma": L, "masked_update": 0,
+             "layer_grad_norm": 0, "flash_attention": 0},
+            single_host_step(model, params, one, masks, sizes, DIST_SSM_LR),
+            params, DIST_SSM_SEL, lr=DIST_SSM_LR,
+            ref_fn=lambda: single_host_step(model, params, one, masks, sizes,
+                                            DIST_SSM_LR))
+        paths["distributed_mamba2_step"] = out["mamba2_step"]["launches"]
+        del params, local, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) reduced f32: the card against the CPU (gloo, a child process)
+        ops.reset_launches()
+        card_new = dist_reduced_step("cuda")
+        paths["distributed_reduced_f32"] = dict(ops.LAUNCHES)
+        check(paths["distributed_reduced_f32"]["flash_attention_simt"] > 0,
+              f"[dist] the reduced card step took no kernel: "
+              f"{paths['distributed_reduced_f32']}")
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cpu_step.npz")
+        rc, text = run_child([sys.executable, os.path.abspath(__file__),
+                              "--dist-cpu-step", path], timeout=300)
+        check(rc == 0, f"[dist] the CPU step failed:\n{text[-3000:]}")
+        cpu = dict(np.load(path))
+    from repro_torch.tree import tree_items
+    errs = [float(np.abs(v - cpu["/".join(path)]).max())
+            for path, v in tree_items(card_new)]
+    out["reduced_card_vs_cpu"] = max(errs)
+    log(f"[dist] reduced f32 TinyLlama step (3 layers, d 64): card (NCCL) "
+        f"against CPU (gloo) {max(errs):.3e} (limit {DIST_CPU_TOL:g})"
+        f"   [{card}]")
+    check(max(errs) <= DIST_CPU_TOL, "[dist] the card's reduced step differs "
+                                     "from the CPU's")
+
+    # (e) the CLI, its own world under torch.distributed.run
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    rc, text = run_child([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node", "1", "-m",
+                          "repro_torch.launch.train", "--rounds",
+                          str(CLI_ROUNDS)], timeout=300, env=env)
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"[dist] the train CLI failed:\n{text[-3000:]}")
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in text.splitlines() if line.startswith("[round ")]
+    launched = [line for line in text.splitlines()
+                if line.startswith("[launches] ")]
+    check(len(losses) == CLI_ROUNDS and all(map(math.isfinite, losses))
+          and len(launched) == 1, f"[dist] the CLI's output:\n{text[-3000:]}")
+    cli = {k: 0 for k in ops.LAUNCHES}
+    cli.update(_json.loads(launched[0][len("[launches] "):]))
+    paths["distributed_cli"] = cli
+    check(cli["layer_grad_norm"] > 0, f"[dist] the CLI's probe took no "
+                                      f"layer_grad_norm launch: {cli}")
+    out["cli"] = {"losses": losses, "s": cli_s, "launches": cli}
+    log(f"[dist] train CLI, {CLI_ROUNDS} rounds under torch.distributed.run "
+        f"(reduced, world 1): losses {losses}, {cli_s:.1f} s with its "
+        f"launcher; launches {({k: v for k, v in cli.items() if v})}"
+        f"   [{card}]")
+    out["paths"] = paths
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] phase {out['phase_s']:.1f} s   [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -5203,7 +5770,11 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-serve-long", action="store_true",
                     help="only the measured DeepSeek-V2-Lite-16B serving "
                          "run (phase_moe_serve_long)")
+    ap.add_argument("--dist-cpu-step", metavar="NPZ",
+                    help=argparse.SUPPRESS)   # phase_distributed's CPU side
     args = ap.parse_args(argv)
+    if args.dist_cpu_step:
+        return dist_cpu_step(args.dist_cpu_step)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5283,6 +5854,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         thr = phase_theory(card)
         con = phase_contracts(card)
+        # slice 13: the distributed round and mesh serving (NCCL, world 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dst = phase_distributed(card)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -5295,10 +5870,12 @@ def main(argv=None) -> int:
     # the whisper paths: the probe, the update at "ours"' cut, and the
     # masked and dense updates at each of AUDIO_CUTS
     audio_paths = aur["launches"]
-    # the theory phase, the strict rounds and the full-width audit
-    slice12_paths = {"tinyllama_theory": thr["launches"],
+    # slice 12: the theory phase, the strict rounds and the full-width audit
+    later_paths = {"tinyllama_theory": thr["launches"],
                      "tinyllama_strict": con["strict_launches"],
-                     "audit_full_width": con["audit_launches"]}
+                     "audit_full_width": con["audit_launches"],
+                     # slice 13: the distributed steps, mesh serving, the CLI
+                     **dst["paths"]}
     delta_paths = {"serve": served["delta"]["launches"],
                    **{p: l["base_delta_matmul"]
                       for p, l in fault_paths.items()},
@@ -5307,7 +5884,7 @@ def main(argv=None) -> int:
                    **{p: l["base_delta_matmul"]
                       for p, l in audio_paths.items()},
                    **{p: l["base_delta_matmul"]
-                      for p, l in slice12_paths.items()}}
+                      for p, l in later_paths.items()}}
     line = {"kernels": [{
         "name": "base_delta_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_matmul.cu",
@@ -5353,7 +5930,7 @@ def main(argv=None) -> int:
                    **{p: l[name] for p, l in fault_paths.items()},
                    **{p: l[name] for p, l in moe_paths.items()},
                    **{p: l[name] for p, l in audio_paths.items()},
-                   **{p: l[name] for p, l in slice12_paths.items()}}
+                   **{p: l[name] for p, l in later_paths.items()}}
         extra = {"deepseek_v2_lite_16b": {
             **mok[name]["total"], "shapes": mok[name]["rows"],
             "timed_as": f"sum over DeepSeek-V2-Lite's 23 leaves: dense0's "
@@ -5397,7 +5974,7 @@ def main(argv=None) -> int:
                  "mamba2_top_round": ssm_rounds["top_launches"],
                  "mamba2_pipeline": pipe["mamba2_370m"]["launches"],
                  **fault_paths, "zamba2_round": hyr["launches"],
-                 **moe_paths, **audio_paths, **slice12_paths}
+                 **moe_paths, **audio_paths, **later_paths}
     line["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -5423,7 +6000,7 @@ def main(argv=None) -> int:
                    "tinyllama_pretrain": pre["launches"],
                    "tinyllama_checkpoint_resume": ckp["launches"],
                    **fault_paths, "zamba2_round": hyr["launches"],
-                   **moe_paths, **audio_paths, **slice12_paths}
+                   **moe_paths, **audio_paths, **later_paths}
     flash_shapes = [{k: v for k, v in c.items()}
                     for c in flash["cases"] + hyk["flash"] + auk["flash"]]
     whisper_flash = {c["case"]: c for c in auk["flash"]}

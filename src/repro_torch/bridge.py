@@ -6,6 +6,11 @@ same paths, the same stacked ``(L, …)`` leaves and the same key order, so a
 tree crosses as numpy arrays leaf by leaf.  numpy has no native bfloat16:
 bf16 crosses as float32 (every bf16 value is exact in float32) and is cast
 back on the torch side, so the round trip is exact.
+
+On a mesh (``sharding/``), :func:`params_to_local` turns a full tree into
+this rank's storage shards (sliced on the host, so the full tree never
+reaches the device) and :func:`gather_params` joins the shards back into
+the full tree on every rank (a collective: every rank calls it).
 """
 from __future__ import annotations
 
@@ -49,3 +54,30 @@ def params_to_numpy(params: dict) -> dict:
             t = t.to(torch.float32)
         return t.numpy()
     return to_numpy_tree(params)
+
+
+def params_to_local(tree: dict, specs: dict, mesh, dtype=None) -> dict:
+    """numpy (or array-like) full leaves → this rank's shards on
+    ``mesh.device`` by ``specs`` (``sharding.rules.params_pytree_specs``):
+    the slice along the spec's client-axis dim, or the whole leaf when it
+    is replicated."""
+    from repro_torch.sharding import rules
+
+    def to_local(node, spec):
+        if isinstance(node, dict):
+            return {k: to_local(v, spec[k]) for k, v in node.items()}
+        arr = np.asarray(node)
+        dim, axes = rules.shard_dim(spec)
+        if dim is not None:
+            size = arr.shape[dim] // mesh.size(axes)
+            start = mesh.index(axes) * size
+            arr = arr[(slice(None),) * dim + (slice(start, start + size),)]
+        return _leaf_to_torch(arr, mesh.device, dtype)
+    return to_local(tree, specs)
+
+
+def gather_params(local: dict, specs: dict, mesh) -> dict:
+    """This rank's shards → the full tree, on every rank of the mesh."""
+    from repro_torch.sharding.fl_step import gather_tree
+    with torch.no_grad():
+        return gather_tree(local, specs, mesh)

@@ -1,7 +1,8 @@
 """Configuration for the PyTorch port (counterpart of ``repro/configs/base.py``).
 
 A data-only copy of the reference's :class:`ArchConfig`, :func:`reduced`,
-:class:`FLConfig`, :class:`RuntimeConfig` and the architecture registry; ``get_arch`` loads
+:class:`ShapeConfig` with ``INPUT_SHAPES``, :class:`FLConfig`, :class:`RuntimeConfig`
+and the architecture registry; ``get_arch`` loads
 ``repro_torch.configs.<id>``.  The port never imports ``repro``, so it keeps
 its own copy.  ``RuntimeConfig.use_pallas`` is carried over with the rest of
 the fields but the port never reads it: kernel choice follows the tensor's
@@ -173,6 +174,31 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 256,
     if cfg.task == "classification":
         changes.update(n_classes=cfg.n_classes)
     return replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def lowers(self) -> str:
+        return {"train": "train_step", "prefill": "prefill_step",
+                "decode": "serve_step"}[self.kind]
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,9 @@ The rng helpers pack ``np.random.RandomState`` (MT19937) state to arrays
 and back, so every host stream — the server's cohort rng and each touched
 client's data stream — rides the same npz checkpoint as the params.
 
-``warm_rows_device`` (rows placed on a mesh) waits for the distributed
-port (ROADMAP.md).
+``warm_rows_device`` places the cohort's warm rows on the card, or on a
+mesh (this rank's rows, ``sharding/fl_step.py::shard_cohort_rows``);
+it is the one place this module touches ``torch``, imported there.
 """
 from __future__ import annotations
 
@@ -185,6 +186,22 @@ class ClientStateStore:
         self._warm_valid[ids] = True
         if t is not None:
             self.last_seen[ids] = t
+
+    def warm_rows_device(self, cohort, mesh=None, *, device="cuda"):
+        """The cohort's warm rows as a device tensor, and the host valid
+        flags (ref ``warm_rows_device``).  With ``mesh``, this rank's rows:
+        the cohort axis split over the client axes (one row per client
+        coordinate), or whole when it does not divide; ``mesh=None`` puts
+        every row on ``device``.  Values are the host gather's, bit for
+        bit."""
+        import torch
+
+        from repro_torch import resolve_device
+        rows, valid = self.warm_rows(cohort)
+        if mesh is None:
+            return torch.from_numpy(rows).to(resolve_device(device)), valid
+        from repro_torch.sharding.fl_step import shard_cohort_rows
+        return shard_cohort_rows(mesh, torch.from_numpy(rows)), valid
 
     # -- probe-stat cache ------------------------------------------------
     def clear_stats(self) -> None:

@@ -5,8 +5,11 @@ For every family of the reference, ``dense``, ``vlm``, ``ssm`` (Mamba2),
 (whisper): the layer layout and the mask helpers of the mask-aware engine
 (``segment_prefix_cuts``, ``trainable_rows``, ``split_mask``,
 ``apply_layer_mask``), parameter init, the sequence forward and losses of
-training (:meth:`Model.forward_seq`, :meth:`Model.loss`), the KV or
-conv/state cache and :meth:`Model.decode_step`.
+training (:meth:`Model.forward_seq`, :meth:`Model.loss`), the prefill's
+:meth:`Model.logits_seq`, the KV or conv/state cache and
+:meth:`Model.decode_step`; each takes a ``layer_hook`` over the stacked
+rows, through which the distributed step (``sharding/``) gathers and
+grad-scales one layer at a time.
 
 The hybrid is a Mamba2 stack with ONE attention+MLP block whose weights
 are shared, applied after every ``attn_every`` Mamba2 blocks; its leaves in
@@ -346,6 +349,27 @@ def _moe_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     return x + out, stats.aux_loss
 
 
+# Stacked segments whose rows pass through a ``layer_hook`` (the
+# reference's ``forward_seq`` hooks its ``blocks`` and ``enc_blocks`` scans,
+# not deepseek's ``dense0``): the distributed step gathers and grad-scales
+# each of their rows there (``sharding/fl_step.py``).
+HOOKED_SEGMENTS = ("blocks", "enc_blocks")
+
+
+def _no_hook(p: dict, idx: int, segment: str) -> dict:
+    return p
+
+
+def _hooked(layer_fn, hook, idx: int, segment: str):
+    """``layer_fn`` with its row's params passed through
+    ``hook(row_params, idx, segment)`` first, so that under
+    ``runtime.remat`` the hook runs inside the checkpointed function: a
+    gathered row is recomputed in the backward, never saved for it."""
+    def fn(carry, p):
+        return layer_fn(carry, hook(p, idx, segment))
+    return fn
+
+
 def _rows(stack: dict) -> dict:
     """Per-layer views of a stacked segment, one ``unbind`` per leaf (its
     backward writes each leaf's gradient once, where indexing row by row
@@ -402,13 +426,16 @@ class Model:
 
     # -- sequence forward (train / prefill) ---------------------------------
     def _run_stack(self, layer_fn, x, full: dict, trainable: Optional[dict],
-                   cut: int, after_row=None):
+                   cut: int, after_row=None, hook=_no_hook,
+                   segment: str = ""):
         """Apply ``layer_fn(x, layer_params)`` over a stacked segment, split at
         the frozen-prefix ``cut``; ``x`` is the carry, (hidden, aux loss).
 
         Dense path (``trainable is None``): every row from ``full``, each
         followed by ``after_row(i, x)`` when given (the hybrid's shared
-        block).
+        block); row ``i``'s params are ``hook(row_params, i, segment)``
+        (the reference's ``layer_hook``), applied inside the
+        rematerialised function.
         Mask-aware path: rows ``[:cut]`` from ``full`` under
         ``torch.no_grad()`` (the reference's ``lax.stop_gradient``: no
         graph, no saved activations, no backward) and the rest from
@@ -419,11 +446,15 @@ class Model:
         if trainable is None:
             rows = _rows(full)
             for i in range(next(iter(full.values())).shape[0]):
-                x = self._remat(layer_fn, x,
-                                {n: r[i] for n, r in rows.items()})
+                fn = (layer_fn if hook is _no_hook
+                      else _hooked(layer_fn, hook, i, segment))
+                x = self._remat(fn, x, {n: r[i] for n, r in rows.items()})
                 if after_row is not None:
                     x = after_row(i, x)
             return x
+        if hook is not _no_hook:
+            raise ValueError("a layer_hook runs on the dense path only "
+                             "(no trainable slice)")
         if cut > 0:
             with torch.no_grad():
                 rows = _rows({n: a[:cut] for n, a in full.items()})
@@ -472,14 +503,15 @@ class Model:
         return after_row
 
     def encode(self, params: dict, frames: torch.Tensor, *,
-               trainable: Optional[dict] = None,
-               cut: int = 0) -> torch.Tensor:
+               trainable: Optional[dict] = None, cut: int = 0,
+               layer_hook=None) -> torch.Tensor:
         """whisper's encoder (the first half of the reference's
         ``_whisper_seq``): the stub frame embeddings (B, enc_seq, d) cast
         to ``frame_proj``'s type and projected, plus sinusoid positions;
         the ``enc_blocks`` rows (attention over all frames, no window)
         through :meth:`_run_stack`, split at ``cut`` when ``trainable`` (the
-        segment's trainable rows) is given; then ``enc_norm``.  Returns the
+        segment's trainable rows) is given, each row through ``layer_hook``
+        (segment ``"enc_blocks"``); then ``enc_norm``.  Returns the
         encoder's output (B, enc_seq, d), from which every decoder row
         builds its cross k/v (:func:`blocks.make_cross_kv`)."""
         cfg, rt = self.cfg, self.runtime
@@ -496,7 +528,8 @@ class Model:
                                     kernel_mode=self.kernel_mode), carry[1]
         zero = torch.zeros((), dtype=torch.float32, device=e.device)
         e, _ = self._run_stack(enc_row, (e, zero), params["enc_blocks"],
-                               trainable, cut)
+                               trainable, cut, hook=layer_hook or _no_hook,
+                               segment="enc_blocks")
         return B.rms_norm(e, params["enc_norm"], cfg.norm_eps)
 
     def _seq_segments(self, params: dict, positions: torch.Tensor,
@@ -551,8 +584,17 @@ class Model:
         return [("blocks", dense_row, None)]
 
     def hidden_seq(self, params: dict, batch: dict, *,
-                   trainable: Optional[dict] = None, cut: int = 0):
+                   trainable: Optional[dict] = None, cut: int = 0,
+                   layer_hook=None):
         """Full-sequence forward.  Returns (hidden, aux_loss, prefix_len).
+
+        ``layer_hook(row_params, idx, segment)`` (the reference's) is
+        applied to every row of the ``blocks`` and ``enc_blocks`` segments
+        (:data:`HOOKED_SEGMENTS`) before its block runs, inside the
+        rematerialised function under ``runtime.remat``: the distributed
+        step gathers each row's ZeRO-3 shards and applies the Eq.(7)
+        gradient scale there, so one layer's full weights exist at a time.
+        It runs on the dense path only (no ``trainable``).
 
         ``trainable``/``cut`` select the mask-aware path: each selectable
         segment is split at its own cut from :func:`segment_prefix_cuts`;
@@ -578,7 +620,7 @@ class Model:
                 params, batch["frames"],
                 trainable=(None if trainable is None
                            else trainable.get("enc_blocks", {})),
-                cut=cuts.get("enc_blocks", 0))
+                cut=cuts.get("enc_blocks", 0), layer_hook=layer_hook)
             x = self._embed_tokens(params, batch["tokens"])
         elif cfg.family == "vlm":
             proj = params["embed"]["patch_proj"]
@@ -599,7 +641,10 @@ class Model:
             carry = self._run_stack(
                 layer_fn, carry, params[path],
                 None if trainable is None else trainable.get(path, {}),
-                cuts.get(path, 0), after_row)
+                cuts.get(path, 0), after_row,
+                hook=(layer_hook or _no_hook) if path in HOOKED_SEGMENTS
+                else _no_hook,
+                segment=path)
         x, aux = carry
         return x, aux, prefix_len
 
@@ -607,13 +652,24 @@ class Model:
 
     # -- losses --------------------------------------------------------------
     def seq_loss(self, params: dict, batch: dict, *,
-                 trainable: Optional[dict] = None,
-                 cut: int = 0) -> torch.Tensor:
-        h, aux, prefix_len = self.hidden_seq(params, batch,
-                                             trainable=trainable, cut=cut)
+                 trainable: Optional[dict] = None, cut: int = 0,
+                 layer_hook=None) -> torch.Tensor:
+        h, aux, prefix_len = self.hidden_seq(
+            params, batch, trainable=trainable, cut=cut,
+            layer_hook=layer_hook)
         return self.loss_from_hidden(params, h, aux, prefix_len, batch)
 
     loss = seq_loss
+
+    def logits_seq(self, params: dict, batch: dict, *,
+                   layer_hook=None) -> torch.Tensor:
+        """Full-sequence logits at the last position, or of the pooled
+        hidden state for a classifier (ref ``Model.logits_seq``; the mesh
+        prefill calls it with its gathering ``layer_hook``)."""
+        h, _, _ = self.hidden_seq(params, batch, layer_hook=layer_hook)
+        if self.cfg.task == "classification":
+            return self._head(params, h.mean(1)[:, None])[:, 0]
+        return self._head(params, h[:, -1:])[:, 0]
 
     def loss_from_hidden(self, params: dict, h: torch.Tensor,
                          aux: torch.Tensor, prefix_len: int,
@@ -733,7 +789,8 @@ class Model:
 
     def _mamba_stack_decode(self, params: dict, x: torch.Tensor,
                             positions: torch.Tensor, pos: torch.Tensor,
-                            cache: dict, window: int) -> torch.Tensor:
+                            cache: dict, window: int,
+                            hook=_no_hook) -> torch.Tensor:
         """One decode step through the Mamba2 rows (ssm and hybrid), their
         conv and state rows updated in place.  The hybrid (ref
         ``Model._zamba_decode``) runs the shared block after every
@@ -745,8 +802,8 @@ class Model:
         for li in range(cfg.n_layers):
             c = {name: leaf[li] for name, leaf in mc.items()}
             out, nc = SSD.mamba2_fwd(
-                _take({name: leaf[li] for name, leaf in blocks.items()},
-                      "ssm_"), x, cfg, cache=c)
+                _take(hook({name: leaf[li] for name, leaf in blocks.items()},
+                           li, "blocks"), "ssm_"), x, cfg, cache=c)
             for name, t in nc.items():
                 c[name].copy_(t)
             x = x + out
@@ -762,7 +819,8 @@ class Model:
 
     def _moe_stack_decode(self, params: dict, x: torch.Tensor,
                           positions: torch.Tensor, pos: torch.Tensor,
-                          cache: dict, window: int) -> torch.Tensor:
+                          cache: dict, window: int,
+                          hook=_no_hook) -> torch.Tensor:
         """One decode step through ``dense0`` and then the moe ``blocks``,
         each row over its own cache row (MLA's latent rows or GQA's k/v),
         written in place.  The step's B tokens share the routers'
@@ -775,6 +833,8 @@ class Model:
             stack, seg_cache = params[seg.path], cache[seg.path]
             for li in range(seg.count):
                 p = {name: leaf[li] for name, leaf in stack.items()}
+                if seg.path in HOOKED_SEGMENTS:
+                    p = hook(p, li, seg.path)
                 c = {name: leaf[li] for name, leaf in seg_cache.items()}
                 if seg.path == "dense0":
                     x = _moe_dense0_fwd(p, x, cfg, cache=c, **attn)
@@ -787,7 +847,7 @@ class Model:
     @torch.inference_mode()
     def decode_step(self, params: dict, tokens: torch.Tensor,
                     pos: torch.Tensor, cache: dict, *, window: int = 0,
-                    delta: Optional[dict] = None):
+                    delta: Optional[dict] = None, layer_hook=None):
         """One decode step. tokens: (B,) int; pos: 0-d int32, or a (B,)
         per-slot position vector over a ``per_slot`` cache.
 
@@ -797,6 +857,10 @@ class Model:
         whisper: each decoder row's self-attention over its KV row, then
         its cross-attention over ``cache["cross_kv"]`` row ``li``, which
         the caller has filled from the encoder; one shared position only.
+
+        ``layer_hook(row_params, idx, "blocks")`` is applied to every
+        ``blocks`` row before it runs (the mesh serve step gathers the
+        row's ZeRO-3 shards there).
 
         Returns (logits (B, V), cache) — the cache updated in place.
         """
@@ -818,16 +882,20 @@ class Model:
             x = params["embed"]["tok"][tokens[:, None].long()] + sp.to(x.dtype)
         positions = (pos[:, None] if per_slot else pos[None]).to(torch.int32)
         w = window or cfg.sliding_window
+        hook = layer_hook or _no_hook
         if cfg.family in ("ssm", "hybrid"):
-            x = self._mamba_stack_decode(params, x, positions, pos, cache, w)
+            x = self._mamba_stack_decode(params, x, positions, pos, cache, w,
+                                         hook)
             return self._head(params, x)[:, 0], cache
         if cfg.family == "moe":
-            x = self._moe_stack_decode(params, x, positions, pos, cache, w)
+            x = self._moe_stack_decode(params, x, positions, pos, cache, w,
+                                       hook)
             return self._head(params, x)[:, 0], cache
         blocks, kv = params["blocks"], cache["blocks"]
         xkv = cache.get("cross_kv")
         for li in range(cfg.n_layers):
-            p = {name: leaf[li] for name, leaf in blocks.items()}
+            p = hook({name: leaf[li] for name, leaf in blocks.items()}, li,
+                     "blocks")
             kv_l = {name: leaf[li] for name, leaf in kv.items()}
             dl = None
             if delta is not None:

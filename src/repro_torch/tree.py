@@ -22,3 +22,19 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_items(tree, path=()) -> list:
+    """(path, leaf) pairs in the tree's own key order; a path is the
+    tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_items(v, path + (k,))]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` leaf by leaf, same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)

@@ -1,0 +1,245 @@
+"""Multi-process gloo worlds for the distributed port's tests.
+
+:func:`run_world` starts ``n`` processes of this file (``torch`` and the
+port only: no JAX in a child), joined through a file store in a
+temporary directory; each runs the same list of cases on its rank of a
+mesh and writes its results there.  The parent waits at most
+``timeout`` seconds and kills the world rather than hang.
+
+A case is a dict with ``kind`` (a key of :data:`CASES`) and its inputs as
+numpy arrays; a case function returns a dict of numpy arrays and numbers.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_world(n: int, mesh: dict, cases: list, timeout: float = 300.0):
+    """Run ``cases`` on a world of ``n`` gloo processes over ``mesh``
+    ({"data": …, "model": …[, "pod": …]}); returns each rank's results,
+    by rank."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "in.pkl"), "wb") as f:
+            pickle.dump({"mesh": mesh, "cases": cases}, f)
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                   PYTHONPATH=os.path.join(ROOT, "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), tmp, str(r), str(n)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(n)]
+        deadline = time.monotonic() + timeout
+        logs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+                logs.append(out)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.communicate()
+            raise AssertionError(f"the world of {n} did not finish in "
+                                 f"{timeout} s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        results = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"out_{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+# ---------------------------------------------------------------------------
+# The child side
+# ---------------------------------------------------------------------------
+
+def _model(case):
+    from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
+    from repro_torch.models.model import Model
+    cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 4),
+                  d_model=case.get("d_model", 64))
+    rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
+                       sel_upload=case.get("sel_upload", False))
+    return Model(cfg, rt, device="cpu")
+
+
+def _numpy_tree(tree):
+    from repro_torch.bridge import params_to_numpy
+    return params_to_numpy(tree)
+
+
+def _step_inputs(case, mesh):
+    import torch
+
+    from repro_torch.sharding.fl_step import shard_cohort_rows
+    batch = shard_cohort_rows(mesh, {k: torch.from_numpy(v)
+                                     for k, v in case["batch"].items()})
+    masks = shard_cohort_rows(mesh, torch.from_numpy(case["masks"]))
+    sizes = shard_cohort_rows(mesh, torch.from_numpy(case["sizes"]))
+    return batch, masks, sizes
+
+
+def _finish_step(new_local, metrics, specs, mesh):
+    """The step's results, its collectives counted before the gather of
+    the full tree adds its own."""
+    from repro_torch.bridge import gather_params
+    from repro_torch.sharding.fl_step import COLLECTIVES
+    collectives = dict(COLLECTIVES)
+    full = gather_params(new_local, specs, mesh)
+    return {"full": _numpy_tree(full), "local": _numpy_tree(new_local),
+            "loss": float(metrics["loss"]),
+            "union_frac": float(metrics["union_frac"]),
+            "collectives": collectives}
+
+
+def case_fl_step(case, mesh):
+    """One τ = 1 step (``make_fl_train_step``)."""
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding.fl_step import (make_fl_train_step,
+                                              reset_collectives)
+    model = _model(case)
+    build = make_fl_train_step(model, mesh, zero3=case["zero3"],
+                               sel_idx=case.get("sel_idx"))
+    step, specs = build(case["params"])
+    local = params_to_local(case["params"], specs, mesh)
+    batch, masks, sizes = _step_inputs(case, mesh)
+    reset_collectives()
+    new, metrics = step(local, batch, masks, sizes, case["lr"])
+    return _finish_step(new, metrics, specs, mesh)
+
+
+def case_fl_step_tau(case, mesh):
+    """One τ > 1 step (``make_fl_train_step_tau``)."""
+    from repro_torch.bridge import params_to_local
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.fl_step import (make_fl_train_step_tau,
+                                              reset_collectives)
+    model = _model(case)
+    build = make_fl_train_step_tau(model, mesh, sel_idx=case["sel_idx"],
+                                   tau=case["tau"], zero3=case["zero3"])
+    step, specs = build(case["params"])
+    local = params_to_local(case["params"], specs, mesh)
+    batch, masks, sizes = _step_inputs(case, mesh)
+    reset_collectives()
+    ops.reset_launches()
+    new, metrics = step(local, batch, masks, sizes, case["lr"])
+    out = _finish_step(new, metrics, specs, mesh)
+    out["launches"] = dict(ops.LAUNCHES)
+    return out
+
+
+def case_store_rows(case, mesh):
+    """The store's warm rows (``warm_rows_device`` on the mesh) drive the
+    step exactly as the same masks given as plain host rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.core.state import ClientStateStore
+    from repro_torch.sharding.fl_step import make_fl_train_step
+    model = _model(case)
+    store = ClientStateStore(100_000, case["masks"].shape[1])
+    cohort = np.asarray(case["cohort"])
+    store.set_warm_rows(cohort, case["masks"], t=0)
+    rows, valid = store.warm_rows_device(cohort, mesh)
+    step, specs = make_fl_train_step(model, mesh, zero3=True)(case["params"])
+    local = params_to_local(case["params"], specs, mesh)
+    batch, masks, sizes = _step_inputs(case, mesh)
+    new_a, _ = step(local, batch, rows, sizes, case["lr"])
+    new_b, _ = step(local, batch, masks, sizes, case["lr"])
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        _leaves(new_a), _leaves(new_b)))
+    return {"rows": rows.numpy(), "valid": valid, "err": err,
+            "rows_equal": bool(torch.equal(rows, masks))}
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def case_prefill(case, mesh):
+    """Mesh prefill: this rank's rows of the batch, their logits."""
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.serve import batch_spec, make_prefill_step
+    model = _model(case)
+    tokens = torch.from_numpy(case["tokens"])
+    prefill, specs = make_prefill_step(model, mesh, zero3=case["zero3"])(
+        case["params"], {"tokens": tokens})
+    local = params_to_local(case["params"], specs, mesh)
+    b_spec = batch_spec(model, mesh, tokens.shape[0])
+    mine = rules.local_shard(tokens, b_spec, mesh)
+    return {"logits": prefill(local, {"tokens": mine}).numpy(),
+            "rows": rules.local_shard(torch.arange(tokens.shape[0]), b_spec,
+                                      mesh).numpy()}
+
+
+def case_decode(case, mesh):
+    """Greedy decode through the mesh serve step, from a prompt fed one
+    token a step: this rank's rows' tokens and last logits."""
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.serve import batch_spec, make_serve_step
+    model = _model(case)
+    prompt = torch.from_numpy(case["prompt"])              # (B, P)
+    B, P = prompt.shape
+    steps = case["steps"]
+    cache = model.init_cache(B, P + steps)
+    serve, (specs, c_specs) = make_serve_step(
+        model, mesh, zero3=case["zero3"])(case["params"], cache, B)
+    local = params_to_local(case["params"], specs, mesh)
+    cache = rules.shard_tree(cache, c_specs, mesh)
+    b_spec = batch_spec(model, mesh, B)
+    prompt = rules.local_shard(prompt, b_spec, mesh)
+    out, tok = [], prompt[:, 0]
+    for t in range(P + steps - 1):
+        pos = torch.tensor(t, dtype=torch.int32)
+        nxt, logits, cache = serve(local, tok, pos, cache)
+        tok = prompt[:, t + 1] if t + 1 < P else nxt
+        if t + 1 >= P:
+            out.append(nxt)
+    return {"tokens": torch.stack(out, 1).numpy(), "logits": logits.numpy(),
+            "rows": rules.local_shard(torch.arange(B), b_spec, mesh).numpy()}
+
+
+CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
+         "store_rows": case_store_rows, "prefill": case_prefill,
+         "decode": case_decode}
+
+
+def _child(tmp: str, rank: int, n: int) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_host_mesh
+    with open(os.path.join(tmp, "in.pkl"), "rb") as f:
+        job = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=n)
+    m = job["mesh"]
+    mesh = make_host_mesh(m["data"], m["model"], pod=m.get("pod", 0),
+                          device="cpu")
+    coords = {a: mesh.coord(a) for a in mesh.axis_names}
+    results = [dict(CASES[c["kind"]](c, mesh), coords=coords)
+               for c in job["cases"]]
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"out_{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+if __name__ == "__main__":
+    _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
