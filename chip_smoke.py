@@ -6,7 +6,9 @@
 Builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
 source, all at once), then, failing with a non-zero exit on any mismatch:
 
-1. prints the environment and the card's name and power limit;
+1. prints the environment and the card's name and power limit, and runs
+   the port's source linter over ``src/repro_torch`` (``phase_lint``: no
+   finding);
 2. holds ``ssd_scan`` against its plain version at Mamba2-370M's main-path
    shape (b 4, S 512, H 32, P 64, N 128, bf16), with a slowly decaying
    state, a single chunk, G = 4 and f32 inputs, checking each case's route
@@ -146,7 +148,11 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     run's summary; then the program auditor at full width (TinyLlama f32
     training at all 23 cuts, Mamba2-370M f32 at every sixth, TinyLlama bf16
     serving): no contract violation, the kernels' work reported to the
-    audit (FLOPs series, cut-L / cut-0, delta weight bytes per (B, C));
+    audit (FLOPs series, cut-L / cut-0, delta weight bytes per (B, C)), and
+    no budget failure against the committed card manifest
+    (``analysis/budgets/h100_full_width.json``: FLOPs, weight, argument
+    and temporary bytes, each kernel's launches; the largest drift per key
+    and config printed), which must name each of three doctored entries;
 24. runs ``phase_distributed``: a world of 1 on NCCL in this process (no
     fallback) and a (1, 1) mesh; through ``repro_torch.sharding`` at full
     TinyLlama-1.1B width (bf16, 4 × 1024 tokens, ZeRO-3 storage) the τ = 1
@@ -1125,7 +1131,8 @@ def ssd_inputs(b, s, h, p, g, n, dtype, gen, slow_decay=False):
 
 
 def phase_ssd_kernel(card: str, cases=None) -> dict:
-    """ssd_scan vs its plain version on the card: by default Mamba2-370M's
+    """ssd_scan vs its plain version (``ssd_scan_torch``, through
+    ``ops.ssd``'s torch mode) on the card: by default Mamba2-370M's
     main-path shape (at the model's init and with a slowly decaying
     state), a single chunk, G > 1 and f32 inputs; ``cases`` gives others as
     (name, shape, dtype, slow decay, on the main path).  Two launches must
@@ -5075,13 +5082,15 @@ def phase_contracts(card: str) -> dict:
     warm run's.  (b) The program auditor at full width on the card: the
     reference's three audit configs (TinyLlama f32 training, Mamba2-370M
     f32 training at every sixth cut, TinyLlama bf16 serving) at the specs'
-    cohort 2, τ 2, 2 × 16 tokens; ``check_all`` must find nothing, and the
-    kernels' work must reach the facts through the recorder."""
+    cohort 2, τ 2, 2 × 16 tokens; ``check_all`` must find nothing, the
+    kernels' work must reach the facts through the recorder, and
+    :func:`budget_gate` must pass against the committed card manifest."""
     import numpy as np
     import torch
     from repro_torch.analysis.contracts import FORWARD_ONLY_MAX_FRAC, check_all
-    from repro_torch.analysis.program import (audit_models, enumerate_specs,
-                                              run_audit)
+    from repro_torch.analysis.program import (H100_FULL_WIDTH_BUDGETS,
+                                              audit_models, enumerate_specs,
+                                              load_budgets, run_audit)
     from repro_torch.analysis.strict import strict_region
     from repro_torch.configs.base import get_arch
     from repro_torch.data.synthetic import (FederatedTaskConfig,
@@ -5199,6 +5208,7 @@ def phase_contracts(card: str) -> dict:
         "masked_update", "ssd_scan_simt")), f"[audit] the programs did not "
                                             f"go through the kernels: "
                                             f"{audit_launches}")
+    budget = budget_gate(facts, load_budgets(H100_FULL_WIDTH_BUDGETS), card)
     del specs, facts
     gc.collect()
     torch.cuda.empty_cache()
@@ -5208,7 +5218,87 @@ def phase_contracts(card: str) -> dict:
             "audit_launches": audit_launches, "audit_s": audit_s,
             "flops_series": series, "delta_weight_bytes": delta,
             "dense_weight_bytes": dense, "phase_s": phase_s,
-            "violations": len(violations), "programs": n_programs}
+            "violations": len(violations), "programs": n_programs,
+            **budget}
+
+
+def budget_gate(facts: dict, manifest, card: str) -> dict:
+    """``check_budgets`` of the full-width audit against the committed card
+    manifest must find nothing; one ``[budget]`` line per config with the
+    largest drift of each key and the largest temporary bytes (audited,
+    budget).  Then a copy with one program's FLOPs doubled, one program
+    removed and one flash launch count off by one must fail on exactly
+    those three."""
+    import copy
+    from repro_torch.analysis.program import (H100_FULL_WIDTH_BUDGETS,
+                                              budget_drifts, check_budgets)
+
+    check(manifest is not None, f"[budget] no manifest at "
+                                f"{H100_FULL_WIDTH_BUDGETS}")
+    log(f"[budget] manifest recorded on {manifest['_meta']['device']}, torch "
+        f"{manifest['_meta']['torch_version']}")
+    failures = check_budgets(facts, manifest)
+    for msg in failures:
+        log(f"[budget] FAIL {msg}")
+    drift: dict = {}
+    temp: dict = {}
+    for name, f in facts.items():
+        row = manifest["programs"].get(name, {})
+        temp.setdefault(f.meta["config"], {})[name] = (
+            f.temp_bytes, row.get("temp_bytes"))
+        cfg_d = drift.setdefault(f.meta["config"], {})
+        for _, key, _, _, d in budget_drifts(f, row):
+            cfg_d[key] = max(cfg_d.get(key, 0.0), d)
+    for label, d in sorted(drift.items()):
+        top = max(temp[label].items(), key=lambda kv: kv[1][0])
+        log(f"[budget] {label}: {len(temp[label])} programs, largest drift "
+            f"{({k: float(f'{v:.6g}') for k, v in sorted(d.items())})}; "
+            f"largest temp bytes {top[0]} (audited, budget) {top[1]}"
+            f"   [{card}]")
+    check(not failures, f"[budget] {len(failures)} budget failure(s) against "
+                        f"{H100_FULL_WIDTH_BUDGETS}")
+    # the gate is not vacuous: three doctored entries, each named
+    bad = copy.deepcopy(manifest)
+    doubled, removed = "dense/fl_step", "ssm/probe"
+    off = "dense/fl_step_masked/cut0"
+    bad["programs"][doubled]["flops"] *= 2
+    del bad["programs"][removed]
+    bad["programs"][off]["kernel_launches"]["flash_attention"] += 1
+    caught = check_budgets(facts, bad)
+    log(f"[budget] doctored manifest: {caught}")
+    check(len(caught) == 3
+          and any(m.startswith(f"{doubled}: flops drifted") for m in caught)
+          and any(m.startswith(f"{removed}: audited but missing")
+                  for m in caught)
+          and any(m.startswith(f"{off}: kernel_launches[flash_attention] "
+                               f"drifted") for m in caught),
+          f"[budget] the doctored manifest was not caught as expected: "
+          f"{caught}")
+    return {"budget_drift": drift, "budget_temp_bytes": temp,
+            "doctored": caught}
+
+
+# ---------------------------------------------------------------------------
+# Slice 14: the port's source linter
+# ---------------------------------------------------------------------------
+
+def phase_lint(card: str) -> dict:
+    """The port's source linter over ``src/repro_torch`` with every rule:
+    no finding may stand (each sync reachable from the hot loops repaired
+    or carrying a reasoned pragma)."""
+    from repro_torch.analysis.engine import RULES, collect_files, run_files
+
+    t0 = time.perf_counter()
+    files = collect_files(["src/repro_torch"], ROOT)
+    findings = run_files(files, ROOT)
+    for f in findings:
+        log(f"[lint] {f.format()}")
+    log(f"[lint] {len(RULES)} rules ({', '.join(sorted(RULES))}) over "
+        f"{len(files)} files: {len(findings)} finding(s) in "
+        f"{time.perf_counter() - t0:.1f} s   [{card}]")
+    check(not findings, f"[lint] {len(findings)} finding(s) in src/repro_torch")
+    return {"rules": len(RULES), "files": len(files),
+            "findings": len(findings)}
 
 
 # ---------------------------------------------------------------------------
@@ -5806,6 +5896,7 @@ def main(argv=None) -> int:
         print(card)
         return 0
     try:
+        phase_lint(card)
         build_kernels()
         ssd = phase_ssd_kernel(card)
         kern = phase_kernel(card)

@@ -101,10 +101,12 @@ class HostCopy:
 
     def to_numpy(self) -> dict[str, np.ndarray]:
         if self._event is not None:
+            # repro: allow[host-sync] -- the sanctioned readback: waits on the event behind this object's own copies, never on later work
             self._event.synchronize()
         # the sanctioned readback: strict mode's CPU guard (a torch-function
         # mode on its thread) flags every other ``.numpy()``
         with torch._C.DisableTorchFunction():
+            # repro: allow[host-sync] -- pinned host tensors, already copied behind the event above
             return {k: v.numpy() if isinstance(v, torch.Tensor) else v
                     for k, v in self._host.items()}
 

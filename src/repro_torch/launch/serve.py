@@ -184,7 +184,7 @@ class SlotServer:
         queue = list(requests)
         done: list[Request] = []
         steps = 0
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro: allow[nondeterminism] -- serve wall-clock telemetry only
         while queue or any(r is not None for r in self.active):
             self._admit(queue)
             if queue and all(r is None for r in self.active):
@@ -200,8 +200,7 @@ class SlotServer:
                            else r.generated[-1])
             logits = self._decode(torch.from_numpy(toks).to(self.device),
                                   torch.from_numpy(self.pos).to(self.device))
-            # the loop's one sync: greedy feedback, the next token depends
-            # on this step's logits
+            # repro: allow[host-sync] -- the serve loop's one sanctioned sync: greedy feedback, next token depends on this step's logits
             nxt = torch.argmax(logits, -1).cpu().tolist()
             steps += 1
             for i, r in enumerate(self.active):
@@ -218,7 +217,7 @@ class SlotServer:
                 # progress and reruns from its prompt (admit resets the
                 # position and cache), until its strikes run out
                 struck = self.injector.slot_faults(steps, self.slots)
-                for i in np.flatnonzero(struck).tolist():
+                for i in np.flatnonzero(struck).tolist():  # repro: allow[host-sync] -- struck is the injector's host np draw, no device value
                     r = self.active[i]
                     if r is None:
                         continue
@@ -234,7 +233,7 @@ class SlotServer:
             if verbose and steps % 8 == 0:
                 print(f"  step {steps}: {sum(x is not None for x in self.active)}"
                       f" active, {len(queue)} queued, {len(done)} done")
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # repro: allow[nondeterminism] -- serve wall-clock telemetry only
         gen = sum(len(r.generated) for r in done)
         return done, {"steps": steps, "wall_s": dt, "gen_tokens": gen,
                       "tok_per_s": gen / dt if dt > 1e-9 else 0.0,

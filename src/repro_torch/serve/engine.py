@@ -87,7 +87,9 @@ class DeltaOverlay:
         rows_idx, leaves = record.segments["blocks"]
         plan = []
         taken: dict[int, int] = {}
+        # repro: allow[host-sync] -- admission control runs at delta-publish time on the host np row index, not per decode step
         for li in rows_idx.tolist():
+            # repro: allow[host-sync] -- slot_ids is the overlay's host np owner table, no device value
             free = np.nonzero(self.slot_ids[li] < 0)[0].tolist()
             free = free[taken.get(li, 0):]
             if not free:
