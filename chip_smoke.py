@@ -171,10 +171,26 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     ``Model.decode_step``; then the train CLI for three rounds under
     ``torch.distributed.run`` (finite losses, the probe's
     ``layer_grad_norm`` launches);
-25. prints one JSON line of per-kernel results (launches per path, the
-    fault, Zamba2, DeepSeek, whisper, theory, strict, audit and
-    distributed paths among them), the card's name and power limit, and a
-    last JSON line ``{"ok": true, "device": {...}}``.
+25. runs ``phase_dryrun``: (a) the dry run's CLI
+    (``repro_torch.launch.dryrun``) on the CPU in child processes started
+    at the beginning of the script, so that they run beside the card's
+    phases and their fake worlds never meet an NCCL one — the single-pod
+    ``--all`` (10 archs × 4 shapes on a fake world of 256) and
+    ``--multi-pod`` for TinyLlama's four shapes (512) — one line per pair
+    (FLOPs, argument and temporary GB, collective GB by kind, the dominant
+    roofline term); (b) the card check: full-width TinyLlama-1.1B (flash)
+    and Mamba2-370M (``ssd_scan``), the τ = 1 FL step at seq 4096,
+    prefill at 32 768 and decode over a 32 768 cache, each with its batch
+    cut to fit the card, run for real on a world of 1 on NCCL under the
+    auditor and against the dry run of the same program (a fake world of
+    1, meta, in a child): FLOPs within the budget manifest's tolerance,
+    argument bytes, kernel launches and collective counts exactly, peak
+    temporaries within the manifest's ``temp_bytes`` tolerance; both sides
+    printed;
+26. prints one JSON line of per-kernel results (launches per path, the
+    fault, Zamba2, DeepSeek, whisper, theory, strict, audit, distributed
+    and dry-run card-check paths among them), the card's name and power
+    limit, and a last JSON line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --hybrid-serve-long
 
@@ -210,9 +226,12 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit),
+# the port's one copy (the dry run's roofline prices its terms with them).
+try:
+    from repro_torch.sharding.roofline import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+except ImportError as exc:
+    sys.exit(f"chip_smoke: the port is missing beside this script: {exc}")
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # Logits after 22 bf16 layers: kernel and plain version round each
 # projection to bf16 after summing in different orders, and a one-ulp
@@ -5850,6 +5869,246 @@ def phase_distributed(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the dry run (repro_torch.launch.dryrun), held against the card
+# ---------------------------------------------------------------------------
+
+# The card check's programs: (arch, input shape, the global batch cut to
+# fit one card: 1 client × 4 × 4096 tokens to train, 2 × 32 768 to
+# prefill, 8 rows over a 32 768 cache to decode).
+DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
+               ("tinyllama_1_1b", "prefill_32k", 2),
+               ("tinyllama_1_1b", "decode_32k", 8),
+               ("mamba2_370m", "train_4k", 4),
+               ("mamba2_370m", "prefill_32k", 2),
+               ("mamba2_370m", "decode_32k", 8))
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_META = os.path.join(DRYRUN_DIR, "card_check_meta.json")
+DRYRUN_TIMEOUT = 900        # seconds a child may take, from its start
+
+
+def dryrun_card_shape(shape_name: str, batch: int):
+    from repro_torch.configs.base import INPUT_SHAPES
+    return dataclasses.replace(INPUT_SHAPES[shape_name], global_batch=batch)
+
+
+def dryrun_meta(out_path: str) -> int:
+    """The dry side of the card check (``--dryrun-meta``): DRYRUN_CARD's
+    programs on a fake world of 1 (``dry_mesh``, the meta device), their
+    fact rows written to ``out_path``."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.dryrun import build_program, program_facts
+    from repro_torch.launch.mesh import dry_mesh
+    torch.set_num_threads(1)
+    rows = {}
+    with dry_mesh((1, 1), ("data", "model")) as mesh:
+        for arch, shape_name, batch in DRYRUN_CARD:
+            name = f"{arch}/{shape_name}"
+            t0 = time.perf_counter()
+            prog = build_program(get_arch(arch),
+                                 dryrun_card_shape(shape_name, batch), mesh)
+            rows[name] = program_facts(name, prog).to_dict()
+            print(f"[dryrun-meta] {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(rows, fh)
+    return 0
+
+
+class DryrunChildren:
+    """``phase_dryrun``'s CPU processes, started together at the beginning
+    of the script (``CUDA_VISIBLE_DEVICES`` empty: they never touch the
+    card): the CLI over every pair on 16 × 16, over TinyLlama's on
+    2 × 16 × 16, and the card check's dry side.  Each writes its output to
+    a log under DRYRUN_DIR; a thread per child notes when it ended."""
+
+    def __init__(self):
+        import shutil
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        os.makedirs(DRYRUN_DIR)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        cli = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--continue-on-error", "--out", DRYRUN_DIR]
+        cmds = {"single_pod": cli + ["--all"],
+                "multi_pod": cli + ["--all", "--multi-pod", "--arch",
+                                    "tinyllama_1_1b"],
+                "card_meta": [sys.executable, os.path.abspath(__file__),
+                              "--dryrun-meta", DRYRUN_META]}
+        self.t0 = time.perf_counter()
+        self.procs, self.logs, self.ended = {}, {}, {}
+        for tag, cmd in cmds.items():
+            self.logs[tag] = os.path.join(DRYRUN_DIR, f"{tag}.log")
+            with open(self.logs[tag], "w") as out:
+                self.procs[tag] = subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            threading.Thread(target=self._note_end, args=(tag,),
+                             daemon=True).start()
+
+    def _note_end(self, tag: str) -> None:
+        self.procs[tag].wait()
+        self.ended[tag] = time.perf_counter() - self.t0
+
+    def wait(self) -> dict:
+        """Wait for every child (at most DRYRUN_TIMEOUT from the start);
+        returns {tag: seconds from the start to its end}.  Raises on a
+        child that failed or did not end."""
+        for tag, p in self.procs.items():
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - self.t0)
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise SmokeFailure(f"[dryrun] {tag} did not end in "
+                                   f"{DRYRUN_TIMEOUT} s")
+            if p.returncode != 0:
+                with open(self.logs[tag]) as fh:
+                    text = fh.read()
+                raise SmokeFailure(f"[dryrun] {tag} exited {p.returncode}:\n"
+                                   f"{text[-3000:]}")
+        while len(self.ended) < len(self.procs):   # the threads' notes
+            time.sleep(0.01)
+        return dict(self.ended)
+
+    def stop(self) -> None:
+        import signal
+        for p in self.procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def dryrun_line(r: dict) -> str:
+    coll = ", ".join(f"{k} {v / 1e9:.3f}"
+                     for k, v in sorted(r["collective_by_kind"].items()))
+    return (f"{r['arch']:<21} {r['shape']:<11} {r['mesh']:<7} zero3 "
+            f"{str(r['zero3']):<5} FLOPs {r['flops']:.4e} (per device "
+            f"{r['unrolled_cost_analysis']['flops']:.4e}); argument "
+            f"{r['memory']['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{r['memory']['temp_bytes'] / 1e9:.3f} GB a device; collective "
+            f"GB (all devices) {{{coll}}}; dominant {r['dominant']}; "
+            f"useful FLOPs {r['useful_flops_frac'] or 0:.4f}; "
+            f"{r['lower_s']} s")
+
+
+def phase_dryrun(card: str, children: DryrunChildren) -> dict:
+    """Slice 15: (a) the dry run's CLI over every pair (the children's
+    reports, one line each), (b) the card check: DRYRUN_CARD's programs
+    run for real at full width on a world of 1 on NCCL under the auditor,
+    against the dry run of the same program on a fake world of 1 (meta):
+    FLOPs within the budget manifest's ``flops`` tolerance, argument bytes,
+    kernel launches and collective counts exactly, peak temporaries within
+    its ``temp_bytes`` tolerance."""
+    import glob
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.facts import ProgramFacts
+    from repro_torch.analysis.program import (BUDGET_TOLERANCES, budget_drifts,
+                                              budget_row)
+    from repro_torch.configs.base import ASSIGNED_ARCHS, INPUT_SHAPES, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import (build_program, program_facts,
+                                           report_name)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    ended = children.wait()
+    waited = time.perf_counter() - t_phase
+    log(f"[dryrun] children ended at {ended} s from their start (the "
+        f"phase waited {waited:.1f} s for them)")
+    out = {"children_s": ended, "waited_s": waited, "pairs": {}}
+    want = [(a, s, m) for m, archs in (("16x16", ASSIGNED_ARCHS),
+                                       ("2x16x16", ("tinyllama_1_1b",)))
+            for a in archs for s in INPUT_SHAPES]
+    missing = [w for w in want if not os.path.exists(
+        os.path.join(DRYRUN_DIR, report_name(*w, [])))]
+    check(not missing, f"[dryrun] no report for {missing}")
+    check(len(glob.glob(os.path.join(DRYRUN_DIR, "*__*.json"))) == len(want),
+          "[dryrun] reports beside the expected ones")
+    for a, s, m in want:
+        with open(os.path.join(DRYRUN_DIR, report_name(a, s, m, []))) as fh:
+            r = json.load(fh)
+        log(f"[dryrun] {dryrun_line(r)}")
+        out["pairs"][f"{a}/{s}/{m}"] = {
+            k: r[k] for k in ("zero3", "flops", "hbm_bytes",
+                              "collective_bytes", "collective_by_kind",
+                              "collective_counts", "kernel_launches",
+                              "dominant", "useful_flops_frac", "memory",
+                              "lower_s")}
+        check(r["flops"] > 0 and r["memory"]["argument_bytes"] > 0,
+              f"[dryrun] {a}/{s}/{m}: an empty report")
+
+    # (b) the card check
+    with open(DRYRUN_META) as fh:
+        meta_rows = json.load(fh)
+    tols = dict(BUDGET_TOLERANCES, arg_bytes=0.0)
+    paths, rows = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch, shape_name, batch in DRYRUN_CARD:
+            name = f"{arch}/{shape_name}"
+            shape = dryrun_card_shape(shape_name, batch)
+            full = INPUT_SHAPES[shape_name]
+            t0 = time.perf_counter()
+            prog = build_program(get_arch(arch), shape, mesh)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            f = program_facts(name, prog)
+            paths[f"dryrun_{arch}_{shape.kind}"] = dict(ops.LAUNCHES)
+            run_s = time.perf_counter() - t0
+            del prog
+            gc.collect()
+            torch.cuda.empty_cache()
+            dry = ProgramFacts(**meta_rows[name])
+            drifts = {label: (w, h, d) for label, key, w, h, d in
+                      budget_drifts(f, budget_row(dry))}
+            bad = {label: v for label, v in drifts.items()
+                   if v[2] > tols[label.split("[")[0]]}
+            same_coll = f.collective_counts == dry.collective_counts
+            rows[name] = {"global_batch": batch, "card": budget_row(f),
+                          "dry": budget_row(dry),
+                          "card_collectives": f.collective_counts,
+                          "dry_collectives": dry.collective_counts,
+                          "card_hbm_bytes": f.hbm_bytes,
+                          "dry_hbm_bytes": dry.hbm_bytes,
+                          "drift": {k: v[2] for k, v in drifts.items()},
+                          "run_s": run_s}
+            log(f"[dryrun] card check {name}, global batch "
+                f"{full.global_batch} cut to {batch} (seq {shape.seq_len}): "
+                f"(card, dry run, drift) FLOPs {f.flops:.6e} / "
+                f"{dry.flops:.6e} / {drifts['flops'][2]:.2e} (limit "
+                f"{tols['flops']}); argument bytes {f.arg_bytes} / "
+                f"{dry.arg_bytes}; temp bytes {f.temp_bytes} / "
+                f"{dry.temp_bytes} / {drifts['temp_bytes'][2]:.4f} (limit "
+                f"{tols['temp_bytes']}); launches {f.kernel_launches} / "
+                f"{dry.kernel_launches}; collectives {f.collective_counts} / "
+                f"{dry.collective_counts}; weight bytes {f.weight_bytes:.6e}"
+                f" / {dry.weight_bytes:.6e}; HBM bytes (not held) "
+                f"{f.hbm_bytes:.6e} / {dry.hbm_bytes:.6e}; {run_s:.1f} s"
+                f"   [{card}]")
+            check(not bad and same_coll,
+                  f"[dryrun] {name}: the dry run disagrees with the card: "
+                  f"{bad}, collectives {f.collective_counts} / "
+                  f"{dry.collective_counts}")
+        check(any(p.get("flash_attention", 0) for p in paths.values())
+              and any(p.get("ssd_scan", 0) for p in paths.values()),
+              f"[dryrun] the card check launched no flash or ssd_scan "
+              f"kernel: {paths}")
+    finally:
+        dist.destroy_process_group()
+    out.update(card_check=rows, paths=paths,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[dryrun] phase {out['phase_s']:.1f} s (children "
+        f"{max(ended.values()):.1f} s beside the earlier phases)   [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -5862,9 +6121,13 @@ def main(argv=None) -> int:
                          "run (phase_moe_serve_long)")
     ap.add_argument("--dist-cpu-step", metavar="NPZ",
                     help=argparse.SUPPRESS)   # phase_distributed's CPU side
+    ap.add_argument("--dryrun-meta", metavar="JSON",
+                    help=argparse.SUPPRESS)   # phase_dryrun's dry side
     args = ap.parse_args(argv)
     if args.dist_cpu_step:
         return dist_cpu_step(args.dist_cpu_step)
+    if args.dryrun_meta:
+        return dryrun_meta(args.dryrun_meta)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5895,7 +6158,10 @@ def main(argv=None) -> int:
         print(json.dumps({name: res}))
         print(card)
         return 0
+    children = None
     try:
+        # slice 15: the dry run's CPU children run beside the card phases
+        children = DryrunChildren()
         phase_lint(card)
         build_kernels()
         ssd = phase_ssd_kernel(card)
@@ -5949,9 +6215,16 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dst = phase_distributed(card)
+        # slice 15: the dry run, and its counts against the card's
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = phase_dryrun(card, children)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
+    finally:
+        if children is not None:
+            children.stop()
     total = kern["total"]
     fault_paths = faults["launches"]
     # the moe paths launch no serving, flash or ssd kernel: they are listed
@@ -5966,7 +6239,9 @@ def main(argv=None) -> int:
                      "tinyllama_strict": con["strict_launches"],
                      "audit_full_width": con["audit_launches"],
                      # slice 13: the distributed steps, mesh serving, the CLI
-                     **dst["paths"]}
+                     **dst["paths"],
+                     # slice 15: the dry run's card check
+                     **dry["paths"]}
     delta_paths = {"serve": served["delta"]["launches"],
                    **{p: l["base_delta_matmul"]
                       for p, l in fault_paths.items()},

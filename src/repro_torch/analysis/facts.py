@@ -22,28 +22,46 @@ ATen op below autograd (the backward too) and reads:
   name (f32, bf16, f64, ...); ``out_dtypes`` are the program's results';
 * **transfer ops** — ops that wait for the card (``.item()``'s
   ``_local_scalar_dense``, ``nonzero``, a boolean-mask index, ...) and
-  copies from the card to the host — and **collective** ops (the c10d
-  namespaces);
+  copies from the card to the host;
+* **collectives** — the ops of the c10d namespaces, counted and their
+  operand bytes summed by kind under the reference's HLO names
+  (``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``,
+  ``collective-permute``: :func:`collective_kind`), as
+  ``repro/sharding/hlo_analysis.py::collective_stats`` sums them: an
+  all-gather's operand is the local shard, a reduce-scatter's the full
+  input.  ``collective_bytes`` is their sum, this process's alone;
+* **hbm_bytes** — the traffic of an unfused eager program: over every
+  ATen op that is not a view or an allocation (``empty``), the bytes of its
+  tensor operands (not the destination of ``copy_``, ``fill_``, ``zero_``)
+  and outputs, each counted whole, plus the bytes each
+  Hopper kernel reports (its inputs read once, its outputs written once).
+  The reference reads XLA's fused program instead, so the two are not
+  comparable: this one counts every intermediate the eager program writes
+  and reads back;
 * **donation** — ``donated_declared`` counts the leaves of the arguments a
   spec declares donated; ``donation_applied`` those written in place (an op
   whose schema writes that argument) and handed back in the output;
 * sizes: ``arg_bytes``, ``out_bytes``, ``param_bytes`` (the weight leaves)
-  and, on the card, ``temp_bytes``: the peak of
-  ``torch.cuda.max_memory_allocated`` over what was allocated before.
+  and ``temp_bytes``: on the card the peak of
+  ``torch.cuda.max_memory_allocated`` over what was allocated before; on
+  the meta device (a dry run, ``launch/dryrun.py``) the peak of the live
+  storage bytes the run made, a storage counting from the op that made it
+  until its last reference is gone (:class:`_LiveBytes`); on the CPU 0.
 
 The port's Hopper kernels launch through ``ctypes``, which the dispatcher
 never sees: while facts are extracted the audit is ``kernels.ops.RECORDER``,
 and each kernel wrapper reports its operations and its weight operands to
 it (:meth:`_Audit.launched`; ``kernel_launches`` counts the reports).
-``hbm_bytes``, ``collective_bytes``, ``collective_by_kind`` and
-``code_bytes`` come from XLA's compiled program in the reference and have
-no eager counterpart: they stay 0.  Running the program means the facts
+``code_bytes`` comes from XLA's compiled program in the reference and has
+no eager counterpart: it stays 0.  Running the program means the facts
 are those of the inputs given, and on the card a spec's inputs must live
-there.
+there; on the meta device the kernels take their meta route
+(``kernels/ops.py``) and the facts are those of the card's program.
 """
 from __future__ import annotations
 
 import functools
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
@@ -72,6 +90,21 @@ SYNC_OPS = frozenset({"_local_scalar_dense", "nonzero", "masked_select",
                       "unique_consecutive", "unique_dim"})
 _COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional",
                                     "c10d_functional", "_dtensor"})
+# A collective op's name (underscores dropped) → the reference's HLO kind.
+_COLLECTIVE_KINDS = (("allgather", "all-gather"),
+                     ("reducescatter", "reduce-scatter"),
+                     ("allreduce", "all-reduce"), ("alltoall", "all-to-all"),
+                     ("send", "collective-permute"),
+                     ("recv", "collective-permute"))
+# The schema names of a collective's operand (c10d: ``input_tensor`` /
+# ``input_tensors``, ``allreduce_``'s ``tensors``; functional: ``input``).
+_OPERAND_ARGS = frozenset({"input_tensor", "input_tensors", "input",
+                           "tensors"})
+# Ops that allocate without writing: no traffic.
+_ALLOC_OPS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                        "new_empty_strided"})
+# In-place ops that overwrite their first argument without reading it.
+_OVERWRITE_OPS = frozenset({"copy_", "fill_", "zero_"})
 _SHORT = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
           torch.float16: "f16", torch.int64: "s64", torch.int32: "s32",
           torch.int16: "s16", torch.int8: "s8", torch.uint8: "u8",
@@ -106,6 +139,55 @@ def _op_tensors(args, kwargs) -> list:
         elif isinstance(v, (list, tuple)):
             out.extend(t for t in v if isinstance(t, torch.Tensor))
     return out
+
+
+def collective_kind(name: str) -> str | None:
+    """The reference's HLO kind of a c10d op (``_allgather_base_`` →
+    ``all-gather``), its own name for another collective (``broadcast_``,
+    ``barrier``), None for ``wait_tensor``, which only waits."""
+    bare = name.replace("_", "")
+    if bare == "waittensor":
+        return None
+    for key, kind in _COLLECTIVE_KINDS:
+        if key in bare:
+            return kind
+    return name.strip("_")
+
+
+def _operand_bytes(func, args, kwargs) -> int:
+    """Bytes of a collective's operand tensors (by schema name)."""
+    named = dict(zip((a.name for a in func._schema.arguments), args))
+    named.update(kwargs)
+    return sum(map(tensor_bytes, _op_tensors(
+        [v for k, v in named.items() if k in _OPERAND_ARGS], {})))
+
+
+class _LiveBytes:
+    """The live storage bytes a run made, and their peak: each new storage
+    among an op's outputs (not one of its inputs' storages, which a view
+    or an in-place op hands back) counts from that op until the storage is
+    freed, which a finalizer on it reports."""
+
+    def __init__(self):
+        self.live = self.peak = 0
+        self._keys: set = set()
+
+    def _freed(self, key: int, n: int) -> None:
+        self._keys.discard(key)
+        self.live -= n
+
+    def made(self, outs, ins) -> None:
+        seen = {t.untyped_storage()._cdata for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._keys or key in seen:
+                continue
+            n = st.nbytes()
+            self._keys.add(key)
+            self.live += n
+            weakref.finalize(st, self._freed, key, n).atexit = False
+        self.peak = max(self.peak, self.live)
 
 
 def host_sync_op(func, args, kwargs, *, card: bool) -> str | None:
@@ -158,24 +240,30 @@ class _Audit(TorchDispatchMode):
     as ``FlopCounterMode`` counts them (its formulas; an op without one is
     decomposed when it can be, and its parts counted), in this one mode."""
 
-    def __init__(self, weights: Sequence[torch.Tensor], card: bool):
+    def __init__(self, weights: Sequence[torch.Tensor], card: bool,
+                 meta: bool = False):
         super().__init__()
         self.card = card
         self._weights = {_ref(t) for t in weights}
         self.flops = 0
+        self.hbm_bytes = 0
+        self.live = _LiveBytes() if meta else None
         self.out_dtypes: Counter = Counter()      # torch dtype -> outputs
         self.weight_bytes = 0.0
         self.kernel_launches: Counter = Counter()
         self.transfers: Counter = Counter()
-        self.collectives: Counter = Counter()
+        self.collectives: Counter = Counter()       # kind -> ops
+        self.collective_bytes: Counter = Counter()  # kind -> operand bytes
         self.written: set = set()
 
     def _tagged(self, t: torch.Tensor) -> bool:
         return _ref(t) in self._weights
 
-    def launched(self, kernel: str, flops: int, weights) -> None:
+    def launched(self, kernel: str, flops: int, weights,
+                 nbytes: int = 0) -> None:
         """A kernel wrapper's report of one launch (``kernels/ops.py``)."""
         self.flops += flops
+        self.hbm_bytes += nbytes
         self.kernel_launches[kernel] += 1
         self.weight_bytes += sum(tensor_bytes(w) for w in weights
                                  if self._tagged(w))
@@ -196,16 +284,26 @@ class _Audit(TorchDispatchMode):
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         outs = (out,) if isinstance(out, torch.Tensor) else _tensors(out)
+        ins = _op_tensors(args, kwargs)
         for t in outs:
             self.out_dtypes[t.dtype] += 1
-        if func.namespace in _COLLECTIVE_NAMESPACES:
-            self.collectives[name] += 1
+        if func.namespace == "aten":
+            if not func.is_view and name not in _ALLOC_OPS:
+                read = ins[1:] if name in _OVERWRITE_OPS else ins
+                self.hbm_bytes += sum(map(tensor_bytes, read)) + sum(
+                    map(tensor_bytes, outs))
+        elif func.namespace in _COLLECTIVE_NAMESPACES:
+            kind = collective_kind(name)
+            if kind is not None:
+                self.collectives[kind] += 1
+                self.collective_bytes[kind] += _operand_bytes(func, args,
+                                                              kwargs)
+        if self.live is not None:
+            self.live.made(outs, ins)
         if name in _MATMUL_OPS:
-            self.weight_bytes += sum(tensor_bytes(t)
-                                     for t in _op_tensors(args, kwargs)
+            self.weight_bytes += sum(tensor_bytes(t) for t in ins
                                      if self._tagged(t))
-        elif name in _COPY_OPS and any(
-                self._tagged(t) for t in _op_tensors(args, kwargs)):
+        elif name in _COPY_OPS and any(self._tagged(t) for t in ins):
             self._weights.update(_ref(t) for t in outs)
         if func._schema.is_mutable:
             for a, v in zip(func._schema.arguments, args):
@@ -275,18 +373,19 @@ def extract_facts(name: str, fn: Callable, args: Sequence[Any], *,
     weights = [t for i in weight_argnums for t in _tensors(args[i])]
     donated = [t for i in donate_argnums for t in _tensors(args[i])]
     on_card = any(t.is_cuda for t in _tensors(args))
+    on_meta = any(t.is_meta for t in _tensors(args))
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-    audit = _Audit(weights, on_card)
+    audit = _Audit(weights, on_card, meta=on_meta)
     prev, ops.RECORDER = ops.RECORDER, audit
     try:
         with audit:
             out = fn(*args)
     finally:
         ops.RECORDER = prev
-    temp = 0
+    temp = audit.live.peak if on_meta else 0
     if on_card:
         torch.cuda.synchronize()
         temp = torch.cuda.max_memory_allocated() - before
@@ -297,6 +396,10 @@ def extract_facts(name: str, fn: Callable, args: Sequence[Any], *,
     return ProgramFacts(
         name=name, meta=dict(meta or {}),
         flops=float(audit.flops),
+        hbm_bytes=float(audit.hbm_bytes),
+        collective_bytes=float(sum(audit.collective_bytes.values())),
+        collective_by_kind={k: float(v)
+                            for k, v in audit.collective_bytes.items()},
         collective_counts=dict(audit.collectives),
         transfer_ops=dict(audit.transfers),
         hlo_dtypes={_SHORT.get(dt, dtype_name(dt)): n

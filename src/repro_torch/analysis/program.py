@@ -175,12 +175,16 @@ def budgets_from_facts(facts: dict, *, device="cpu",
                        f"program --device {str(device).split(':')[0]}"
                        f"{width} --update-budgets",
         },
-        "programs": {
-            name: {k: (dict(sorted(getattr(f, k).items()))
-                       if k == "kernel_launches" else getattr(f, k))
-                   for k in BUDGET_KEYS}
-            for name, f in sorted(facts.items())},
+        "programs": {name: budget_row(f)
+                     for name, f in sorted(facts.items())},
     }
+
+
+def budget_row(f) -> dict:
+    """One program's manifest entry: its facts under :data:`BUDGET_KEYS`."""
+    return {k: (dict(sorted(getattr(f, k).items()))
+                if k == "kernel_launches" else getattr(f, k))
+            for k in BUDGET_KEYS}
 
 
 def load_budgets(path: str = CPU_REDUCED_BUDGETS) -> Optional[dict]:

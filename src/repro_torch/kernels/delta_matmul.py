@@ -144,6 +144,26 @@ def _check(x, w, dw, slots) -> None:
                          f"int32, got {dw.dtype}, {slots.dtype}")
 
 
+def _buffers(x: torch.Tensor, p: Plan, f: int):
+    """The kernel's output (B, f) in x's type and its f32 partial sums
+    (splits, B, f), or None with one split."""
+    B = x.shape[0]
+    out = torch.empty((B, f), dtype=x.dtype, device=x.device)
+    part = (torch.empty((p.splits, B, f), dtype=torch.float32,
+                        device=x.device) if p.splits > 1 else None)
+    return out, part
+
+
+def base_delta_matmul_2d_meta(x: torch.Tensor, w: torch.Tensor,
+                              dw: torch.Tensor,
+                              slots: torch.Tensor) -> torch.Tensor:
+    """What :func:`base_delta_matmul_2d` allocates (the fold's partials
+    too) and returns, on the meta device, with no launch: (B, f)."""
+    f = w.shape[1]
+    out, _ = _buffers(x, plan(x.shape[0], x.shape[1], f), f)
+    return out
+
+
 def base_delta_matmul_2d(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
                          slots: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel (and the fold of its d-splits) on the
@@ -153,9 +173,7 @@ def base_delta_matmul_2d(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
     B, d = x.shape
     f = w.shape[1]
     p = plan(B, d, f)
-    out = torch.empty((B, f), dtype=x.dtype, device=x.device)
-    part = (torch.empty((p.splits, B, f), dtype=torch.float32,
-                        device=x.device) if p.splits > 1 else None)
+    out, part = _buffers(x, p, f)
     err = _launcher()(x.data_ptr(), w.data_ptr(), dw.data_ptr(),
                       slots.data_ptr(), out.data_ptr(),
                       None if part is None else part.data_ptr(), B, d, f,

@@ -58,6 +58,9 @@ MAX_D = 256              # the widest head dim the kernels take (kMaxD)
 ROUTES = ("simt", "mma")      # the launch functions' route argument: 0, 1
 MMA_MAX_D = 128          # the widest head dim of the tensor-core route
 DKDV_BLOCK_K = 64        # keys per dK/dV block on the tensor-core route
+# The SMs that :func:`dkdv_parts` plans for on the meta device, which has
+# none: an H100 SXM's, the card the dry run (``launch/dryrun.py``) models.
+META_SMS = 132
 
 
 def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor, S: int, causal: bool,
@@ -260,6 +263,52 @@ def _model_layout_empty(B, H, S, D, like) -> torch.Tensor:
                        device=like.device).transpose(1, 2)
 
 
+def _fwd_buffers(q: torch.Tensor):
+    """The forward's outputs: o (B,H,S,D) over (B,S,H,D) memory, lse
+    (B,H,S) f32."""
+    B, H, S, D = q.shape
+    return (_model_layout_empty(B, H, S, D, q),
+            torch.empty((B, H, S), dtype=torch.float32, device=q.device))
+
+
+def _bwd_buffers(q, k, v, lse, route_: str, sms: int):
+    """The backward's outputs and scratch: (parts, Δ, dq, dk, dv, and the
+    split's f32 partial dK and dV, or None when it has one part)."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    parts = dkdv_parts(B, K, S, H // K, sms) if route_ == "mma" else 1
+    delta = torch.empty_like(lse)
+    dq = _model_layout_empty(B, H, S, D, q)
+    dk = _model_layout_empty(B, K, S, D, k)
+    dv = _model_layout_empty(B, K, S, D, v)
+    part_dk = part_dv = None
+    if parts > 1:
+        part_dk, part_dv = (torch.empty((parts, B, K, S, D),
+                                        dtype=torch.float32, device=q.device)
+                            for _ in range(2))
+    return parts, delta, dq, dk, dv, part_dk, part_dv
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0):
+    """What :func:`flash_attention` allocates and returns, on the meta
+    device, with no launch: (o, lse).  Raises where :func:`route` does."""
+    route(q.dtype, q.shape[-1])
+    return _fwd_buffers(q)
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0):
+    """What :func:`flash_attention_bwd` allocates (the split's scratch
+    planned for :data:`META_SMS`), on the meta device, with no launch:
+    (dq, dk, dv)."""
+    route_ = route(q.dtype, q.shape[-1])
+    _, _, dq, dk, dv, _, _ = _bwd_buffers(q, k, v, lse, route_, META_SMS)
+    return dq, dk, dv
+
+
 def _strides(*ts) -> ctypes.Array:
     vals = [s for t in ts for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -280,9 +329,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,S,H,D) memory), lse (B,H,S) f32.  Raises on anything the route does
     not take, and if the launch fails."""
     route_ = _check(q, k, v, window)
+    o, lse = _fwd_buffers(q)
     B, H, S, D = q.shape
-    o = _model_layout_empty(B, H, S, D, q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     err = _lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, H, k.shape[1], S, D, causal, window,
@@ -309,19 +357,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: lse must be contiguous (B,H,S) "
                          f"f32 on q's device, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    parts = 1
-    if route_ == "mma":
-        parts = dkdv_parts(B, K, S, H // K, _sm_count(q.device.index
-                                                      or 0))
-    delta = torch.empty_like(lse)
-    dq = _model_layout_empty(B, H, S, D, q)
-    dk = _model_layout_empty(B, K, S, D, k)
-    dv = _model_layout_empty(B, K, S, D, v)
-    part_dk = part_dv = None
-    if parts > 1:
-        part_dk, part_dv = (torch.empty((parts, B, K, S, D),
-                                        dtype=torch.float32, device=q.device)
-                            for _ in range(2))
+    parts, delta, dq, dk, dv, part_dk, part_dv = _bwd_buffers(
+        q, k, v, lse, route_, _sm_count(q.device.index or 0))
     err = _lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -20,6 +20,9 @@ import torch
 from repro_torch.kernels import _build
 
 _FLOAT_TYPES = (torch.bfloat16, torch.float32)
+# Elements of a row that one block of the kernel's first pass sums
+# (csrc/layer_grad_norm.cu kChunk): its f32 scratch is (L, ⌈F / CHUNK⌉).
+CHUNK = 65536
 
 
 def layer_sq_norms_2d_torch(g: torch.Tensor) -> torch.Tensor:
@@ -53,6 +56,17 @@ def _check(g: torch.Tensor) -> None:
                          f"{g.dtype}")
     if not g.is_contiguous():
         raise ValueError("layer_sq_norms_2d: g is not contiguous")
+
+
+def layer_sq_norms_2d_meta(g: torch.Tensor) -> torch.Tensor:
+    """What :func:`layer_sq_norms_2d` allocates (its scratch of partials
+    too) and returns, on the meta device, with no launch: (L,) f32."""
+    L, F = g.shape
+    partial = torch.empty((L, -(-F // CHUNK)), dtype=torch.float32,
+                          device=g.device)
+    out = torch.empty((L,), dtype=torch.float32, device=g.device)
+    del partial            # freed after the output, as the launch frees it
+    return out
 
 
 def layer_sq_norms_2d(g: torch.Tensor) -> torch.Tensor:

@@ -66,6 +66,13 @@ def _check(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor) -> None:
                          f"{mask.dtype}")
 
 
+def masked_sgd_update_2d_meta(p: torch.Tensor, g: torch.Tensor,
+                              mask: torch.Tensor, lr: float) -> torch.Tensor:
+    """What :func:`masked_sgd_update_2d` allocates and returns, on the meta
+    device, with no launch: a tensor like p."""
+    return torch.empty_like(p)
+
+
 def masked_sgd_update_2d(p: torch.Tensor, g: torch.Tensor,
                          mask: torch.Tensor, lr: float) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream; CUDA tensors only.

@@ -5,8 +5,13 @@
 
 Dispatch follows the tensor, never ``RuntimeConfig.use_pallas``: a CUDA
 tensor launches the kernel (or the launch raises), a CPU tensor takes the
-plain PyTorch version.  ``mode`` forces one: ``"torch"`` the plain version
-on any device, ``"cuda"`` the kernel (a CPU tensor then raises).
+plain PyTorch version, and a meta tensor the meta route, which stands in
+for the card in a dry run (``launch/dryrun.py``): it allocates exactly what
+the CUDA route allocates (outputs, the forward's lse, each kernel's
+scratch, and so the tensors saved for backward), computes nothing, and
+counts and reports the launch as the CUDA route does.  ``mode`` forces
+one: ``"torch"`` the plain version on any device, ``"cuda"`` the kernel (a
+CPU tensor then raises; a meta tensor keeps the meta route).
 """
 from __future__ import annotations
 
@@ -40,8 +45,10 @@ def reset_launches() -> None:
 # The work recorder that ``repro_torch.analysis.facts`` installs while it
 # runs a program, else None.  The kernels launch through ``ctypes``, which
 # PyTorch's dispatcher (and so ``FlopCounterMode``) never sees, so each
-# launch below reports its operations and its weight operands here:
-# ``RECORDER.launched(kernel, flops, weights)``.  Operations are those of
+# launch below, on the CUDA and the meta route, reports its operations, its
+# weight operands and the bytes it moves (each input read once, each output
+# written once: the bytes of ``chip_smoke.py``'s bounds) here:
+# ``RECORDER.launched(kernel, flops, weights, nbytes)``.  Operations are those of
 # ``chip_smoke.py``'s bounds (PERF.md §6): flash and ``ssd_scan`` through
 # :func:`flash_flops` and :func:`ssd_flops`, which the bounds call too, 2
 # per element for ``layer_grad_norm`` and ``masked_update``, and for
@@ -94,11 +101,29 @@ def ssd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
 
 
 def _resolve_mode(mode: Optional[str], t: torch.Tensor) -> str:
+    """The route of a call: "cuda" (the kernel), "torch" (its plain
+    version) or "meta" (the kernel's allocations alone, for a meta
+    tensor)."""
     if mode not in (None, "cuda", "torch"):
         raise ValueError(f"mode must be None, 'cuda' or 'torch', got {mode!r}")
+    if t.is_meta and mode != "torch":
+        return "meta"
     if mode is None:
         return "cuda" if t.is_cuda else "torch"
     return mode
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _launched(kernel: str, flops, weights=(), moved=()) -> None:
+    """Count one launch of ``kernel`` and report it to :data:`RECORDER`:
+    ``flops()`` operations, the ``weights`` operands, the bytes of the
+    ``moved`` tensors (computed only when a recorder listens)."""
+    LAUNCHES[kernel] += 1
+    if RECORDER is not None:
+        RECORDER.launched(kernel, flops(), weights, _nbytes(moved))
 
 
 def _sorted_leaves(tree):
@@ -124,15 +149,14 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, mode):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if mode == "cuda":
-            o, lse = _fa.flash_attention(qt, kt, vt, causal=causal,
-                                         window=window)
-            LAUNCHES["flash_attention"] += 1
+        if mode in ("cuda", "meta"):
+            fwd = _fa.flash_attention if mode == "cuda" else \
+                _fa.flash_attention_meta
+            o, lse = fwd(qt, kt, vt, causal=causal, window=window)
             LAUNCHES["flash_attention_" + _fa.route(q.dtype, q.shape[-1])] += 1
-            if RECORDER is not None:
-                B, S, H, D = q.shape
-                RECORDER.launched("flash_attention", flash_flops(
-                    B, H, D, S, causal, window), ())
+            B, S, H, D = q.shape
+            _launched("flash_attention", lambda: flash_flops(
+                B, H, D, S, causal, window), moved=(q, k, v, o, lse))
         else:
             o, lse = _fa.flash_attention_torch(qt, kt, vt, causal=causal,
                                                window=window)
@@ -146,16 +170,16 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         args = [t.transpose(1, 2) for t in (q, k, v, out)]
         args += [lse, gout.contiguous().transpose(1, 2)]
-        if ctx.mode == "cuda":
-            grads = _fa.flash_attention_bwd(*args, causal=ctx.causal,
-                                            window=ctx.window)
-            LAUNCHES["flash_attention_bwd"] += 1
+        if ctx.mode in ("cuda", "meta"):
+            bwd = _fa.flash_attention_bwd if ctx.mode == "cuda" else \
+                _fa.flash_attention_bwd_meta
+            grads = bwd(*args, causal=ctx.causal, window=ctx.window)
             LAUNCHES["flash_attention_bwd_" + _fa.route(q.dtype,
                                                         q.shape[-1])] += 1
-            if RECORDER is not None:
-                B, S, H, D = q.shape
-                RECORDER.launched("flash_attention_bwd", flash_flops(
-                    B, H, D, S, ctx.causal, ctx.window, backward=True), ())
+            B, S, H, D = q.shape
+            _launched("flash_attention_bwd", lambda: flash_flops(
+                B, H, D, S, ctx.causal, ctx.window, backward=True),
+                moved=(*args, *grads))
         else:
             grads = _fa.flash_attention_bwd_torch(*args, causal=ctx.causal,
                                                   window=ctx.window)
@@ -183,16 +207,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _ssd_forward(x, dt, A_log, Bmat, Cmat, D, chunk: int, mode: str):
     A = -torch.exp(A_log.float())
-    if mode == "cuda":
-        y = _ssd.ssd_scan(x, dt.float(), A.contiguous(), Bmat, Cmat,
-                          D.float().contiguous(), chunk=chunk)
-        LAUNCHES["ssd_scan"] += 1
+    if mode in ("cuda", "meta"):
+        scan = _ssd.ssd_scan if mode == "cuda" else _ssd.ssd_scan_meta
+        args = (x, dt.float(), A.contiguous(), Bmat, Cmat,
+                D.float().contiguous())
+        y = scan(*args, chunk=chunk)
         LAUNCHES["ssd_scan_" + _ssd.route(x.dtype, x.shape[-1],
                                           Bmat.shape[-1])] += 1
-        if RECORDER is not None:
-            b, s, h, p = x.shape
-            RECORDER.launched("ssd_scan", ssd_flops(
-                b, s, h, p, Bmat.shape[-1], chunk), ())
+        b, s, h, p = x.shape
+        _launched("ssd_scan", lambda: ssd_flops(
+            b, s, h, p, Bmat.shape[-1], chunk), moved=(*args, y))
         return y
     # the plain version on the reference wrapper's per-head layout
     b, s, h, p = x.shape
@@ -258,11 +282,13 @@ def layer_grad_norms(stacked_grads, *,
     total = None
     for leaf in _sorted_leaves(stacked_grads):
         flat = leaf.reshape(leaf.shape[0], -1)
-        if _resolve_mode(mode, leaf) == "cuda":
-            sq = _lgn.layer_sq_norms_2d(flat.contiguous())
-            LAUNCHES["layer_grad_norm"] += 1
-            if RECORDER is not None:
-                RECORDER.launched("layer_grad_norm", 2 * flat.numel(), ())
+        route = _resolve_mode(mode, leaf)
+        if route in ("cuda", "meta"):
+            flat = flat.contiguous()
+            sq = (_lgn.layer_sq_norms_2d if route == "cuda"
+                  else _lgn.layer_sq_norms_2d_meta)(flat)
+            _launched("layer_grad_norm", lambda: 2 * flat.numel(),
+                      moved=(flat, sq))
         else:
             sq = _lgn.layer_sq_norms_2d_torch(flat)
         total = sq if total is None else total + sq
@@ -283,13 +309,13 @@ def masked_sgd_update(stacked_params: dict, stacked_grads: dict,
         if isinstance(p, dict):
             return {k: upd(p[k], g[k]) for k in p}
         L = p.shape[0]
-        if _resolve_mode(mode, p) == "cuda":
-            out = _mu.masked_sgd_update_2d(p.reshape(L, -1),
-                                           g.reshape(L, -1).contiguous(),
-                                           mask, lr)
-            LAUNCHES["masked_update"] += 1
-            if RECORDER is not None:
-                RECORDER.launched("masked_update", 2 * p.numel(), ())
+        route = _resolve_mode(mode, p)
+        if route in ("cuda", "meta"):
+            args = (p.reshape(L, -1), g.reshape(L, -1).contiguous(), mask)
+            out = (_mu.masked_sgd_update_2d if route == "cuda"
+                   else _mu.masked_sgd_update_2d_meta)(*args, lr)
+            _launched("masked_update", lambda: 2 * p.numel(),
+                      moved=(*args, out))
         else:
             out = _mu.masked_sgd_update_2d_torch(p.reshape(L, -1),
                                                  g.reshape(L, -1), mask, lr)
@@ -316,12 +342,12 @@ def base_delta_matmul(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
         x2 = x[:, 0]
     else:
         x2 = x
-    if mode == "cuda":
-        out = _dmm.base_delta_matmul_2d(x2.contiguous(), w, dw, slots)
-        LAUNCHES["base_delta_matmul"] += 1
-        if RECORDER is not None:
-            RECORDER.launched("base_delta_matmul", 2 * x2.shape[0]
-                              * w.numel() * (1 + dw.shape[0]), (w, dw))
+    if mode in ("cuda", "meta"):
+        x2 = x2.contiguous()
+        out = (_dmm.base_delta_matmul_2d if mode == "cuda"
+               else _dmm.base_delta_matmul_2d_meta)(x2, w, dw, slots)
+        _launched("base_delta_matmul", lambda: 2 * x2.shape[0] * w.numel()
+                  * (1 + dw.shape[0]), (w, dw), moved=(x2, w, dw, slots, out))
     else:
         out = _dmm.base_delta_matmul_2d_torch(x2, w, dw, slots)
     return out[:, None] if squeeze else out

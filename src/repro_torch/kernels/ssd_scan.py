@@ -141,6 +141,15 @@ def _check_limits(x, Bm, Q: int, lib) -> None:
                          f"S {s}, P {p}, N {n}, B {b}")
 
 
+def ssd_scan_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
+                  chunk: int = 128) -> torch.Tensor:
+    """What :func:`ssd_scan` allocates and returns, on the meta device, with
+    no launch: y (B,S,H,P) in x's type.  Raises where :func:`route` does."""
+    route(x.dtype, x.shape[-1], Bmat.shape[-1])
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:

@@ -14,9 +14,15 @@ for on a device whose backend the process group lacks raises.
 by axis name and ``axis_names``) plus this rank's coordinates and the
 process group of each axis, and of the client axes (``pod`` × ``data``)
 together.
+
+:func:`dry_mesh` is the counterpart of the reference's
+``--xla_force_host_platform_device_count=512``: a world of 256 or 512 ranks
+in this one process on the ``fake`` backend, rank 0 its only member, over
+the meta device (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -115,12 +121,42 @@ def _make_mesh(shape: tuple, names: tuple, device) -> Mesh:
     return Mesh(init_device_mesh(dev.type, shape, mesh_dim_names=names), dev)
 
 
+@contextlib.contextmanager
+def dry_mesh(shape: tuple, names: tuple):
+    """A mesh of ``shape`` over a fake world in this process: rank 0 of
+    ``prod(shape)`` ranks on the ``fake`` backend, whose collectives
+    accept meta tensors and move nothing, with the meta device as the
+    mesh's.  Rank 0 stands for every rank: its program is the per-device
+    program.  Refuses to start beside an existing process group (an NCCL
+    or gloo world), and destroys its own when the block ends."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a dry mesh needs a process of its own: this one already "
+            f"runs a {dist.get_backend()!r} world of "
+            f"{dist.get_world_size()}")
+    # importing fake_pg registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield Mesh(init_device_mesh("cpu", tuple(shape),
+                                    mesh_dim_names=tuple(names)),
+                   torch.device("meta"))
+    finally:
+        dist.destroy_process_group()
+
+
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the reference's production meshes."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """(data, model) = (16, 16) single pod; (pod, data, model) =
     (2, 16, 16): the reference's shapes, over a world of 256 or 512."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make_mesh(shape, axes, device)
+    return _make_mesh(*production_mesh_shape(multi_pod), device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, pod: int = 0,

@@ -5,6 +5,8 @@ port only: no JAX in a child), joined through a file store in a
 temporary directory; each runs the same list of cases on its rank of a
 mesh and writes its results there.  The parent waits at most
 ``timeout`` seconds and kills the world rather than hang.
+:func:`run_dry` runs cases the same way on rank 0 of a fake world
+(``launch.mesh.dry_mesh``, the meta device) in one process of its own.
 
 A case is a dict with ``kind`` (a key of :data:`CASES`) and its inputs as
 numpy arrays; a case function returns a dict of numpy arrays and numbers.
@@ -25,6 +27,19 @@ def run_world(n: int, mesh: dict, cases: list, timeout: float = 300.0):
     """Run ``cases`` on a world of ``n`` gloo processes over ``mesh``
     ({"data": …, "model": …[, "pod": …]}); returns each rank's results,
     by rank."""
+    return _run(n, mesh, cases, timeout)
+
+
+def run_dry(mesh: dict, cases: list, timeout: float = 300.0) -> dict:
+    """Run ``cases`` on rank 0 of a fake world over ``mesh`` in one child
+    process: ``{"results": [...], "error": repr of what a case raised or
+    None, "initialized_after": whether a process group outlived the
+    world}``."""
+    return _run(0, mesh, cases, timeout)[0]
+
+
+def _run(n: int, mesh: dict, cases: list, timeout: float):
+    """``n`` gloo ranks, or one fake-world process for ``n`` = 0."""
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "in.pkl"), "wb") as f:
             pickle.dump({"mesh": mesh, "cases": cases}, f)
@@ -33,7 +48,7 @@ def run_world(n: int, mesh: dict, cases: list, timeout: float = 300.0):
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), tmp, str(r), str(n)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(n)]
+            text=True) for r in range(max(n, 1))]
         deadline = time.monotonic() + timeout
         logs = []
         try:
@@ -51,7 +66,7 @@ def run_world(n: int, mesh: dict, cases: list, timeout: float = 300.0):
         for r, (p, log) in enumerate(zip(procs, logs)):
             assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
         results = []
-        for r in range(n):
+        for r in range(max(n, 1)):
             with open(os.path.join(tmp, f"out_{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
         return results
@@ -215,9 +230,78 @@ def case_decode(case, mesh):
             "rows": rules.local_shard(torch.arange(B), b_spec, mesh).numpy()}
 
 
+def case_dryrun_facts(case, mesh):
+    """``launch.dryrun.build_program`` of a reduced arch at a small
+    ``ShapeConfig`` on this mesh (meta stand-ins on a fake world, seeded
+    tensors on gloo), run once under the auditor: its fact row.  With
+    ``zero3`` the ZeRO-3 threshold is 0, so the base is stored sharded."""
+    from repro_torch.configs.base import (RuntimeConfig, ShapeConfig,
+                                          get_arch, reduced)
+    from repro_torch.launch import dryrun
+    if case.get("zero3"):
+        dryrun.ZERO3_THRESHOLD_BYTES = 0
+    cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 2),
+                  d_model=case.get("d_model", 64))
+    rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16)
+    prog = dryrun.build_program(cfg, ShapeConfig(*case["shape"]), mesh, rt,
+                                kernel_mode=case.get("kernel_mode"))
+    return {"facts": dryrun.program_facts(case["name"], prog).to_dict(),
+            "zero3": prog.zero3}
+
+
+def case_dryrun_pair(case, mesh):
+    """``launch.dryrun.lower_pair`` of a full-width pair on this mesh."""
+    from repro_torch.launch.dryrun import lower_pair
+    return lower_pair(case["arch"], case["shape"], False, mesh=mesh)
+
+
+def case_dry_refused(case, mesh):
+    """A dry mesh asked for inside this (gloo) world: the error it raises,
+    and whether the world is intact after it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import dry_mesh
+    try:
+        with dry_mesh((2, 2), ("data", "model")):
+            return {"error": None}
+    except RuntimeError as e:
+        return {"error": str(e), "backend": dist.get_backend(),
+                "world": dist.get_world_size()}
+
+
+def case_fail(case, mesh):
+    raise RuntimeError(case.get("message", "a case failed"))
+
+
 CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "store_rows": case_store_rows, "prefill": case_prefill,
-         "decode": case_decode}
+         "decode": case_decode, "dryrun_facts": case_dryrun_facts,
+         "dryrun_pair": case_dryrun_pair, "dry_refused": case_dry_refused,
+         "fail": case_fail}
+
+
+def _mesh_dims(m: dict) -> tuple:
+    names = (("pod",) if m.get("pod") else ()) + ("data", "model")
+    return tuple(m[a] for a in names), names
+
+
+def _dry_child(tmp: str) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import dry_mesh
+    with open(os.path.join(tmp, "in.pkl"), "rb") as f:
+        job = pickle.load(f)
+    results, error = [], None
+    try:
+        with dry_mesh(*_mesh_dims(job["mesh"])) as mesh:
+            for c in job["cases"]:
+                results.append(CASES[c["kind"]](c, mesh))
+    except Exception as e:  # recorded for the parent to assert on
+        error = repr(e)
+    with open(os.path.join(tmp, "out_0.pkl"), "wb") as f:
+        pickle.dump({"results": results, "error": error,
+                     "initialized_after": dist.is_initialized()}, f)
 
 
 def _child(tmp: str, rank: int, n: int) -> None:
@@ -242,4 +326,7 @@ def _child(tmp: str, rank: int, n: int) -> None:
 
 
 if __name__ == "__main__":
-    _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    if int(sys.argv[3]) == 0:
+        _dry_child(sys.argv[1])
+    else:
+        _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

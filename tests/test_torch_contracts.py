@@ -293,7 +293,7 @@ class _Recorder:
     def __init__(self):
         self.calls = []
 
-    def launched(self, kernel, flops, weights):
+    def launched(self, kernel, flops, weights, nbytes):
         self.calls.append((kernel, flops, tuple(weights)))
 
 

@@ -1,0 +1,492 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the reference's
+``repro/launch/dryrun.py`` and against real worlds, on the CPU.
+
+* host-side parity: ``pick_zero3``, ``window_for``, the parameter counts,
+  tokens, model FLOPs, the ``opts`` naming with ``--sel-frac`` and the
+  report's file name, for every assigned arch × shape × mesh, equal to the
+  reference's (computed in a subprocess: importing the reference's dry run
+  sets ``XLA_FLAGS`` for 512 host devices, which this worker must not
+  inherit);
+* the fake world against a real one: reduced TinyLlama and Mamba2 on a
+  data 2 × model 2 mesh, the train step, prefill and decode run on rank 0
+  of a fake world (meta) and of a gloo world of 4 (seeded CPU tensors),
+  both on the kernels' plain versions: equal FLOPs, argument bytes and
+  collectives by kind (counts and bytes), HBM traffic equal but for
+  gloo's own copy of each reduce-scatter's result;
+* the kernels' meta route: outputs of the plain route's shapes and types,
+  the same launches and recorder reports as the CUDA route, and a CPU run
+  that neither launches nor reports;
+* the live-bytes tracker's peak on a hand-built program;
+* full-width TinyLlama ``train_4k`` on the 16 × 16 fake world: argument
+  bytes equal to rank 0's shards computed from the rules, collectives by
+  kind derived from the layer layout;
+* the refusals: ``--opt`` (no tensor parallelism), a dry mesh inside an
+  existing world, and the world torn down after a failure; the CLI's JSON.
+
+Every fake or gloo world runs in a process of its own
+(``tests/_torch_dist.py``): a process group is process-global.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from repro_torch.analysis import facts as tfacts
+from repro_torch.configs.base import (ASSIGNED_ARCHS, INPUT_SHAPES,
+                                      RuntimeConfig, get_arch)
+from repro_torch.kernels import delta_matmul as dmm
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import layer_grad_norm as lgn
+from repro_torch.kernels import masked_update as mu
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch import dryrun as D
+from repro_torch.models.model import init_params
+from repro_torch.sharding import rules
+from repro_torch.tree import tree_leaves, tree_map
+
+from _torch_dist import run_dry, run_world
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESHES = {"16x16": {"data": 16, "model": 16},
+          "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+# (tp_constraints & the other --opt levers, sel_frac)
+OPTS = ((False, 0.0), (False, 0.25), (True, 0.0), (True, 0.25))
+
+
+def _env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+
+
+# ---------------------------------------------------------------------------
+# host-side parity with the reference
+# ---------------------------------------------------------------------------
+
+_REFERENCE = textwrap.dedent("""
+    import json, sys
+    from types import SimpleNamespace
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.launch import dryrun as D     # sets XLA_FLAGS: its own process
+    from repro.configs.base import (ASSIGNED_ARCHS, INPUT_SHAPES,
+                                    RuntimeConfig, get_arch)
+    from repro.models.model import init_params
+    meshes = json.loads(sys.argv[1])
+    opts = json.loads(sys.argv[2])
+    out = {}
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_arch(arch)
+        shapes = jax.eval_shape(lambda k: init_params(cfg, k),
+                                jax.ShapeDtypeStruct((2,), jnp.uint32))
+        # the reference's lower_pair, lines 114-127, as written there
+        n_params = sum(int(np.prod(l.shape)) for l in jax.tree.leaves(shapes))
+        if cfg.n_experts:
+            expert_frac = cfg.top_k / cfg.n_experts
+            e_sizes = sum(int(np.prod(l.shape))
+                          for p, l in jax.tree_util.tree_flatten_with_path(
+                              shapes)[0]
+                          if any(str(getattr(q, "key", "")).endswith(
+                              ("wi_e", "wo_e")) for q in p))
+            n_active = int(n_params - e_sizes + e_sizes * expert_frac)
+        else:
+            n_active = n_params
+        row = {"n_params": n_params, "n_active": n_active, "zero3": {},
+               "shapes": {}, "names": {}}
+        for mname, mshape in meshes.items():
+            row["zero3"][mname] = bool(D.pick_zero3(
+                cfg, SimpleNamespace(shape=mshape)))
+        for sname, shape in INPUT_SHAPES.items():
+            tokens = (shape.global_batch if shape.kind == "decode"
+                      else shape.global_batch * shape.seq_len)
+            factor = 6 if shape.kind == "train" else 2
+            row["shapes"][sname] = {
+                "window": D.window_for(cfg, shape), "tokens": tokens,
+                "model_flops": factor * n_active * tokens}
+        for opt, sel_frac in opts:
+            runtime = RuntimeConfig()
+            if opt:
+                runtime = RuntimeConfig(tp_constraints=True,
+                                        remat_scores=True,
+                                        moe_local_dispatch=True,
+                                        sel_upload=sel_frac > 0)
+            sel_idx = None
+            if sel_frac > 0:
+                L = cfg.n_layers - cfg.first_dense
+                R = max(1, int(round(L * sel_frac)))
+                sel_idx = tuple(range(L - R, L))
+            o = []
+            if runtime.tp_constraints:
+                o.append("tp")
+            if runtime.remat_scores:
+                o.append("rematsc")
+            if runtime.sel_upload and sel_idx is not None:
+                o.append(f"sel{len(sel_idx)}")
+            if runtime.moe_local_dispatch:
+                o.append("moelocal")
+            suffix = ("__" + "-".join(o)) if o else ""
+            row["names"][f"{opt}-{sel_frac}"] = {
+                "opts": o, "sel_idx": sel_idx and list(sel_idx),
+                "file": {m: f"{arch}__train_4k__{m}{suffix}.json"
+                         for m in meshes}}
+        out[arch] = row
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def reference_host():
+    r = subprocess.run(
+        [sys.executable, "-c", _REFERENCE, json.dumps(MESHES),
+         json.dumps(OPTS)], env=_env(), capture_output=True, text=True,
+        timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_host_side_matches_reference(arch, reference_host):
+    want = reference_host[arch]
+    cfg = get_arch(arch)
+    n_params, n_active = D.param_counts(cfg)
+    assert (n_params, n_active) == (want["n_params"], want["n_active"])
+    for mname, mshape in MESHES.items():
+        assert D.pick_zero3(cfg, SimpleNamespace(shape=mshape)) \
+            == want["zero3"][mname], mname
+    for sname, shape in INPUT_SHAPES.items():
+        w = want["shapes"][sname]
+        assert D.window_for(cfg, shape) == w["window"], sname
+        assert D.tokens_of(shape) == w["tokens"], sname
+        assert D.model_flops(shape, n_active) == w["model_flops"], sname
+    for opt, sel_frac in OPTS:
+        runtime = (RuntimeConfig(tp_constraints=True, remat_scores=True,
+                                 moe_local_dispatch=True,
+                                 sel_upload=sel_frac > 0)
+                   if opt else RuntimeConfig())
+        w = want["names"][f"{opt}-{sel_frac}"]
+        sel_idx = D.sel_indices(cfg, sel_frac)
+        assert (list(sel_idx) if sel_idx else None) == w["sel_idx"]
+        opts = D.opts_of(runtime, sel_idx)
+        assert opts == w["opts"]
+        for m in MESHES:
+            assert D.report_name(arch, "train_4k", m, opts) == w["file"][m]
+
+
+# ---------------------------------------------------------------------------
+# the fake world against a real (gloo) one
+# ---------------------------------------------------------------------------
+
+WORLD = {"data": 2, "model": 2}
+SHAPES = {"train": ("train_4k", 32, 4, "train"),
+          "prefill": ("prefill_32k", 32, 4, "prefill"),
+          "decode": ("decode_32k", 64, 4, "decode")}
+PAIRS = [(a, k) for a in ("tinyllama_1_1b", "mamba2_370m") for k in SHAPES]
+
+
+def _facts_case(arch, kind) -> dict:
+    return {"kind": "dryrun_facts", "name": f"{arch}/{kind}", "arch": arch,
+            "shape": SHAPES[kind], "zero3": True, "kernel_mode": "torch"}
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    """Rank 0's facts of each pair on the fake world and on gloo, and the
+    gloo ranks' answer to a dry mesh asked for inside their world."""
+    cases = [_facts_case(a, k) for a, k in PAIRS]
+    dry = run_dry(WORLD, cases)
+    real = run_world(4, WORLD, cases + [{"kind": "dry_refused"}])
+    return dry, real
+
+
+@pytest.mark.parametrize("arch,kind", PAIRS)
+def test_fake_world_matches_gloo(arch, kind, worlds):
+    dry, real = worlds
+    assert dry["error"] is None and not dry["initialized_after"]
+    i = PAIRS.index((arch, kind))
+    fake, gloo = dry["results"][i], real[0][i]
+    assert real[0][i]["coords"] == {"data": 0, "model": 0}
+    assert fake["zero3"] and gloo["zero3"]
+    f, g = fake["facts"], gloo["facts"]
+    assert f["flops"] > 0 and f["flops"] == g["flops"]
+    assert f["arg_bytes"] == g["arg_bytes"]
+    # gloo copies each reduce-scatter's result into its output when the
+    # caller waits on it (an ATen ``copy_`` the audit sees: output bytes
+    # read and written); the fake backend moves nothing
+    rs_out = f["collective_by_kind"].get("reduce-scatter", 0) / WORLD["data"]
+    assert f["hbm_bytes"] > 0 and g["hbm_bytes"] - f["hbm_bytes"] == 2 * rs_out
+    assert f["collective_counts"] == g["collective_counts"]
+    assert f["collective_by_kind"] == g["collective_by_kind"]
+    assert f["collective_bytes"] == g["collective_bytes"]
+    assert f["kernel_launches"] == g["kernel_launches"] == {}
+    # ZeRO-3 storage: every program gathers; training reduce-scatters
+    assert f["collective_counts"]["all-gather"] > 0
+    assert ("reduce-scatter" in f["collective_counts"]) == (kind == "train")
+    assert f["temp_bytes"] > 0 and g["temp_bytes"] == 0
+
+
+def test_dry_mesh_refused_inside_a_world(worlds):
+    _, real = worlds
+    for rank in real:
+        got = rank[-1]
+        assert "already runs a 'gloo' world of 4" in got["error"]
+        assert got["backend"] == "gloo" and got["world"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the kernels' meta route
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def launched(self, kernel, flops, weights, nbytes):
+        self.calls.append((kernel, flops,
+                           sum(w.numel() * w.element_size() for w in weights),
+                           nbytes))
+
+
+@pytest.fixture
+def card_stubs(monkeypatch):
+    """The launches replaced by the allocations the kernels make (their
+    shared buffer helpers) on the CPU, so ``mode="cuda"`` reaches each
+    wrapper's launch branch and reports what the card's would."""
+    monkeypatch.setattr(fa, "flash_attention", fa.flash_attention_meta)
+    monkeypatch.setattr(fa, "flash_attention_bwd", fa.flash_attention_bwd_meta)
+    monkeypatch.setattr(ssd, "ssd_scan", ssd.ssd_scan_meta)
+    monkeypatch.setattr(lgn, "layer_sq_norms_2d", lgn.layer_sq_norms_2d_meta)
+    monkeypatch.setattr(mu, "masked_sgd_update_2d",
+                        mu.masked_sgd_update_2d_meta)
+    monkeypatch.setattr(dmm, "base_delta_matmul_2d",
+                        dmm.base_delta_matmul_2d_meta)
+
+
+def _drive(kernel: str, device: str, mode=None):
+    """One call of ``kernel``'s wrapper at fixed shapes on ``device`` (the
+    flash case runs its backward too); returns its outputs."""
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype).to(dev)
+    if kernel == "flash_attention":
+        q = rnd(2, 64, 4, 16, dtype=torch.bfloat16).requires_grad_()
+        k, v = rnd(2, 64, 2, 16, dtype=torch.bfloat16), \
+            rnd(2, 64, 2, 16, dtype=torch.bfloat16)
+        out = ops.flash_attention(q, k, v, causal=True, window=16,
+                                  mode=mode)
+        (dq,) = torch.autograd.grad(out, q, torch.ones_like(out))
+        return [out, dq]
+    if kernel == "ssd_scan":
+        b, s, h, p, n = 2, 64, 4, 16, 16
+        return [ops.ssd(rnd(b, s, h, p, dtype=torch.bfloat16),
+                        rnd(b, s, h).abs(), rnd(h), rnd(b, s, 1, n),
+                        rnd(b, s, 1, n), rnd(h), chunk=16, mode=mode)]
+    if kernel == "layer_grad_norm":
+        return [ops.layer_grad_norms({"a": rnd(3, 5, 7), "b": rnd(3, 70000)},
+                                     mode=mode)]
+    if kernel == "masked_update":
+        p = {"a": rnd(3, 5, 7, dtype=torch.bfloat16), "b": rnd(3, 11)}
+        gr = {"a": rnd(3, 5, 7, dtype=torch.bfloat16), "b": rnd(3, 11)}
+        out = ops.masked_sgd_update(p, gr, rnd(3), 0.1, mode=mode)
+        return [out["a"], out["b"]]
+    x, w = rnd(3, 1, 512), rnd(512, 40)
+    dw = rnd(4, 512, 40)
+    slots = torch.tensor([0, 2, -1, 1], dtype=torch.int32, device=dev)
+    return [ops.base_delta_matmul(x, w, dw, slots, mode=mode)]
+
+
+KERNELS = ("flash_attention", "ssd_scan", "layer_grad_norm",
+           "masked_update", "base_delta_matmul")
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_meta_route_matches_cuda_and_plain_routes(kernel, card_stubs,
+                                                  monkeypatch):
+    def run(device, mode=None):
+        rec = _Recorder()
+        monkeypatch.setattr(ops, "RECORDER", rec)
+        ops.reset_launches()
+        outs = _drive(kernel, device, mode)
+        return outs, rec.calls, dict(ops.LAUNCHES)
+    meta, meta_calls, meta_launches = run("meta")
+    card, card_calls, card_launches = run("cpu", "cuda")
+    plain, plain_calls, plain_launches = run("cpu")
+    assert all(t.is_meta for t in meta)
+    assert [(t.shape, t.dtype) for t in meta] \
+        == [(t.shape, t.dtype) for t in plain]
+    assert meta_calls == card_calls and meta_calls
+    assert all(c[0].startswith(kernel.split("_attention")[0])
+               for c in meta_calls)
+    assert meta_launches == card_launches and meta_launches[kernel] > 0
+    assert plain_calls == [] and not any(plain_launches.values())
+    # bytes moved: each launch's inputs read once, outputs written once
+    assert all(c[3] > 0 for c in meta_calls)
+
+
+def test_meta_route_reports_the_bounds_work(card_stubs, monkeypatch):
+    """The flash reports on meta carry ``flash_flops`` and the bytes of q,
+    k, v, o and lse (forward), and of q, k, v, o, lse, dO, dq, dk, dv
+    (backward)."""
+    rec = _Recorder()
+    monkeypatch.setattr(ops, "RECORDER", rec)
+    _drive("flash_attention", "meta")
+    B, S, H, K, D_ = 2, 64, 4, 2, 16
+    bf, f32 = 2, 4
+    q = B * S * H * D_ * bf
+    kv = B * S * K * D_ * bf
+    lse = B * H * S * f32
+    assert rec.calls == [
+        ("flash_attention", ops.flash_flops(B, H, D_, S, True, 16), 0,
+         q + 2 * kv + q + lse),
+        ("flash_attention_bwd",
+         ops.flash_flops(B, H, D_, S, True, 16, backward=True), 0,
+         q + 2 * kv + q + lse + q + q + 2 * kv)]
+
+
+# ---------------------------------------------------------------------------
+# the live-bytes tracker
+# ---------------------------------------------------------------------------
+
+def test_live_bytes_peak_on_a_hand_built_program():
+    def prog(x):
+        a = x.new_empty(1000)          # 4000 bytes
+        b = x.new_empty(500)           # 2000: 6000 live
+        del a                          # 2000
+        c = x.new_empty(2000)          # 8000: 10000 live, the peak
+        view = c[:10].view(2, 5)       # a view: no new storage
+        del b                          # 8000
+        return (view * 2).sum()        # 40 + 4 bytes: 8044
+    f = tfacts.extract_facts("live", prog, (torch.empty(3, device="meta"),))
+    assert f.temp_bytes == 10000
+    f = tfacts.extract_facts("cpu", prog, (torch.empty(3),))
+    assert f.temp_bytes == 0          # the CPU keeps no peak
+
+
+def test_live_bytes_count_what_autograd_saves():
+    """A tensor saved for the backward stays live after the forward drops
+    its name; the peak holds it beside the gradient."""
+    def prog(w):
+        h = w * 2                      # 400 bytes, saved by exp
+        y = h.exp()                    # 400, saved as exp's result
+        del h
+        loss = y.sum()                 # 4
+        (g,) = torch.autograd.grad(loss, w)
+        return g
+    w = torch.empty(100, device="meta", requires_grad=True)
+    f = tfacts.extract_facts("saved", prog, (w,))
+    assert 1204 <= f.temp_bytes <= 2004
+
+
+# ---------------------------------------------------------------------------
+# full-width TinyLlama train_4k on the 16 × 16 fake world
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def full_width():
+    return run_dry({"data": 16, "model": 16}, [
+        {"kind": "dryrun_pair", "arch": "tinyllama_1_1b",
+         "shape": "train_4k"},
+        {"kind": "fail", "message": "a planned failure"}])
+
+
+def test_full_width_train_4k_argument_bytes(full_width):
+    """Argument bytes = rank 0's shard of every param leaf (its spec's
+    client-axis dim split over those axes) + its client's batch rows, mask
+    row and size."""
+    rep = full_width["results"][0]
+    cfg = get_arch("tinyllama_1_1b")
+    shape = INPUT_SHAPES["train_4k"]
+    mesh_shape = {"data": 16, "model": 16}
+    shapes = init_params(cfg, None, torch.device("meta"))
+    specs = rules.params_pytree_specs(cfg, shapes, zero3=rep["zero3"],
+                                      mesh_shape=mesh_shape)
+
+    def shard_bytes(leaf, spec):
+        """The leaf's bytes over the product of the client axes of the
+        first spec entry naming any (``model`` holds a leaf whole)."""
+        for entry in spec:
+            names = entry if isinstance(entry, tuple) else (entry,)
+            axes = [a for a in names if a in ("pod", "data")]
+            if axes:
+                return (leaf.numel() // math.prod(mesh_shape[a] for a in axes)
+                        * leaf.element_size())
+        return leaf.numel() * leaf.element_size()
+    total = sum(tree_leaves(tree_map(shard_bytes, shapes, specs)))
+    clients = 16
+    total += shape.global_batch // clients * shape.seq_len * 4   # tokens
+    total += cfg.n_layers * 4 + 4                                # mask, size
+    assert rep["memory"]["argument_bytes"] == total
+    assert rep["n_chips"] == 256 and rep["mesh"] == "16x16"
+    assert rep["unrolled_cost_analysis"]["arg_bytes"] == total
+
+
+def test_full_width_train_4k_collectives(full_width):
+    """TinyLlama's 2.2 GB over 16 model ranks stays under the ZeRO-3
+    threshold, so the base is replicated: no all-gather, no reduce-scatter.
+    All-reduces, per device: one for Eq.(7)'s (L,) f32 denominators, one
+    per ``blocks`` leaf for its f32 gradient's Eq.(5) sum over ``data``
+    (no gather to differentiate into a reduce-scatter), and two for the
+    metrics (the f32 loss, the (L,) f32 mask union): 1 + 8 + 2 = 11, of
+    4·(L + Σ blocks elements + 1 + L) bytes each device, × 256 devices in
+    the report.  The kernels: each layer's flash forward twice (the
+    forward, and its rerun under activation checkpointing), its backward
+    once."""
+    rep = full_width["results"][0]
+    cfg = get_arch("tinyllama_1_1b")
+    L = cfg.n_layers
+    blocks = init_params(cfg, None, torch.device("meta"))["blocks"]
+    assert not rep["zero3"]
+    assert rep["collective_counts"] == {"all-reduce": 1 + len(blocks) + 2}
+    per_device = 4 * (L + sum(t.numel() for t in blocks.values()) + 1 + L)
+    assert rep["collective_by_kind"] == {"all-reduce": 256 * per_device}
+    assert rep["collective_bytes"] == 256 * per_device
+    assert rep["kernel_launches"] == {"flash_attention": 2 * L,
+                                      "flash_attention_bwd": L}
+    assert rep["dominant"] in ("compute", "memory", "collective")
+    assert rep["model_flops"] == 6 * rep["n_active_params"] * rep["tokens"]
+    assert rep["flops"] == rep["unrolled_cost_analysis"]["flops"] * 256
+    assert 0 < rep["useful_flops_frac"] < 1
+
+
+def test_dry_world_torn_down_after_a_failure(full_width):
+    assert "a planned failure" in full_width["error"]
+    assert full_width["initialized_after"] is False
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+def _cli(*args, tmp) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--out", str(tmp)], env=_env(), capture_output=True, text=True,
+        timeout=300)
+
+
+def test_cli_writes_the_named_report(tmp_path):
+    r = _cli("--arch", "mamba2_370m", "--shape", "long_500k", tmp=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    path = tmp_path / "mamba2_370m__long_500k__16x16.json"
+    rep = json.loads(path.read_text())
+    assert rep["arch"] == "mamba2_370m" and rep["kind"] == "decode"
+    assert set(rep["memory"]) == {"argument_bytes", "output_bytes",
+                                  "temp_bytes"}
+    assert "compile_s" not in rep and rep["opts"] == []
+
+
+def test_cli_opt_raises_the_tensor_parallelism_error(tmp_path):
+    r = _cli("--arch", "tinyllama_1_1b", "--shape", "train_4k", "--opt",
+             tmp=tmp_path)
+    assert r.returncode != 0
+    assert "tensor parallelism over the 'model' axis is not ported" \
+        in r.stderr
+    assert not list(tmp_path.iterdir())
