@@ -57,7 +57,9 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     plain versions at one TinyLlama layer on the long round's batch (B 4,
     S 1024, H 32, K 4, D 64, bf16, causal), with f32 inputs, a 256 window,
     XLM-R's bidirectional heads, head dims 128 and 256, a ragged S, a head
-    dim of 8 and the seq-128 round's shapes, two launches bit for bit,
+    dim of 8, the seq-128 round's shapes and one model rank's share of
+    the main layer at model 16 (2 query heads, 1 kv head: timed beside
+    its bound, plain version and SDPA), two launches bit for bit,
     logging each case's route (bf16 at head dim 64 or 128 must take the
     tensor-core kernels) and dK/dV grid; times kernels (and each kernel's
     share), plain versions, the SIMT kernels on the same bf16 inputs, SDPA
@@ -170,15 +172,29 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     ``Model.logits_seq`` and 32 greedy mesh decode steps against
     ``Model.decode_step``; then the train CLI for three rounds under
     ``torch.distributed.run`` (finite losses, the probe's
-    ``layer_grad_norm`` launches);
+    ``layer_grad_norm`` launches); with tensor parallelism over ``model``
+    on (``tp_constraints``, model = 1), the τ = 1, ``sel_upload`` and
+    τ = 2 steps, prefill and every decode step's logits bit-equal to the
+    plain programs', with the same collectives; then ``phase_tp_block``:
+    one full-width TinyLlama-1.1B block (bf16,
+    4 × 1024) forward and backward split over M = 2 and M = 16 model
+    coordinates in this process, each coordinate's partial in turn and
+    the model-axis sums by hand, against the whole block (output, input
+    and every leaf's gradient within TP_BLOCK_RTOL; at M = 16 the flash
+    kernels at 2 query heads and 1 kv head on the tensor-core route);
 25. runs ``phase_dryrun``: (a) the dry run's CLI
     (``repro_torch.launch.dryrun``) on the CPU in child processes started
     at the beginning of the script, so that they run beside the card's
     phases and their fake worlds never meet an NCCL one — the single-pod
     ``--all`` (10 archs × 4 shapes on a fake world of 256) and
-    ``--multi-pod`` for TinyLlama's four shapes (512) — one line per pair
-    (FLOPs, argument and temporary GB, collective GB by kind, the dominant
-    roofline term); (b) the card check: full-width TinyLlama-1.1B (flash)
+    ``--multi-pod`` for TinyLlama's four shapes (512), and ``--opt``
+    (tensor parallelism) for the dense family's four archs × four shapes
+    on 16 × 16 — one line per pair (FLOPs, argument and temporary GB,
+    collective GB by kind, the dominant roofline term), and each dense
+    arch's ``train_4k`` with ``--opt`` against without (FLOPs and argument
+    bytes divided by at least 8, the useful share at least 0.5 but for
+    SmolLM's replicated attention); (b) the card check: full-width
+    TinyLlama-1.1B (flash)
     and Mamba2-370M (``ssd_scan``), the τ = 1 FL step at seq 4096,
     prefill at 32 768 and decode over a 32 768 cache, each with its batch
     cut to fit the card, run for real on a world of 1 on NCCL under the
@@ -186,7 +202,8 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     1, meta, in a child): FLOPs within the budget manifest's tolerance,
     argument bytes, kernel launches and collective counts exactly, peak
     temporaries within the manifest's ``temp_bytes`` tolerance; both sides
-    printed;
+    printed; TinyLlama's three again with tensor parallelism on, FLOPs
+    exact;
 26. prints one JSON line of per-kernel results (launches per path, the
     fault, Zamba2, DeepSeek, whisper, theory, strict, audit, distributed
     and dry-run card-check paths among them), the card's name and power
@@ -1575,6 +1592,9 @@ def phase_ssm_serve(card: str) -> dict:
 LONG_SEQ = 1024          # the long TinyLlama round's seq_len
 # One TinyLlama-1.1B layer's attention on the long round's batch
 FLASH_MAIN = dict(b=4, s=LONG_SEQ, h=32, k=4, d=64, causal=True, window=0)
+# The same layer's share on one of 16 model ranks under tensor parallelism
+# (``kv_shared``: 2 query heads and the one kv head they use)
+FLASH_TP_LOCAL = dict(FLASH_MAIN, h=2, k=1)
 
 
 # The flash launch counters of ops.LAUNCHES: totals and per route.
@@ -1709,6 +1729,40 @@ def kernel_ms(fn, flush, n: int = 10) -> dict:
     return out
 
 
+def flash_times(res: dict, shp: dict, dtype, q, k, v, do, flush) -> dict:
+    """Kernel, plain-version, bound and SDPA times (ms) of one case's
+    forward and backward, into ``res``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = shp["causal"], shp["window"]
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    res["bound_ms"], res["bound_by"] = flash_bound(**shp, dtype=dtype)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = flash_bound(
+        **shp, dtype=dtype, backward=True)
+    o, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    res["ms"] = time_ms(lambda: fa.flash_attention(
+        qt, kt, vt, causal=causal, window=window), flush)
+    res["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+        qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+    res["plain_ms"] = time_ms(lambda: fa.flash_attention_torch(
+        qt, kt, vt, causal=causal, window=window), flush)
+    res["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_torch(
+        qt, kt, vt, o, lse, dot, causal=causal, window=window), flush)
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ldo = dot.contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                              enable_gqa=True)
+    res["library_ms"] = time_ms(sdpa, flush)
+    l_out = sdpa()
+    res["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        l_out, (lq, lk, lv), ldo, retain_graph=True), flush)
+    return res
+
+
 def flash_plan(shp: dict, dtype) -> dict:
     """The route of a case and, for the backward, the dK/dV split and grid
     (``flash_attention.route``, ``dkdv_parts``, ``dkdv_grid``)."""
@@ -1813,7 +1867,8 @@ def phase_flash_kernel(card: str) -> dict:
              ("d8_reduced", dict(b=2, s=8, h=4, k=4, d=8, causal=False,
                                  window=0), f32),
              ("round128", dict(m, s=128), bf16),
-             ("eval128", dict(m, b=32, s=128), bf16)]
+             ("eval128", dict(m, b=32, s=128), bf16),
+             ("tp_local_m16", FLASH_TP_LOCAL, bf16)]
     out = {"cases": []}
     for name, shp, dtype in cases:
         causal, window = shp["causal"], shp["window"]
@@ -1841,6 +1896,17 @@ def phase_flash_kernel(card: str) -> dict:
                 f"{res['attend_full_fwd_bwd_ms']:.4f} ms vs SDPA "
                 f"{res['sdpa_fwd_bwd_ms']:.4f} ms; the kernels alone: "
                 f"forward {res['ms']:.4f} ms, backward {res['bwd_ms']:.4f} ms"
+                f"   [{card}]")
+        if name == "tp_local_m16":
+            out["tp_local"] = flash_times(res, shp, dtype, q, k, v, do,
+                                          flush)
+            log(f"[flash-kernel]   {name} (a model rank's share of the main "
+                f"layer at model 16): forward {res['ms']:.4f} ms (bound "
+                f"{res['bound_ms']:.4f}, {res['bound_by']}; plain "
+                f"{res['plain_ms']:.4f}; SDPA {res['library_ms']:.4f}), "
+                f"backward {res['bwd_ms']:.4f} ms (bound "
+                f"{res['bwd_bound_ms']:.4f}, {res['bwd_bound_by']}; plain "
+                f"{res['plain_bwd_ms']:.4f}; SDPA {res['library_bwd_ms']:.4f})"
                 f"   [{card}]")
         if name != "main":
             continue
@@ -5559,6 +5625,7 @@ def phase_distributed(card: str) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from repro_torch.tree import tree_leaves
     from repro_torch.configs.base import RuntimeConfig, get_arch
     from repro_torch.core.client import Client
     from repro_torch.core import aggregation as agg
@@ -5568,8 +5635,9 @@ def phase_distributed(card: str) -> dict:
     from repro_torch.sharding import rules
     from repro_torch.sharding.fl_step import (COLLECTIVES, make_fl_train_step,
                                               make_fl_train_step_tau,
-                                              reset_collectives)
-    from repro_torch.sharding.serve import make_prefill_step, make_serve_step
+                                              reset_collectives, shard_params)
+    from repro_torch.sharding.serve import (make_prefill_step, make_serve_step,
+                                            shard_cache)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5648,6 +5716,32 @@ def phase_distributed(card: str) -> dict:
             res["host_top"] = [[t, k, n] for t, k, n in host]
             return new, res
 
+        def tp_same(tag, want_fn, fn, collectives=None):
+            """(a) of slice 16: the tensor-parallel program (model = 1) run
+            once, its launches the path ``distributed_tp_<tag>``, its
+            result bit-equal to the plain program's (``want_fn()``), its
+            collectives those of the plain step where given."""
+            torch.cuda.synchronize()
+            reset_collectives()
+            ops.reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+            launches, counted = dict(ops.LAUNCHES), dict(COLLECTIVES)
+            paths[f"distributed_tp_{tag}"] = launches
+            same = _params_equal(got, want_fn()) and len(
+                tree_leaves(got)) == len(tree_leaves(want_fn()))
+            out.setdefault("tp_bit_equal", {})[tag] = same
+            log(f"[dist] tensor parallelism on (model = 1), {tag}: bit-equal "
+                f"to the plain program: {same}; collectives {counted}; "
+                f"launches {({k: v for k, v in launches.items() if v})}"
+                f"   [{card}]")
+            check(same, f"[dist] the tensor-parallel {tag} program at "
+                        f"model = 1 differs from the plain one")
+            check(collectives is None or counted == collectives,
+                  f"[dist] the tensor-parallel {tag} step's collectives "
+                  f"{counted} differ from the plain step's {collectives}")
+            return got
+
         # (a) full-width TinyLlama-1.1B
         cfg = get_arch("tinyllama_1_1b")
         rt = RuntimeConfig(remat=False, seq_chunk=LONG_SEQ)
@@ -5676,6 +5770,13 @@ def phase_distributed(card: str) -> dict:
                 model, params, one, masks, sizes, DIST_LR))
         paths["distributed_tinyllama_step"] = out["tinyllama_step"]["launches"]
         del ref
+        tp_rt = dataclasses.replace(rt, tp_constraints=True)
+        tp_model = Model(cfg, tp_rt)
+        tp_step, tp_specs = make_fl_train_step(tp_model, mesh)(params)
+        tp_local = shard_params(tp_model, mesh, params, tp_specs)
+        tp_same("step", lambda: plain, lambda: tp_step(
+            tp_local, batch, masks, sizes, DIST_LR)[0],
+            out["tinyllama_step"]["collectives"])
         sel_model = Model(cfg, dataclasses.replace(rt, sel_upload=True))
         sel_step, _ = make_fl_train_step(sel_model, mesh,
                                          sel_idx=DIST_SEL)(params)
@@ -5688,7 +5789,13 @@ def phase_distributed(card: str) -> dict:
             out["tinyllama_sel_upload"]["param_err"]
         paths["distributed_tinyllama_sel_upload"] = \
             out["tinyllama_sel_upload"]["launches"]
-        del sel_new, plain
+        tp_sel_step, _ = make_fl_train_step(
+            Model(cfg, dataclasses.replace(tp_rt, sel_upload=True)), mesh,
+            sel_idx=DIST_SEL)(params)
+        tp_same("sel_upload", lambda: sel_new, lambda: tp_sel_step(
+            tp_local, batch, masks, sizes, DIST_LR)[0],
+            out["tinyllama_sel_upload"]["collectives"])
+        del sel_new, plain, tp_sel_step
         gen.manual_seed(24)
         tau_tokens = torch.randint(0, cfg.vocab_size,
                                    (1, DIST_TAU, 4, LONG_SEQ), device="cuda",
@@ -5703,7 +5810,7 @@ def phase_distributed(card: str) -> dict:
         tau_step, _ = make_fl_train_step_tau(
             model, mesh, sel_idx=DIST_SEL, tau=DIST_TAU)(params)
         n_leaves = len(params["blocks"])
-        _, out["tinyllama_tau2"] = run_step(
+        tau_new, out["tinyllama_tau2"] = run_step(
             f"TinyLlama-1.1B τ = {DIST_TAU} over rows {DIST_SEL}", model,
             tau_step, local, {"tokens": tau_tokens}, masks, sizes,
             dist_collectives_want(model, specs, tau=DIST_TAU, sel=DIST_SEL),
@@ -5712,6 +5819,16 @@ def phase_distributed(card: str) -> dict:
              "masked_update": DIST_TAU * n_leaves, "layer_grad_norm": 0},
             tau_ref(), params, DIST_SEL, ref_fn=tau_ref)
         paths["distributed_tinyllama_tau2"] = out["tinyllama_tau2"]["launches"]
+        tp_tau_step, _ = make_fl_train_step_tau(
+            tp_model, mesh, sel_idx=DIST_SEL, tau=DIST_TAU)(params)
+        tp_same("tau2", lambda: tau_new, lambda: tp_tau_step(
+            tp_local, {"tokens": tau_tokens}, masks, sizes, DIST_LR)[0],
+            out["tinyllama_tau2"]["collectives"])
+        check(paths["distributed_tp_tau2"]["masked_update"]
+              == DIST_TAU * n_leaves,
+              f"[dist] the tensor-parallel τ = {DIST_TAU} step's "
+              f"masked_update launches: {paths['distributed_tp_tau2']}")
+        del tau_new, tp_tau_step
 
         # (d) mesh serving on the same params
         prefill, _ = make_prefill_step(model, mesh)(params, batch)
@@ -5728,6 +5845,9 @@ def phase_distributed(card: str) -> dict:
         out["prefill"] = {"max_abs_err": err, "ms": pre_ms,
                           "model_ms": plain_ms,
                           "launches": paths["distributed_prefill"]}
+        tp_prefill, _ = make_prefill_step(tp_model, mesh)(params, batch)
+        tp_same("prefill", lambda: got, lambda: tp_prefill(tp_local, one))
+        del tp_prefill
         log(f"[dist] prefill 4 × {LONG_SEQ}: last-position logits against "
             f"Model.logits_seq {err:.3e}; {pre_ms:.2f} ms (Model alone "
             f"{plain_ms:.2f}); flash "
@@ -5780,6 +5900,25 @@ def phase_distributed(card: str) -> dict:
             f"{model_ms:.2f})   [{card}]")
         check(same, "[dist] the mesh decode's tokens differ from "
                     "Model.decode_step's")
+        tp_serve, (_, tp_cspecs) = make_serve_step(tp_model, mesh)(
+            params, model.init_cache(dd["batch"], total), dd["batch"])
+
+        def lockstep(serve_fn, local_params, shard):
+            """The logits of every step of a prompt fed a token a step and
+            then greedy tokens, through one serve step."""
+            cache = shard(model.init_cache(dd["batch"], total))
+            tok, logits = prompt[:, 0], {}
+            for t in range(total - 1):
+                nxt, logits[t], cache = serve_fn(
+                    local_params, tok, torch.tensor(t, dtype=torch.int32,
+                                                    device="cuda"), cache)
+                tok = prompt[:, t + 1] if t + 1 < dd["prompt"] else nxt
+            return logits
+        plain_logits = lockstep(serve, local, lambda c: c)
+        tp_same("decode", lambda: plain_logits, lambda: lockstep(
+            tp_serve, tp_local, lambda c: shard_cache(
+                tp_model, mesh, c, tp_cspecs)))
+        del plain_logits, tp_serve, tp_local, tp_step
         del params, local, prefill, serve, step, sel_step, tau_step, client
         gc.collect()
         torch.cuda.empty_cache()
@@ -5870,6 +6009,143 @@ def phase_distributed(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Slice 16: tensor parallelism over 'model' (the dense family)
+# ---------------------------------------------------------------------------
+
+TP_BLOCK_MS = (2, 16)       # model sizes of the block's split on the card
+# The summed partials of a full-width bf16 block against the whole block:
+# each partial is bf16 products over its share of the heads and columns,
+# summed by hand in f32 and rounded to bf16 once, where the whole block
+# rounds one product over all of them; autograd adds the gradients of
+# shared inputs (x, the norms, a kv head under "kv_shared") from M
+# branches in bf16.  Held relative to the largest magnitude of the whole
+# block's tensor (a reduced bf16 block on the CPU parted by up to 1.1e-2 at
+# M = 4); a wrong head, column or vocabulary mapping parts by order 1.
+TP_BLOCK_RTOL = 5e-2
+
+
+def tp_block_split(cfg, row: dict, x, dy, M: int):
+    """One dense block's parallel form at M model coordinates, computed in
+    this process: each coordinate's attention partial
+    (``blocks.attention_fwd`` on ``TPLayout.compute_slice`` of the full
+    leaves, a ``ModelAxis`` whose f and g are the identity) in turn, summed
+    by hand, then the MLP's on the result.  Returns the output and the
+    gradients of ``x`` and of each full leaf for the cotangent ``dy``."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models.model import _take
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.tensor_parallel import ModelAxis
+    layout = rules.TPLayout(cfg, M)
+    leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
+    xin = x.detach().requires_grad_()
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def summed(sub, inp):
+        n = M if sub == "mlp" or layout.mode != "replicated" else 1
+        tot = None
+        for m in range(n):
+            ax = ModelAxis(layout, m)
+            p = {k: layout.compute_slice(k, v, m) for k, v in leaves.items()}
+            y = (B.attention_fwd(_take(p, "attn_"), inp, cfg, positions=pos,
+                                 tp=ax) if sub == "attn"
+                 else B.mlp_fwd(_take(p, "mlp_"), inp, cfg, tp=ax)).float()
+            tot = y if tot is None else tot + y
+        return tot.to(inp.dtype)
+    h = xin + summed("attn", xin)
+    out = h + summed("mlp", h)
+    grads = torch.autograd.grad(out, [xin, *leaves.values()], dy)
+    return out.detach(), dict(zip(["x", *leaves], grads))
+
+
+def phase_tp_block(card: str) -> dict:
+    """Slice 16 (b): the split itself on the card.  One full-width
+    TinyLlama-1.1B block (bf16, random weights, seed 0) on the long
+    round's batch (4 × 1024), forward and backward, at M = 2 (heads split:
+    16 query and 2 kv heads a coordinate) and M = 16 (2 query heads and
+    the one kv head they share; the flash kernels at 2/1 heads, D 64, on
+    the tensor-core route): each coordinate's partial in turn, the sums
+    by hand, against the whole block (``models.model._dense_block_fwd``):
+    the output, the input's gradient and every leaf's within
+    TP_BLOCK_RTOL.  The split's launches are the paths
+    ``tp_block_m<M>``."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks as B
+    from repro_torch.models.model import _block_shapes, _dense_block_fwd
+    from repro_torch.sharding import rules
+    t_phase = time.perf_counter()
+    cfg = get_arch("tinyllama_1_1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {k: v[0] for k, v in B.init_stacked(
+        gen, _block_shapes(cfg, "dense"), 1, torch.bfloat16, "cuda").items()}
+    # the norms' scales away from 0, so their gradients are not vacuous
+    for k in ("attn_ln", "mlp_ln"):
+        row[k] = (torch.randn(row[k].shape, generator=gen, device="cuda")
+                  * 0.1).to(torch.bfloat16)
+    b, s = 4, LONG_SEQ
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
+    xin = x.detach().requires_grad_()
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    want = _dense_block_fwd(leaves, xin, cfg, positions=pos, window=0)
+    want_g = dict(zip(["x", *leaves], torch.autograd.grad(
+        want, [xin, *leaves.values()], dy)))
+    out, paths = {}, {}
+    for M in TP_BLOCK_MS:
+        layout = rules.TPLayout(cfg, M)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got, got_g = tp_block_split(cfg, row, x, dy, M)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        paths[f"tp_block_m{M}"] = launches
+
+        def rel(a, b_):
+            return ((a.float() - b_.float()).abs().max()
+                    / b_.float().abs().max()).item()
+
+        def rel2(a, b_):
+            return ((a.float() - b_.float()).norm()
+                    / b_.float().norm()).item()
+        pairs = {"out": (got, want.detach()),
+                 **{k: (got_g[k], want_g[k]) for k in want_g}}
+        errs = {k: rel(*v) for k, v in pairs.items()}
+        worst = max(errs, key=errs.get)
+        q, kv = layout.q_heads(0)[1], layout.kv_heads(0)[1]
+        res = {"mode": layout.mode, "q_heads": q, "kv_heads": kv,
+               "rel_err": errs, "launches": launches,
+               "rel_l2_err": {k: rel2(*v) for k, v in pairs.items()}}
+        out[f"m{M}"] = res
+        log(f"[tp-block] TinyLlama-1.1B block, 4 × {s}, bf16, M = {M} "
+            f"({layout.mode}: {q} query / {kv} kv heads a coordinate): the "
+            f"hand-summed partials against the whole block, relative to "
+            f"its largest magnitude: out {errs['out']:.3e}, dx "
+            f"{errs['x']:.3e}, worst leaf {worst} {errs[worst]:.3e} (limit "
+            f"{TP_BLOCK_RTOL:g}; norm-wise, worst "
+            f"{max(res['rel_l2_err'].values()):.3e}); launches "
+            f"{({k: v for k, v in launches.items() if v})}   [{card}]")
+        check(max(errs.values()) <= TP_BLOCK_RTOL and all(
+            math.isfinite(e) for e in errs.values()),
+            f"[tp-block] M = {M}: the split block disagrees with the whole: "
+            f"{errs}")
+        check(launches["flash_attention_mma"] == M
+              and launches["flash_attention_bwd_mma"] == M
+              and launches["flash_attention"] == M,
+              f"[tp-block] M = {M}: each coordinate's attention must launch "
+              f"the tensor-core flash kernels once forward and once "
+              f"backward: {launches}")
+        del got, got_g
+    out["paths"] = paths
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp-block] phase {out['phase_s']:.1f} s   [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Slice 15: the dry run (repro_torch.launch.dryrun), held against the card
 # ---------------------------------------------------------------------------
 
@@ -5882,6 +6158,12 @@ DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
                ("mamba2_370m", "train_4k", 4),
                ("mamba2_370m", "prefill_32k", 2),
                ("mamba2_370m", "decode_32k", 8))
+# Slice 16: TinyLlama's three again under tensor parallelism (model = 1)
+DRYRUN_CARD_TP = tuple(p for p in DRYRUN_CARD if p[0] == "tinyllama_1_1b")
+# The dense family, whose --opt (tensor-parallel) programs the dry run runs
+DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
+                   "gemma_7b")
+DRYRUN_TP_OPTS = ["tp", "rematsc", "moelocal"]
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
 DRYRUN_META = os.path.join(DRYRUN_DIR, "card_check_meta.json")
 DRYRUN_TIMEOUT = 900        # seconds a child may take, from its start
@@ -5892,10 +6174,22 @@ def dryrun_card_shape(shape_name: str, batch: int):
     return dataclasses.replace(INPUT_SHAPES[shape_name], global_batch=batch)
 
 
+def dryrun_card_programs():
+    """(name, arch, shape name, batch, runtime) of the card check's
+    programs: DRYRUN_CARD's, then DRYRUN_CARD_TP's with tensor parallelism
+    on (names ending in ``/tp``)."""
+    from repro_torch.configs.base import RuntimeConfig
+    for arch, shape_name, batch in DRYRUN_CARD:
+        yield f"{arch}/{shape_name}", arch, shape_name, batch, RuntimeConfig()
+    for arch, shape_name, batch in DRYRUN_CARD_TP:
+        yield (f"{arch}/{shape_name}/tp", arch, shape_name, batch,
+               RuntimeConfig(tp_constraints=True))
+
+
 def dryrun_meta(out_path: str) -> int:
-    """The dry side of the card check (``--dryrun-meta``): DRYRUN_CARD's
-    programs on a fake world of 1 (``dry_mesh``, the meta device), their
-    fact rows written to ``out_path``."""
+    """The dry side of the card check (``--dryrun-meta``): the programs of
+    :func:`dryrun_card_programs` on a fake world of 1 (``dry_mesh``, the
+    meta device), their fact rows written to ``out_path``."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.launch.dryrun import build_program, program_facts
@@ -5903,11 +6197,11 @@ def dryrun_meta(out_path: str) -> int:
     torch.set_num_threads(1)
     rows = {}
     with dry_mesh((1, 1), ("data", "model")) as mesh:
-        for arch, shape_name, batch in DRYRUN_CARD:
-            name = f"{arch}/{shape_name}"
+        for name, arch, shape_name, batch, runtime in dryrun_card_programs():
             t0 = time.perf_counter()
             prog = build_program(get_arch(arch),
-                                 dryrun_card_shape(shape_name, batch), mesh)
+                                 dryrun_card_shape(shape_name, batch), mesh,
+                                 runtime)
             rows[name] = program_facts(name, prog).to_dict()
             print(f"[dryrun-meta] {name}: {time.perf_counter() - t0:.1f} s",
                   flush=True)
@@ -5935,7 +6229,10 @@ class DryrunChildren:
                 "multi_pod": cli + ["--all", "--multi-pod", "--arch",
                                     "tinyllama_1_1b"],
                 "card_meta": [sys.executable, os.path.abspath(__file__),
-                              "--dryrun-meta", DRYRUN_META]}
+                              "--dryrun-meta", DRYRUN_META],
+                # slice 16: the dense family's tensor-parallel programs
+                **{f"opt_{a}": cli + ["--all", "--opt", "--arch", a]
+                   for a in DRYRUN_TP_ARCHS}}
         self.t0 = time.perf_counter()
         self.procs, self.logs, self.ended = {}, {}, {}
         for tag, cmd in cmds.items():
@@ -6022,23 +6319,46 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
     want = [(a, s, m) for m, archs in (("16x16", ASSIGNED_ARCHS),
                                        ("2x16x16", ("tinyllama_1_1b",)))
             for a in archs for s in INPUT_SHAPES]
+    want = [(a, s, m, []) for a, s, m in want] + [
+        (a, s, "16x16", DRYRUN_TP_OPTS) for a in DRYRUN_TP_ARCHS
+        for s in INPUT_SHAPES]
     missing = [w for w in want if not os.path.exists(
-        os.path.join(DRYRUN_DIR, report_name(*w, [])))]
+        os.path.join(DRYRUN_DIR, report_name(*w)))]
     check(not missing, f"[dryrun] no report for {missing}")
     check(len(glob.glob(os.path.join(DRYRUN_DIR, "*__*.json"))) == len(want),
           "[dryrun] reports beside the expected ones")
-    for a, s, m in want:
-        with open(os.path.join(DRYRUN_DIR, report_name(a, s, m, []))) as fh:
+    for a, s, m, opts in want:
+        with open(os.path.join(DRYRUN_DIR, report_name(a, s, m, opts))) as fh:
             r = json.load(fh)
         log(f"[dryrun] {dryrun_line(r)}")
-        out["pairs"][f"{a}/{s}/{m}"] = {
+        tag = f"{a}/{s}/{m}" + ("/tp" if opts else "")
+        out["pairs"][tag] = {
             k: r[k] for k in ("zero3", "flops", "hbm_bytes",
                               "collective_bytes", "collective_by_kind",
                               "collective_counts", "kernel_launches",
                               "dominant", "useful_flops_frac", "memory",
                               "lower_s")}
         check(r["flops"] > 0 and r["memory"]["argument_bytes"] > 0,
-              f"[dryrun] {a}/{s}/{m}: an empty report")
+              f"[dryrun] {a}/{s}/{m} {opts}: an empty report")
+    for a in DRYRUN_TP_ARCHS:
+        plain = out["pairs"][f"{a}/train_4k/16x16"]
+        tp = out["pairs"][f"{a}/train_4k/16x16/tp"]
+        pf = plain["flops"] / tp["flops"]
+        pa = (plain["memory"]["argument_bytes"]
+              / tp["memory"]["argument_bytes"])
+        log(f"[dryrun] tensor parallelism (--opt), {a} train_4k on 16x16: "
+            f"FLOPs ÷{pf:.2f}, argument bytes ÷{pa:.2f}, useful "
+            f"{plain['useful_flops_frac']:.4f} → "
+            f"{tp['useful_flops_frac']:.4f}, temp "
+            f"{plain['memory']['temp_bytes'] / 1e9:.3f} → "
+            f"{tp['memory']['temp_bytes'] / 1e9:.3f} GB a device")
+        check(pa >= 8 and tp["collective_counts"].get("all-reduce", 0)
+              > plain["collective_counts"].get("all-reduce", 0),
+              f"[dryrun] {a}: --opt does not split the step over 'model'")
+        check(a == "smollm_360m" or (pf >= 8
+                                     and tp["useful_flops_frac"] >= 0.5),
+              f"[dryrun] {a}: --opt FLOPs ÷{pf:.2f}, useful "
+              f"{tp['useful_flops_frac']}")
 
     # (b) the card check
     with open(DRYRUN_META) as fh:
@@ -6051,16 +6371,17 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
                             world_size=1)
     try:
         mesh = make_host_mesh(1, 1)
-        for arch, shape_name, batch in DRYRUN_CARD:
-            name = f"{arch}/{shape_name}"
+        for name, arch, shape_name, batch, runtime in dryrun_card_programs():
             shape = dryrun_card_shape(shape_name, batch)
             full = INPUT_SHAPES[shape_name]
             t0 = time.perf_counter()
-            prog = build_program(get_arch(arch), shape, mesh)
+            prog = build_program(get_arch(arch), shape, mesh, runtime)
             torch.cuda.synchronize()
             ops.reset_launches()
             f = program_facts(name, prog)
-            paths[f"dryrun_{arch}_{shape.kind}"] = dict(ops.LAUNCHES)
+            paths[f"dryrun_{arch}_{shape.kind}"
+                  + ("_tp" if runtime.tp_constraints else "")] = dict(
+                ops.LAUNCHES)
             run_s = time.perf_counter() - t0
             del prog
             gc.collect()
@@ -6096,6 +6417,9 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
                   f"[dryrun] {name}: the dry run disagrees with the card: "
                   f"{bad}, collectives {f.collective_counts} / "
                   f"{dry.collective_counts}")
+            check(not runtime.tp_constraints or f.flops == dry.flops,
+                  f"[dryrun] {name}: FLOPs {f.flops} on the card, "
+                  f"{dry.flops} in the dry run")
         check(any(p.get("flash_attention", 0) for p in paths.values())
               and any(p.get("ssd_scan", 0) for p in paths.values()),
               f"[dryrun] the card check launched no flash or ssd_scan "
@@ -6215,6 +6539,8 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dst = phase_distributed(card)
+        # slice 16: the tensor-parallel split of one block, summed by hand
+        tpb = phase_tp_block(card)
         # slice 15: the dry run, and its counts against the card's
         gc.collect()
         torch.cuda.empty_cache()
@@ -6239,7 +6565,10 @@ def main(argv=None) -> int:
                      "tinyllama_strict": con["strict_launches"],
                      "audit_full_width": con["audit_launches"],
                      # slice 13: the distributed steps, mesh serving, the CLI
+                     # (slice 16: and their tensor-parallel programs)
                      **dst["paths"],
+                     # slice 16: the block's split at M = 2 and 16
+                     **tpb["paths"],
                      # slice 15: the dry run's card check
                      **dry["paths"]}
     delta_paths = {"serve": served["delta"]["launches"],
@@ -6370,6 +6699,10 @@ def main(argv=None) -> int:
     flash_shapes = [{k: v for k, v in c.items()}
                     for c in flash["cases"] + hyk["flash"] + auk["flash"]]
     whisper_flash = {c["case"]: c for c in auk["flash"]}
+    tpl = flash["tp_local"]
+    tp_flash = {k: tpl[k] for k in (
+        "b", "s", "h", "k", "d", "causal", "o_max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, key, err_keys, extra in (
             ("flash_attention", "flash_attention", ("o_max_abs_err",),
              {"ms": fm["ms"], "plain_ms": fm["plain_ms"],
@@ -6382,7 +6715,8 @@ def main(argv=None) -> int:
                   c: {k: whisper_flash[c][k] for k in (
                       "ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "o_max_abs_err")}
-                  for c in whisper_flash}}),
+                  for c in whisper_flash},
+              "tp_local_heads": tp_flash}),
             ("flash_attention_bwd", "flash_attention_bwd",
              ("dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err"),
              {"ms": fm["bwd_ms"], "plain_ms": fm["plain_bwd_ms"],
@@ -6402,7 +6736,14 @@ def main(argv=None) -> int:
                       "bound_ms": whisper_flash[c]["bwd_bound_ms"],
                       "bound_by": whisper_flash[c]["bwd_bound_by"],
                       "library_ms": whisper_flash[c]["library_bwd_ms"]}
-                  for c in whisper_flash}})):
+                  for c in whisper_flash},
+              "tp_local_heads": {
+                  "ms": tpl["bwd_ms"], "plain_ms": tpl["plain_bwd_ms"],
+                  "bound_ms": tpl["bwd_bound_ms"],
+                  "bound_by": tpl["bwd_bound_by"],
+                  "library_ms": tpl["library_bwd_ms"],
+                  "max_abs_err": max(tpl[f"{g}_max_abs_err"]
+                                     for g in ("dq", "dk", "dv"))}})):
         by_path = {p: l[key] for p, l in flash_paths.items()}
         by_route = {r: sum(l[f"{key}_{r}"] for l in flash_paths.values())
                     for r in ("mma", "simt")}

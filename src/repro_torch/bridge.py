@@ -10,7 +10,11 @@ back on the torch side, so the round trip is exact.
 On a mesh (``sharding/``), :func:`params_to_local` turns a full tree into
 this rank's storage shards (sliced on the host, so the full tree never
 reaches the device) and :func:`gather_params` joins the shards back into
-the full tree on every rank (a collective: every rank calls it).
+the full tree on every rank (a collective: every rank calls it).  Given a
+tensor-parallel ``layout`` (``sharding.fl_step.storage_layout``), both
+take its storage: model slices too, a gated ``mlp_wi`` reordered
+(``sharding.rules.TPLayout``); a full tree goes to shards and back to
+the same full tree, bit for bit.
 """
 from __future__ import annotations
 
@@ -56,17 +60,24 @@ def params_to_numpy(params: dict) -> dict:
     return to_numpy_tree(params)
 
 
-def params_to_local(tree: dict, specs: dict, mesh, dtype=None) -> dict:
+def params_to_local(tree: dict, specs: dict, mesh, dtype=None,
+                    layout=None) -> dict:
     """numpy (or array-like) full leaves → this rank's shards on
     ``mesh.device`` by ``specs`` (``sharding.rules.params_pytree_specs``):
     the slice along the spec's client-axis dim, or the whole leaf when it
-    is replicated."""
+    is replicated; with a tensor-parallel ``layout``,
+    ``rules.tp_local_shard``'s slice."""
     from repro_torch.sharding import rules
 
-    def to_local(node, spec):
+    def to_local(node, spec, path=()):
         if isinstance(node, dict):
-            return {k: to_local(v, spec[k]) for k, v in node.items()}
+            return {k: to_local(v, spec[k], path + (k,))
+                    for k, v in node.items()}
         arr = np.asarray(node)
+        if layout is not None:
+            return _leaf_to_torch(
+                rules.tp_local_shard(arr, spec, mesh, layout, path),
+                mesh.device, dtype)
         dim, axes = rules.shard_dim(spec)
         if dim is not None:
             size = arr.shape[dim] // mesh.size(axes)
@@ -76,8 +87,11 @@ def params_to_local(tree: dict, specs: dict, mesh, dtype=None) -> dict:
     return to_local(tree, specs)
 
 
-def gather_params(local: dict, specs: dict, mesh) -> dict:
-    """This rank's shards → the full tree, on every rank of the mesh."""
-    from repro_torch.sharding.fl_step import gather_tree
+def gather_params(local: dict, specs: dict, mesh, layout=None) -> dict:
+    """This rank's shards → the full tree, on every rank of the mesh
+    (under a tensor-parallel ``layout`` from its storage)."""
+    from repro_torch.sharding.fl_step import gather_tree, gather_tree_tp
     with torch.no_grad():
+        if layout is not None:
+            return gather_tree_tp(local, specs, mesh, layout)
         return gather_tree(local, specs, mesh)

@@ -14,7 +14,8 @@ move nothing), on meta tensors, under the program auditor
      (``make_prefill_step``) or the serve step (``make_serve_step`` with
      :func:`window_for`'s window) — with inputs from ``launch/specs.py``,
      the cohort rows of ``fl_step.shard_cohort_rows`` and rank 0's shards
-     of ``rules.shard_tree``, all on the meta device;
+     of ``fl_step.shard_params`` (``serve.shard_cache`` for a cache), all
+     on the meta device;
   2. runs it once: the Hopper kernels take their meta route
      (``kernels/ops.py``: what the card's launch allocates, its launch
      counted and its work reported), so the facts are those of the
@@ -40,7 +41,12 @@ for real (``tests/test_torch_dryrun.py``, ``chip_smoke.phase_dryrun``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
-      --shape train_4k [--multi-pod] [--all] [--out DIR]
+      --shape train_4k [--multi-pod] [--all] [--opt] [--out DIR]
+
+``--opt`` turns on the reference's §Perf levers (:func:`opt_runtime`),
+tensor parallelism over ``model`` among them: the dense family's steps
+split over ``model`` (``sharding/tensor_parallel.py``) and write
+``…__tp-rematsc-moelocal.json``; the other families' raise.
 """
 from __future__ import annotations
 
@@ -68,9 +74,9 @@ from repro_torch.models.model import (Model, count_active_params,
 from repro_torch.sharding import roofline as R
 from repro_torch.sharding import rules
 from repro_torch.sharding.fl_step import (make_fl_train_step,
-                                          shard_cohort_rows)
+                                          shard_cohort_rows, shard_params)
 from repro_torch.sharding.serve import (batch_spec, make_prefill_step,
-                                        make_serve_step)
+                                        make_serve_step, shard_cache)
 from repro_torch.tree import tree_leaves, tree_map
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -218,7 +224,7 @@ def build_program(cfg: ArchConfig, shape: ShapeConfig, mesh,
     shapes = param_shapes(cfg)
 
     def local(params, specs):
-        return rules.shard_tree(params, specs, mesh)
+        return shard_params(model, mesh, params, specs)
 
     if shape.kind == "train":
         step, specs = make_fl_train_step(model, mesh, zero3=zero3,
@@ -251,7 +257,7 @@ def build_program(cfg: ArchConfig, shape: ShapeConfig, mesh,
                        device=mesh.device)
     args = (local(inputs.params(), specs),
             rules.local_shard(inputs.fill(tok), bspec, mesh), pos,
-            local(cache, c_specs))
+            shard_cache(model, mesh, cache, c_specs))
     return Program(fn, args, zero3)
 
 
@@ -333,6 +339,14 @@ def run_one(arch: str, shape: str, multi_pod: bool, save: bool = True,
     return report
 
 
+def opt_runtime(sel_frac: float) -> RuntimeConfig:
+    """The ``--opt`` levers (the reference's): tensor parallelism over
+    ``model``, chunk remat, per-sample moe dispatch, and the structural
+    upload when ``sel_frac`` selects rows."""
+    return RuntimeConfig(tp_constraints=True, remat_scores=True,
+                         moe_local_dispatch=True, sel_upload=sel_frac > 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
@@ -341,9 +355,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--continue-on-error", action="store_true")
     ap.add_argument("--opt", action="store_true",
-                    help="enable §Perf levers (tp constraints + chunk remat); "
-                         "tensor parallelism is not ported, so the steps "
-                         "raise")
+                    help="enable §Perf levers (tp constraints + chunk remat): "
+                         "tensor parallelism over 'model' for the dense "
+                         "family; the other families' steps raise")
     ap.add_argument("--sel-frac", type=float, default=0.0,
                     help="static selected-layer fraction for sel_upload")
     ap.add_argument("--out", default=OUT_DIR,
@@ -351,11 +365,7 @@ def main(argv=None) -> int:
                          "build/dryrun/)")
     args = ap.parse_args(argv)
 
-    runtime = RuntimeConfig()
-    if args.opt:
-        runtime = RuntimeConfig(tp_constraints=True, remat_scores=True,
-                                moe_local_dispatch=True,
-                                sel_upload=args.sel_frac > 0)
+    runtime = opt_runtime(args.sel_frac) if args.opt else RuntimeConfig()
     if args.all:
         archs = ASSIGNED_ARCHS if args.arch is None else [args.arch]
         shapes = list(INPUT_SHAPES) if args.shape is None else [args.shape]

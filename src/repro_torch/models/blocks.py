@@ -269,7 +269,7 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                   remat_chunk: bool = False,
                   delta: Optional[dict] = None,
                   delta_slots: Optional[torch.Tensor] = None,
-                  kernel_mode: Optional[str] = None):
+                  kernel_mode: Optional[str] = None, tp=None):
     """One attention sub-block (pre-norm, residual added by caller).
 
     Without a cache (training, prefill) the block attends over its own
@@ -307,9 +307,20 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ({leaf_name: (C, *shape)} + (C,) owner slots, -1 = empty); projections
     then go through :func:`repro_torch.kernels.ops.base_delta_matmul`
     (``kernel_mode`` likewise).
+
+    ``tp``: the parallel form (``sharding.tensor_parallel.ModelAxis``).
+    ``p`` then holds this model coordinate's leaves: ``tp.n_heads`` query
+    heads and ``tp.n_kv_heads`` kv heads (their biases with them); the
+    normed input passes ``tp.copy`` (Megatron's f) when attention is
+    split, and the row-parallel ``wo`` returns this coordinate's partial
+    sum, which the caller reduces over ``model``.  Under the replicated
+    mode (``tp.attn_split`` false) ``p`` is whole and so is the output.
+    A cache holds the rank's kv heads.
     """
     B, S, d = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if tp is not None:
+        H, Kh = tp.n_heads, tp.n_kv_heads
     scale = 1.0 / math.sqrt(hd)
 
     def proj(h_, name):
@@ -322,6 +333,8 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if delta is not None and "ln" in delta:
         ln = per_slot_param(ln, delta["ln"], delta_slots, B)
     h = rms_norm(x, ln, cfg.norm_eps)
+    if tp is not None and tp.attn_split:
+        h = tp.copy(h)
     q = proj(h, "wq").reshape(B, S, H, hd)
     if cross_kv is not None:
         return _cross_attention(p, q, cross_kv, cfg, positions=positions,
@@ -437,7 +450,13 @@ def mlp_param_shapes(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
 def mlp_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             delta: Optional[dict] = None,
             delta_slots: Optional[torch.Tensor] = None,
-            delta_mode: Optional[str] = None) -> torch.Tensor:
+            delta_mode: Optional[str] = None, tp=None) -> torch.Tensor:
+    """One MLP sub-block (pre-norm, residual added by caller).  A gated
+    ``wi`` is [gate|up] on its last dim.  ``tp`` (the parallel form): ``p``
+    holds this model coordinate's columns of ``wi`` (gate[:, m] |
+    up[:, m] when gated) and rows of ``wo``, the normed input passes
+    ``tp.copy``, and the result is this coordinate's partial sum, which
+    the caller reduces over ``model``."""
     def proj(h_, name):
         if delta is not None and name in delta:
             return _kops.base_delta_matmul(h_, p[name], delta[name],
@@ -448,6 +467,8 @@ def mlp_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if delta is not None and "ln" in delta:
         ln = per_slot_param(ln, delta["ln"], delta_slots, x.shape[0])
     h = rms_norm(x, ln, cfg.norm_eps)
+    if tp is not None:
+        h = tp.copy(h)
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_act == "gelu_plain":
         return proj(act(proj(h, "wi")), "wo")

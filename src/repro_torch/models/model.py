@@ -292,28 +292,33 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                      positions, window, cache=None, cache_pos=None,
                      causal=True, prefix_len=0, seq_chunk=1024,
                      remat_chunk=False, delta=None, kernel_mode=None,
-                     cross_kv=None):
+                     cross_kv=None, tp=None):
     # delta: (slots (C,), {leaf_name: (C, *shape)}) — this layer's row of
     # the per-slot serving overlay; leaf names are split by sub-block prefix.
     # cross_kv: whisper's decoder rows (an ``xattn_`` sub-block) attend over
     # the encoder's (k, v) after their self-attention.
+    # tp: the parallel form (``sharding.tensor_parallel.ModelAxis``): each
+    # sub-block returns this model coordinate's partial sum and
+    # ``tp.reduce`` (Megatron's g) adds them up over ``model``.
     dslots = dattn = dmlp = None
     if delta is not None:
         dslots, dleaves = delta
         dattn = _take(dleaves, "attn_") or None
         dmlp = _take(dleaves, "mlp_") or None
-    x = x + B.attention_fwd(_take(p, "attn_"), x, cfg, positions=positions,
-                            cache=cache, cache_pos=cache_pos, causal=causal,
-                            window=window, prefix_len=prefix_len,
-                            seq_chunk=seq_chunk, remat_chunk=remat_chunk,
-                            delta=dattn, delta_slots=dslots,
-                            kernel_mode=kernel_mode)
+    a = B.attention_fwd(_take(p, "attn_"), x, cfg, positions=positions,
+                        cache=cache, cache_pos=cache_pos, causal=causal,
+                        window=window, prefix_len=prefix_len,
+                        seq_chunk=seq_chunk, remat_chunk=remat_chunk,
+                        delta=dattn, delta_slots=dslots,
+                        kernel_mode=kernel_mode, tp=tp)
+    x = x + (tp.reduce(a) if tp is not None and tp.attn_split else a)
     if "xattn_ln" in p:
         x = x + B.attention_fwd(_take(p, "xattn_"), x, cfg,
                                 positions=positions, cross_kv=cross_kv,
                                 causal=False, seq_chunk=seq_chunk)
-    return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp,
-                         delta_slots=dslots, delta_mode=kernel_mode)
+    m = B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp, delta_slots=dslots,
+                  delta_mode=kernel_mode, tp=tp)
+    return x + (m if tp is None else tp.reduce(m))
 
 
 def _moe_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
@@ -406,9 +411,19 @@ class Model:
         return init_params(self.cfg, gen, self.device)
 
     # -- embedding / head --------------------------------------------------
-    def _embed_tokens(self, params, tokens):
+    def _embed_tokens(self, params, tokens, tp=None):
+        """Token embeddings.  ``tp``: vocab-parallel, ``tok`` holds this
+        model coordinate's rows; ids outside them embed as zeros and
+        ``tp.reduce`` sums the coordinates' rows."""
         cfg = self.cfg
-        x = params["embed"]["tok"][tokens.long()]
+        if tp is None:
+            x = params["embed"]["tok"][tokens.long()]
+        else:
+            tok = params["embed"]["tok"]
+            local = tokens.long() - tp.vocab_start
+            mine = (local >= 0) & (local < tok.shape[0])
+            x = tp.reduce(torch.where(
+                mine[..., None], tok[local.clamp(0, tok.shape[0] - 1)], 0))
         if cfg.rope_theta == 0.0:
             S = tokens.shape[1]
             pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -416,12 +431,17 @@ class Model:
         return x * (cfg.d_model ** 0.5
                     if cfg.name.startswith(("gemma", "paligemma")) else 1.0)
 
-    def _head(self, params, h):
+    def _head(self, params, h, tp=None):
+        """Logits of ``h``.  ``tp``: vocab-parallel, all-gathered over
+        ``model`` (``tp.gather_last``), so every rank returns them whole."""
         cfg = self.cfg
         h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
         if cfg.task == "classification":
             return h @ params["head"]
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]
+        if tp is not None:
+            return tp.gather_last(B.softcap(tp.copy(h) @ w,
+                                            cfg.logit_softcap))
         return B.softcap(h @ w, cfg.logit_softcap)
 
     # -- sequence forward (train / prefill) ---------------------------------
@@ -534,7 +554,8 @@ class Model:
 
     def _seq_segments(self, params: dict, positions: torch.Tensor,
                       causal: bool, prefix_len: int,
-                      enc_out: Optional[torch.Tensor] = None) -> list:
+                      enc_out: Optional[torch.Tensor] = None,
+                      tp=None) -> list:
         """The sequence forward's stacked segments in order, as (path,
         ``layer_fn(carry, row_params)``, ``after_row``); the carry is
         (hidden, aux loss), which only the moe rows add to.  whisper's
@@ -580,12 +601,12 @@ class Model:
                                     prefix_len=prefix_len,
                                     seq_chunk=rt.seq_chunk,
                                     remat_chunk=rt.remat_scores,
-                                    kernel_mode=km), carry[1]
+                                    kernel_mode=km, tp=tp), carry[1]
         return [("blocks", dense_row, None)]
 
     def hidden_seq(self, params: dict, batch: dict, *,
                    trainable: Optional[dict] = None, cut: int = 0,
-                   layer_hook=None):
+                   layer_hook=None, tp=None):
         """Full-sequence forward.  Returns (hidden, aux_loss, prefix_len).
 
         ``layer_hook(row_params, idx, segment)`` (the reference's) is
@@ -608,6 +629,11 @@ class Model:
         encoder (:meth:`encode`, at ``enc_blocks``' cut) and then the
         decoder's rows over the token embeddings; a fully frozen encoder
         (a cut at or past ``n_enc_layers``) runs without a graph.
+
+        ``tp`` (``sharding.tensor_parallel.ModelAxis``, the dense family's
+        language models): the parallel form over ``model``, ``params``
+        this model coordinate's (the hook's rows too); the hidden state
+        comes out whole on every rank.
         """
         cfg = self.cfg
         if trainable is not None and not supports_prefix_cut(cfg):
@@ -632,12 +658,13 @@ class Model:
                 x = torch.cat([px, self._embed_tokens(params,
                                                       batch["tokens"])], 1)
         else:
-            x = self._embed_tokens(params, batch["tokens"])
+            x = self._embed_tokens(params, batch["tokens"], tp)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
         for path, layer_fn, after_row in self._seq_segments(
-                params, positions, cfg.task == "lm", prefix_len, enc_out):
+                params, positions, cfg.task == "lm", prefix_len, enc_out,
+                tp):
             carry = self._run_stack(
                 layer_fn, carry, params[path],
                 None if trainable is None else trainable.get(path, {}),
@@ -653,27 +680,30 @@ class Model:
     # -- losses --------------------------------------------------------------
     def seq_loss(self, params: dict, batch: dict, *,
                  trainable: Optional[dict] = None, cut: int = 0,
-                 layer_hook=None) -> torch.Tensor:
+                 layer_hook=None, tp=None) -> torch.Tensor:
         h, aux, prefix_len = self.hidden_seq(
             params, batch, trainable=trainable, cut=cut,
-            layer_hook=layer_hook)
-        return self.loss_from_hidden(params, h, aux, prefix_len, batch)
+            layer_hook=layer_hook, tp=tp)
+        return self.loss_from_hidden(params, h, aux, prefix_len, batch,
+                                     tp=tp)
 
     loss = seq_loss
 
     def logits_seq(self, params: dict, batch: dict, *,
-                   layer_hook=None) -> torch.Tensor:
+                   layer_hook=None, tp=None) -> torch.Tensor:
         """Full-sequence logits at the last position, or of the pooled
         hidden state for a classifier (ref ``Model.logits_seq``; the mesh
-        prefill calls it with its gathering ``layer_hook``)."""
-        h, _, _ = self.hidden_seq(params, batch, layer_hook=layer_hook)
+        prefill calls it with its gathering ``layer_hook`` and, under
+        tensor parallelism, ``tp``: the logits come out whole)."""
+        h, _, _ = self.hidden_seq(params, batch, layer_hook=layer_hook,
+                                  tp=tp)
         if self.cfg.task == "classification":
             return self._head(params, h.mean(1)[:, None])[:, 0]
-        return self._head(params, h[:, -1:])[:, 0]
+        return self._head(params, h[:, -1:], tp)[:, 0]
 
     def loss_from_hidden(self, params: dict, h: torch.Tensor,
                          aux: torch.Tensor, prefix_len: int,
-                         batch: dict) -> torch.Tensor:
+                         batch: dict, tp=None) -> torch.Tensor:
         """The loss tail on an already-computed hidden state, shared by
         :meth:`loss` and the single-forward eval (``core/client.py``)."""
         cfg = self.cfg
@@ -685,22 +715,40 @@ class Model:
             return ce.mean() + aux
         tokens = batch["tokens"]
         text_h = h[:, prefix_len:] if prefix_len else h
-        return self._lm_ce(params, text_h[:, :-1], tokens[:, 1:]) + aux
+        return self._lm_ce(params, text_h[:, :-1], tokens[:, 1:],
+                           tp=tp) + aux
 
     def _lm_ce(self, params: dict, h: torch.Tensor, targets: torch.Tensor,
-               chunk: int = 1024) -> torch.Tensor:
+               chunk: int = 1024, tp=None) -> torch.Tensor:
         """Next-token cross-entropy, by chunks of ``chunk`` positions when
         the sequence is a longer multiple of it (never the whole (B,S,V)
-        f32 logits at once)."""
+        f32 logits at once).  ``tp``: vocab-parallel, each chunk's logits
+        this model coordinate's columns: the max over ``model``
+        (``tp.reduce_max``), then Σ exp and the gold logit (from the rank
+        that owns it) summed over ``model`` in one ``tp.reduce``."""
         cfg = self.cfg
         h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
         w = params["embed"]["tok"].T if cfg.tie_embeddings \
             and cfg.task == "lm" else params["head"]
 
         def token_ce(hi, ti):
+            if tp is not None:
+                return vocab_parallel_ce(hi, ti)
             logits = B.softcap(hi @ w, cfg.logit_softcap).float()
             gold = logits.gather(-1, ti.long()[..., None])[..., 0]
             return torch.logsumexp(logits, -1) - gold
+
+        def vocab_parallel_ce(hi, ti):
+            logits = B.softcap(tp.copy(hi) @ w, cfg.logit_softcap).float()
+            top = tp.reduce_max(logits.detach().amax(-1))
+            local = ti.long() - tp.vocab_start
+            mine = (local >= 0) & (local < logits.shape[-1])
+            gold = logits.gather(-1, local.clamp(
+                0, logits.shape[-1] - 1)[..., None])[..., 0]
+            se, gold = tp.reduce(torch.stack([
+                torch.exp(logits - top[..., None]).sum(-1),
+                torch.where(mine, gold, 0.0)]))
+            return torch.log(se) + top - gold
 
         S = h.shape[1]
         if S <= chunk or S % chunk:
@@ -847,7 +895,7 @@ class Model:
     @torch.inference_mode()
     def decode_step(self, params: dict, tokens: torch.Tensor,
                     pos: torch.Tensor, cache: dict, *, window: int = 0,
-                    delta: Optional[dict] = None, layer_hook=None):
+                    delta: Optional[dict] = None, layer_hook=None, tp=None):
         """One decode step. tokens: (B,) int; pos: 0-d int32, or a (B,)
         per-slot position vector over a ``per_slot`` cache.
 
@@ -862,9 +910,16 @@ class Model:
         ``blocks`` row before it runs (the mesh serve step gathers the
         row's ZeRO-3 shards there).
 
+        ``tp``: the parallel form over ``model`` (dense language models,
+        no delta): this model coordinate's params, a cache of its kv heads
+        (``sharding.serve.shard_cache``), the logits gathered whole.
+
         Returns (logits (B, V), cache) — the cache updated in place.
         """
         cfg = self.cfg
+        if tp is not None and delta is not None:
+            raise ValueError("a tensor-parallel decode takes no delta "
+                             "overlay")
         if delta is not None and not supports_delta_decode(cfg):
             raise ValueError(f"family {cfg.family!r} has no delta-decode path")
         per_slot = pos.dim() == 1
@@ -874,7 +929,7 @@ class Model:
                 "reference's cross-attention under per-slot positions does "
                 "not run, and neither package fills a slot's cross cache "
                 "from the encoder")
-        x = self._embed_tokens(params, tokens[:, None])
+        x = self._embed_tokens(params, tokens[:, None], tp)
         if cfg.rope_theta == 0.0:
             # sinusoidal position of the *current* slot
             sp = (B.sinusoid_positions(pos[:, None], cfg.d_model) if per_slot
@@ -905,5 +960,5 @@ class Model:
                                  cache=kv_l, cache_pos=pos, delta=dl,
                                  kernel_mode=self.kernel_mode,
                                  cross_kv=None if xkv is None
-                                 else (xkv["k"][li], xkv["v"][li]))
-        return self._head(params, x)[:, 0], cache
+                                 else (xkv["k"][li], xkv["v"][li]), tp=tp)
+        return self._head(params, x, tp)[:, 0], cache

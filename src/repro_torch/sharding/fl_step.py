@@ -4,10 +4,17 @@ mesh (counterpart of ``repro/sharding/fl_step.py``).
 Mapping (DESIGN.md §4): one cohort client per (pod×data) mesh coordinate,
 one process per coordinate.  Every function runs on each rank over its
 local shards; the cohort meets only in the collectives, which run on the
-``data`` (and ``pod``) sub-groups of the mesh.  Each client's compute is
-replicated over ``model``, as in the reference's own fully manual
-fallback (its ``_shard_map`` docstring): identical values, no tensor
-parallelism; a ``RuntimeConfig(tp_constraints=True)`` raises.
+``data`` (and ``pod``) sub-groups of the mesh.  By default each client's
+compute is replicated over ``model``, as in the reference's own fully
+manual fallback (its ``_shard_map`` docstring).  With
+``RuntimeConfig(tp_constraints=True)`` the dense family's step is split
+over ``model`` instead, the values those of GSPMD under the reference's
+Megatron constraints: a rank stores and computes its model slice
+(``rules.TPLayout``, :func:`storage_layout`), the row loop's hook views
+each gathered row as the rank's share (``tensor_parallel.ModelAxis``)
+and the model runs its parallel form (f and g around every block's
+products, a vocab-parallel embedding and cross-entropy).  Every other
+family raises on it (``rules.check_tp_family``).
 
 The per-(client, layer) aggregation of Eq. (5)-(7) is fused into one
 backward pass, with the reference's two tricks:
@@ -16,9 +23,11 @@ backward pass, with the reference's two tricks:
    Applied per layer to the (gathered) parameters with ``c = w_{i,l}``,
    it makes client i's weight-gradient contribution ``w_{i,l}·g_{i,l}``.
 2. **differentiable ZeRO-3 gather**: the frozen base is stored sharded
-   over ``data``; the all-gather inside the loss (:class:`_ZGather`)
-   differentiates to an f32 reduce-scatter, which *is* the Eq. (5) sum
-   over clients, landing the update already in storage layout.
+   over ``data``; the all-gather inside the loss
+   (:class:`collectives.ZGather`) differentiates to an f32
+   reduce-scatter, which *is* the Eq. (5) sum over clients, landing the
+   update already in storage layout (within the rank's model slice,
+   under tensor parallelism).
 
 The stacked ``blocks`` / ``enc_blocks`` rows are gathered and scaled one
 layer at a time inside the model's row loop (``Model`` ``layer_hook``),
@@ -30,77 +39,31 @@ collective carries R/L of the bytes.  τ > 1 local steps
 rows only and apply each step through the ``masked_update`` kernel.
 
 Every collective goes through :func:`all_gather_dim`,
-:func:`reduce_scatter_dim` or :func:`all_reduce_`, which count it in
-:data:`COLLECTIVES`.  All ranks issue the same collectives in the same
-order: every branch below depends on the specs and the static
-selection, never on a rank's data.
+:func:`reduce_scatter_dim` or :func:`all_reduce_`
+(``sharding/collectives.py``), which count it in :data:`COLLECTIVES`.
+All ranks issue the same collectives in the same order: every branch
+below depends on the specs and the static selection, never on a rank's
+data.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.model import (HOOKED_SEGMENTS, Model, layer_layout,
                                       split_mask)
 from repro_torch.sharding import rules
+from repro_torch.sharding.collectives import (COLLECTIVES,  # noqa: F401
+                                              ZGather, all_gather_dim,
+                                              all_reduce_,
+                                              reduce_scatter_dim,
+                                              reset_collectives)
+from repro_torch.sharding.tensor_parallel import ModelAxis
 from repro_torch.tree import tree_items, tree_map, tree_map_with_path
 
 PyTree = Any
-
-# Collectives issued through this module, by kind.  Reset to 0 before a
-# run and read after it, as ``kernels.ops.LAUNCHES``.
-COLLECTIVES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
-
-
-def reset_collectives() -> None:
-    for name in COLLECTIVES:
-        COLLECTIVES[name] = 0
-
-
-# ---------------------------------------------------------------------------
-# Collectives along one dim
-# ---------------------------------------------------------------------------
-
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's shards of ``x`` concatenated along ``dim`` in group-rank
-    order (the reference's tiled ``lax.all_gather``), contiguous.  The
-    collective runs on dim 0, so for another dim the shards are gathered
-    whole and then joined along ``dim``."""
-    n = dist.get_world_size(group)
-    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
-    COLLECTIVES["all_gather"] += 1
-    if dim == 0 or n == 1:
-        return out.view((n * x.shape[0],) + tuple(x.shape[1:]))
-    return torch.cat(out.view((n,) + tuple(x.shape)).unbind(0), dim=dim)
-
-
-def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Σ over the group of ``x``, scattered along ``dim``: this rank keeps
-    its own slice (the reference's tiled ``lax.psum_scatter``)."""
-    n = dist.get_world_size(group)
-    if dim == 0 or n == 1:               # the ranks' slices already in order
-        chunks = x.contiguous()
-        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
-    else:
-        chunks = torch.stack(x.chunk(n, dim=dim))  # (n, …) contiguous
-        shape = chunks.shape[1:]
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1),
-                               op=dist.ReduceOp.SUM, group=group)
-    COLLECTIVES["reduce_scatter"] += 1
-    return out
-
-
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """Σ over the group, in place (the reference's ``lax.psum``)."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    COLLECTIVES["all_reduce"] += 1
-    return x
-
 
 # ---------------------------------------------------------------------------
 # The step's pieces
@@ -150,21 +113,6 @@ def _client_mask_scales(mask_row: torch.Tensor, d_i: torch.Tensor,
                        0.0)
 
 
-class _ZGather(torch.autograd.Function):
-    """ZeRO-3 all-gather whose backward reduce-scatters in f32 (Eq. (5)'s
-    cohort sum accumulates in f32 even for bf16 params), cast back."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return all_gather_dim(x, dim, group)
-
-    @staticmethod
-    def backward(ctx, ct):
-        g = reduce_scatter_dim(ct.float(), ctx.dim, ctx.group)
-        return g.to(ct.dtype), None, None
-
-
 def gather_leaf(x: torch.Tensor, spec: rules.Spec, mesh,
                  lead: int = 0) -> torch.Tensor:
     """All-gather the ZeRO-3 ('data') dim of a param leaf, differentiably
@@ -175,7 +123,7 @@ def gather_leaf(x: torch.Tensor, spec: rules.Spec, mesh,
     if ax is None:
         return x
     if x.requires_grad and torch.is_grad_enabled():
-        return _ZGather.apply(x, ax - lead, mesh.group(rules.DATA))
+        return ZGather.apply(x, ax - lead, mesh.group(rules.DATA))
     return all_gather_dim(x, ax - lead, mesh.group(rules.DATA))
 
 
@@ -215,12 +163,47 @@ def _scale_tree(tree: PyTree, w: torch.Tensor, cfg,
     return out
 
 
-def check_no_tp(model: Model) -> None:
-    if model.runtime.tp_constraints:
-        raise ValueError(
-            "RuntimeConfig(tp_constraints=True): tensor parallelism over "
-            "the 'model' axis is not ported; each client's compute is "
-            "replicated over 'model'")
+def storage_layout(model: Model, mesh) -> Optional[rules.TPLayout]:
+    """The tensor-parallel layout of ``model`` on ``mesh`` under
+    ``RuntimeConfig(tp_constraints=True)`` (raising for a family without
+    one), else None: storage whole over ``model``."""
+    if not model.runtime.tp_constraints:
+        return None
+    return rules.TPLayout(model.cfg, mesh.shape[rules.MODEL])
+
+
+def model_axis(layout: Optional[rules.TPLayout],
+               mesh) -> Optional[ModelAxis]:
+    """This rank's parallel form, or None where ``model`` has one rank
+    (there every tensor-parallel operation is the plain code)."""
+    if layout is None or layout.size == 1:
+        return None
+    return ModelAxis.on_mesh(layout, mesh)
+
+
+def shard_params(model: Model, mesh, params: PyTree,
+                 specs: PyTree) -> PyTree:
+    """This rank's storage of the full ``params``: ``rules.shard_tree``,
+    or ``rules.tp_shard_tree`` under tensor parallelism."""
+    layout = storage_layout(model, mesh)
+    if layout is None:
+        return rules.shard_tree(params, specs, mesh)
+    return rules.tp_shard_tree(params, specs, mesh, layout)
+
+
+def gather_tree_tp(tree: PyTree, specs: PyTree, mesh,
+                   layout: rules.TPLayout, path: tuple = ()) -> PyTree:
+    """The full tree from tensor-parallel storage, on every rank: each
+    leaf gathered over ``data`` (its model slice), then over ``model``,
+    then back in its own order (``TPLayout.from_storage_order``)."""
+    if isinstance(tree, dict):
+        return {k: gather_tree_tp(v, specs[k], mesh, layout, path + (k,))
+                for k, v in tree.items()}
+    x = gather_leaf(tree, specs, mesh)
+    dim = rules.model_dim(specs)
+    if dim is not None and layout.size > 1:
+        x = all_gather_dim(x, dim, mesh.group(rules.MODEL))
+    return layout.from_storage_order(path, x)
 
 
 def _client_inputs(cfg, batch, masks, sizes):
@@ -280,9 +263,14 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
     rows of ``blocks`` flow through the differentiable gather (the
     paper's R/L upload, made structural); the rest of the model is
     gathered without a gradient and stays as it is.
+
+    ``RuntimeConfig(tp_constraints=True)`` (dense family): the local
+    shards are :func:`shard_params`'s, model slices included; the Eq.(5)
+    sums are unchanged, and the leaves replicated over ``model`` (the
+    norms) get identical gradients on every model rank through f.
     """
-    check_no_tp(model)
     cfg, rt = model.cfg, model.runtime
+    axis = model_axis(storage_layout(model, mesh), mesh)
     caxes = rules.client_axes(mesh)
     mesh_shape = dict(mesh.shape)
     selectable = tuple(seg.path for seg in layer_layout(cfg))
@@ -307,7 +295,9 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
                 0, sel, gather_leaf(r, specs["blocks"][nm], mesh))
                 for nm, r in wrt.items()}
             p_eff = _scale_tree({**frozen, "blocks": blocks}, w, cfg)
-            loss = model.seq_loss(p_eff, my_batch)
+            loss = model.seq_loss(
+                p_eff, my_batch, tp=axis, layer_hook=None if axis is None
+                else lambda pl, idx, seg: axis.view_row(pl, specs[seg]))
             grads = _grads(loss, list(wrt.values()))
             new_blocks = {}
             for (nm, x), g in zip(params["blocks"].items(), grads):
@@ -320,11 +310,15 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
                     _metrics(loss, mask_row, mesh, caxes))
 
         def layer_hook(pl, idx, segment):
-            """Per-layer ZeRO gather + Eq.(7) grad-scale, in the row loop."""
+            """Per-layer ZeRO gather (over ``data``: the rank's model
+            slice under tensor parallelism, then its compute view) +
+            Eq.(7) grad-scale, in the row loop."""
             c = w_parts[segment][idx]
-            return {nm: gscale(gather_leaf(x, specs[segment][nm], mesh,
-                                            lead=1), c)
+            rows = {nm: gather_leaf(x, specs[segment][nm], mesh, lead=1)
                     for nm, x in pl.items()}
+            if axis is not None:
+                rows = axis.view_row(rows, specs[segment])
+            return {nm: gscale(x, c) for nm, x in rows.items()}
 
         wrt, p_in = [], {}
         for key, sub in params.items():
@@ -337,7 +331,8 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
                   else gather_tree(sub, specs[key], mesh)
                   for key, sub in p_in.items()}
         p_eff = _scale_tree(p_full, w, cfg, skip=hooked)
-        loss = model.seq_loss(p_eff, my_batch, layer_hook=layer_hook)
+        loss = model.seq_loss(p_eff, my_batch, layer_hook=layer_hook,
+                              tp=axis)
         grads = _grads(loss, [t for _, t in wrt])
         # Eq. (5) cohort sum: the ZeRO-3 gather backward reduce-scattered
         # over 'data'; the remaining client axes (replicated leaves, 'pod')
@@ -386,9 +381,14 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
 
     Returned step: ``step(params, batch, masks, sizes, lr)`` with batch
     leaves (1, tau, per_client, …), masks (1, L), sizes (1,).
+
+    Under ``RuntimeConfig(tp_constraints=True)`` the local copies are the
+    rank's model slices of the R rows, ``masked_update`` runs on them,
+    and the local steps issue the model-axis collectives of the parallel
+    form.
     """
-    check_no_tp(model)
     cfg = model.cfg
+    axis = model_axis(storage_layout(model, mesh), mesh)
     caxes = rules.client_axes(mesh)
     mesh_shape = dict(mesh.shape)
     sel_list = [int(i) for i in sel_idx]
@@ -409,16 +409,20 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
                       for k, v in params.items() if k != "blocks"}
         m_sel = mask_parts["blocks"][sel].contiguous()            # (R,)
 
+        def view(rows):
+            return rows if axis is None else axis.view_row(rows, bspecs)
+
         def hook_for(local_rows):
             def hook(pl, idx, segment):
                 if segment != "blocks":
                     return pl
                 j = slot_of.get(idx)
                 if j is not None:
-                    return {nm: local_rows[nm][j] for nm in pl}
+                    return view({nm: local_rows[nm][j] for nm in pl})
                 with torch.no_grad():
-                    return {nm: gather_leaf(x, bspecs[nm], mesh, lead=1)
-                            for nm, x in pl.items()}
+                    return view({nm: gather_leaf(x, bspecs[nm], mesh,
+                                                 lead=1)
+                                 for nm, x in pl.items()})
             return hook
 
         rows, losses = rows0, []
@@ -428,7 +432,7 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
                 {**others, "blocks": params["blocks"]},
                 {k: v[s] for k, v in my_batch.items()},
                 layer_hook=hook_for({nm: r.unbind(0)
-                                     for nm, r in wrt.items()}))
+                                     for nm, r in wrt.items()}), tp=axis)
             g = dict(zip(wrt, _grads(loss, list(wrt.values()))))
             g = {nm: torch.zeros_like(wrt[nm]) if gi is None else gi
                  for nm, gi in g.items()}

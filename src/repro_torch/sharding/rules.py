@@ -8,19 +8,28 @@ axis for the frozen model base.  The rules are the reference's, name-based
 over the stacked-parameter layout, and return a :class:`Spec` of the
 leaf's rank.
 
-A spec names ``model`` where the reference lays tensor parallelism; the
-port keeps those entries (so its specs equal the reference's leaf by
-leaf) but runs no tensor parallelism: a rank stores the slice of a leaf
-along the client axes of its spec and holds it whole over ``model``
-(:func:`local_shard`), as the reference's fully manual fallback does.
-``make_shard_hook`` (activation constraints on ``model``) waits with
-tensor parallelism (ROADMAP.md).
+A spec names ``model`` where the reference lays tensor parallelism, and
+the port keeps those entries, so its specs equal the reference's leaf by
+leaf.  With tensor parallelism off (``RuntimeConfig(tp_constraints=
+False)``) a rank stores the slice of a leaf along the client axes of its
+spec and holds it whole over ``model`` (:func:`local_shard`), as the
+reference's fully manual fallback does.  With it on, for the dense
+family, a rank stores the slice its spec gives, ``model`` included
+(:class:`TPLayout`, :func:`tp_local_shard`), and computes its share of
+each layer (``sharding/tensor_parallel.py``); :func:`attention_mode`
+says how a config's heads split.  :func:`cache_specs` stays the
+reference's; a tensor-parallel decode keeps each rank's kv heads whole
+over the sequence instead (:func:`tp_shard_cache`), a layout difference
+with the same values.  ``make_shard_hook`` (the moe experts' activation
+constraints) waits with the other families' tensor parallelism
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -265,3 +274,204 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
     return local_shard(tree, specs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over 'model' (RuntimeConfig(tp_constraints=True))
+# ---------------------------------------------------------------------------
+
+TP_FAMILIES = ("dense",)
+
+
+def check_tp_family(cfg: ArchConfig) -> None:
+    """Tensor parallelism over ``model`` is ported for the dense family's
+    language models; any other family raises, naming it."""
+    if cfg.family not in TP_FAMILIES or cfg.task != "lm":
+        raise ValueError(
+            f"RuntimeConfig(tp_constraints=True): tensor parallelism over "
+            f"the 'model' axis is ported for the dense family's language "
+            f"models; the {cfg.family!r} family's ({cfg.name}, task "
+            f"{cfg.task!r}) waits (ROADMAP.md)")
+
+
+def attention_mode(cfg: ArchConfig, msz: int) -> str:
+    """How attention splits over a ``model`` axis of ``msz`` ranks (H query
+    heads, K kv heads of ``hd``):
+
+    * ``"heads"`` when M divides H and K: a rank computes H/M query heads
+      and their K/M kv heads (every mode at M = 1);
+    * ``"kv_shared"`` when M divides H and K divides M (and K·hd): a rank
+      computes H/M query heads, all of one kv head, whose ``wk`` / ``wv``
+      columns it all-gathers over ``model``;
+    * ``"replicated"`` otherwise (SmolLM's 15 heads at 16): attention runs
+      whole on every rank, its leaves all-gathered over ``model``; only the
+      MLP, the embedding and the head are split.
+    """
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if H % msz == 0 and K % msz == 0:
+        return "heads"
+    if H % msz == 0 and msz % K == 0 and (K * hd) % msz == 0:
+        return "kv_shared"
+    return "replicated"
+
+
+class TPLayout:
+    """A dense model's storage and compute under tensor parallelism over a
+    ``model`` axis of ``size`` ranks.
+
+    Storage (:func:`tp_local_shard`): a rank holds the slice of each leaf
+    that its spec gives, ``model`` included; a tuple entry ``(model,
+    data)`` is model-major, data-minor, as ``PartitionSpec`` lays it, so a
+    gather over ``data`` within model coordinate m yields model slice m.
+    One leaf is reordered first: a gated ``mlp_wi`` ([gate|up] on its last
+    dim) is stored in the order gate[:, 0] | up[:, 0] | gate[:, 1] | …
+    (:meth:`to_storage_order`), so that model slice m is gate[:, m] |
+    up[:, m], the halves ``blocks.mlp_fwd`` splits.  ``wk`` / ``wv`` keep
+    the contiguous split; under ``"kv_shared"`` a model slice is a part of
+    one kv head, and the step all-gathers them over ``model``
+    (``sharding/tensor_parallel.py``).
+
+    Compute (:meth:`compute_slice`): model coordinate m computes query
+    heads :meth:`q_heads` and kv heads :meth:`kv_heads` (all of them under
+    ``"replicated"``), the ``d_ff / size`` MLP columns m and the vocabulary
+    rows ``[m·V/size, (m+1)·V/size)``.
+    """
+
+    def __init__(self, cfg: ArchConfig, size: int):
+        check_tp_family(cfg)
+        for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+            if n % size:
+                raise ValueError(f"tensor parallelism over 'model' of "
+                                 f"{size}: {cfg.name}'s {what} {n} does "
+                                 f"not divide")
+        self.cfg, self.size = cfg, size
+        self.mode = attention_mode(cfg, size)
+        self.gated = cfg.mlp_act != "gelu_plain"
+
+    def q_heads(self, m: int) -> tuple[int, int]:
+        """(first, count) of the query heads model coordinate m computes."""
+        H = self.cfg.n_heads
+        if self.mode == "replicated":
+            return 0, H
+        return m * (H // self.size), H // self.size
+
+    def kv_heads(self, m: int) -> tuple[int, int]:
+        """(first, count) of the kv heads model coordinate m computes."""
+        H, K = self.cfg.n_heads, self.cfg.n_kv_heads
+        if self.mode == "heads":
+            return m * (K // self.size), K // self.size
+        if self.mode == "kv_shared":
+            return self.q_heads(m)[0] // (H // K), 1
+        return 0, K
+
+    def _reordered(self, path: tuple) -> bool:
+        return self.size > 1 and self.gated and path[-1] == "mlp_wi"
+
+    def _order(self, n: int, inverse: bool) -> np.ndarray:
+        ff, w = n // 2, n // 2 // self.size
+        order = np.concatenate([np.r_[m * w:(m + 1) * w,
+                                      ff + m * w:ff + (m + 1) * w]
+                                for m in range(self.size)])
+        return np.argsort(order) if inverse else order
+
+    def _take_last(self, leaf, order: np.ndarray):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.index_select(
+                leaf.dim() - 1, torch.as_tensor(order, device=leaf.device))
+        return np.asarray(leaf)[..., order]
+
+    def to_storage_order(self, path: tuple, leaf):
+        """A full leaf (tensor or array) in its storage order."""
+        if not self._reordered(path):
+            return leaf
+        return self._take_last(leaf, self._order(leaf.shape[-1], False))
+
+    def from_storage_order(self, path: tuple, leaf):
+        """The inverse of :meth:`to_storage_order`."""
+        if not self._reordered(path):
+            return leaf
+        return self._take_last(leaf, self._order(leaf.shape[-1], True))
+
+    def compute_slice(self, name: str, row, m: int):
+        """What model coordinate m computes with of one full ``blocks``
+        row's leaf ``name`` (``attn_wq``, ``mlp_wi``, …): the parallel
+        form's weights, as the step's gathers leave them."""
+        hd = self.cfg.resolved_head_dim
+        if name in ("attn_ln", "mlp_ln"):
+            return row
+        if name.startswith("attn_"):
+            leaf = name[len("attn_"):]
+            first, n = (self.kv_heads(m) if leaf in ("wk", "wv", "bk", "bv")
+                        else self.q_heads(m))
+            dim = 0 if leaf == "wo" else row.dim() - 1
+            return row.narrow(dim, first * hd, n * hd)
+        if name == "mlp_wi" and self.gated:
+            ff = row.shape[-1] // 2
+            w = ff // self.size
+            return torch.cat([row[..., m * w:(m + 1) * w],
+                              row[..., ff + m * w:ff + (m + 1) * w]], -1)
+        w = self.cfg.d_ff // self.size
+        if name == "mlp_wi":
+            return row[..., m * w:(m + 1) * w]
+        if name == "mlp_wo":
+            return row[m * w:(m + 1) * w]
+        raise ValueError(f"no tensor-parallel slice for {name!r}")
+
+
+def tp_shard_dim(spec: Spec) -> tuple[Optional[int], tuple[str, ...]]:
+    """(dim, axes) along which a leaf of ``spec`` is stored split under
+    tensor parallelism: the first entry naming a client axis or
+    ``model``, its axes in the entry's (major-to-minor) order."""
+    for i, entry in enumerate(spec):
+        names = tuple(a for a in _names(entry) if a in CLIENT or a == MODEL)
+        if names:
+            return i, names
+    return None, ()
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """Index of the spec's ``model`` entry (None if whole over model)."""
+    for i, entry in enumerate(spec):
+        if MODEL in _names(entry):
+            return i
+    return None
+
+
+def tp_local_shard(leaf, spec: Spec, mesh, layout: TPLayout,
+                   path: tuple = ()):
+    """This rank's storage of a full ``leaf`` (tensor or array) under
+    tensor parallelism: its block along :func:`tp_shard_dim`, after
+    :meth:`TPLayout.to_storage_order`."""
+    leaf = layout.to_storage_order(path, leaf)
+    dim, axes = tp_shard_dim(spec)
+    if dim is None:
+        return leaf
+    size = leaf.shape[dim] // mesh.size(axes)
+    start = mesh.index(axes) * size
+    return leaf[(slice(None),) * dim + (slice(start, start + size),)]
+
+
+def tp_shard_tree(tree: PyTree, specs: PyTree, mesh, layout: TPLayout,
+                  path: tuple = ()) -> PyTree:
+    """:func:`tp_local_shard` leaf by leaf, same paths."""
+    if isinstance(tree, dict):
+        return {k: tp_shard_tree(v, specs[k], mesh, layout, path + (k,))
+                for k, v in tree.items()}
+    return tp_local_shard(tree, specs, mesh, layout, path)
+
+
+def tp_shard_cache(cache: PyTree, c_specs: PyTree, mesh,
+                   layout: TPLayout) -> PyTree:
+    """This rank's decode cache under tensor parallelism: the batch rows
+    of :func:`shard_tree` by ``c_specs`` (:func:`cache_specs`, the
+    reference's), then of each ``k`` / ``v`` leaf (L, B, W, K, hd) the kv
+    heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W.
+    Where K % M ≠ 0 the reference's rule splits W over ``model``
+    instead; the values read are the same."""
+    first, n = layout.kv_heads(mesh.coord(MODEL))
+
+    def one(path, leaf):
+        if path[-1] in ("k", "v"):
+            return leaf.narrow(3, first, n)
+        return leaf
+    return tree_map_with_path(one, shard_tree(cache, c_specs, mesh))

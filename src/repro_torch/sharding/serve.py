@@ -7,15 +7,20 @@ gathered without a gradient — the stacked ``blocks`` one row at a time
 through the model's ``layer_hook``, the other groups whole at the start
 of the step.  The batch and the KV / state caches are split over the
 client axes when their batch divides (``rules.batch_spec_serve``,
-``rules.cache_specs``): a rank runs its own rows, whole over ``model``
-(no tensor parallelism; ``tp_constraints`` raises).  A moe model whose
+``rules.cache_specs``).  By default a rank runs its own rows whole over
+``model``.  With ``RuntimeConfig(tp_constraints=True)`` (dense family) a
+rank stores its model slice (``fl_step.storage_layout``), computes its
+heads, MLP columns and vocabulary rows (``tensor_parallel.ModelAxis``),
+keeps its kv heads' cache rows whole over the sequence
+(``rules.tp_shard_cache``), and all-gathers the last-position logits
+over ``model`` before it returns or argmaxes them.  A moe model whose
 routers share their capacity across the batch keeps the batch whole on
 every rank (:func:`batch_spec`).
 
 ``build`` returns the step and the specs that lay out its inputs: a
-caller passes ``rules.shard_tree`` of the full params by the param specs,
-``rules.local_shard`` of the batch or tokens by :func:`batch_spec`, and
-of each cache leaf by its cache spec.
+caller passes ``fl_step.shard_params`` of the full params by the param
+specs, ``rules.local_shard`` of the batch or tokens by :func:`batch_spec`,
+and :func:`shard_cache` of the cache by its cache specs.
 """
 from __future__ import annotations
 
@@ -23,8 +28,8 @@ import torch
 
 from repro_torch.models.model import HOOKED_SEGMENTS, Model
 from repro_torch.sharding import rules
-from repro_torch.sharding.fl_step import (check_no_tp, gather_leaf,
-                                          gather_tree)
+from repro_torch.sharding.fl_step import (gather_leaf, gather_tree,
+                                          model_axis, storage_layout)
 from repro_torch.tree import tree_map
 
 
@@ -53,9 +58,20 @@ def _cache_specs(model: Model, cache_shapes, mesh, batch: int):
     return specs
 
 
-def gathered(params: dict, specs: dict, mesh):
+def shard_cache(model: Model, mesh, cache, c_specs):
+    """This rank's decode cache from the full one: ``rules.shard_tree``
+    by the cache specs, or ``rules.tp_shard_cache`` under tensor
+    parallelism."""
+    layout = storage_layout(model, mesh)
+    if layout is None:
+        return rules.shard_tree(cache, c_specs, mesh)
+    return rules.tp_shard_cache(cache, c_specs, mesh, layout)
+
+
+def gathered(params: dict, specs: dict, mesh, axis=None):
     """(the groups gathered whole, the ``layer_hook`` that gathers a
-    hooked segment's row), without a gradient."""
+    hooked segment's row), without a gradient; with a ``ModelAxis`` the
+    hook also views the row as the rank's share."""
     with torch.no_grad():
         full = {k: (v if k in HOOKED_SEGMENTS else
                     gather_tree(v, specs[k], mesh))
@@ -63,8 +79,10 @@ def gathered(params: dict, specs: dict, mesh):
 
     def hook(pl, idx, segment):
         with torch.no_grad():
-            return {nm: gather_leaf(x, specs[segment][nm], mesh, lead=1)
-                    for nm, x in pl.items()}
+            row = {nm: gather_leaf(x, specs[segment][nm], mesh, lead=1)
+                   for nm, x in pl.items()}
+            return row if axis is None else axis.view_row(row,
+                                                          specs[segment])
     return full, hook
 
 
@@ -72,8 +90,8 @@ def make_prefill_step(model: Model, mesh, *, zero3: bool = True):
     """``build(params_shapes, batch_shapes) -> (prefill, specs)``;
     ``prefill(params, batch)`` returns ``Model.logits_seq`` of this rank's
     batch rows (last-position logits, or the classifier's)."""
-    check_no_tp(model)
     cfg = model.cfg
+    axis = model_axis(storage_layout(model, mesh), mesh)
     mesh_shape = dict(mesh.shape)
 
     def build(params_shapes, batch_shapes):
@@ -81,9 +99,10 @@ def make_prefill_step(model: Model, mesh, *, zero3: bool = True):
                                           mesh_shape=mesh_shape)
 
         def prefill(params, batch):
-            full, hook = gathered(params, specs, mesh)
+            full, hook = gathered(params, specs, mesh, axis)
             with torch.no_grad():
-                return model.logits_seq(full, batch, layer_hook=hook)
+                return model.logits_seq(full, batch, layer_hook=hook,
+                                        tp=axis)
         return prefill, specs
 
     return build
@@ -94,10 +113,10 @@ def make_serve_step(model: Model, mesh, *, zero3: bool = True,
     """Single-token decode with a KV cache of the target context length:
     ``build(params_shapes, cache_shapes, batch) -> (serve, (specs,
     cache_specs))``; ``serve(params, tokens, pos, cache)`` returns
-    (next tokens (argmax, int32), logits, cache), the cache updated in
-    place, for this rank's rows."""
-    check_no_tp(model)
+    (next tokens (argmax, int32), logits, cache), the cache (laid out by
+    :func:`shard_cache`) updated in place, for this rank's rows."""
     cfg = model.cfg
+    axis = model_axis(storage_layout(model, mesh), mesh)
     mesh_shape = dict(mesh.shape)
 
     def build(params_shapes, cache_shapes, batch: int):
@@ -106,9 +125,10 @@ def make_serve_step(model: Model, mesh, *, zero3: bool = True,
         c_specs = _cache_specs(model, cache_shapes, mesh, batch)
 
         def serve(params, tokens, pos, cache):
-            full, hook = gathered(params, specs, mesh)
+            full, hook = gathered(params, specs, mesh, axis)
             logits, cache = model.decode_step(full, tokens, pos, cache,
-                                              window=window, layer_hook=hook)
+                                              window=window, layer_hook=hook,
+                                              tp=axis)
             return logits.argmax(-1).to(torch.int32), logits, cache
         return serve, (specs, c_specs)
 

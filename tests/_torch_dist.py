@@ -77,13 +77,26 @@ def _run(n: int, mesh: dict, cases: list, timeout: float):
 # ---------------------------------------------------------------------------
 
 def _model(case):
+    """The case's reduced arch (``heads``: (H, K) replaced, as the parent
+    builds it), with ``tp`` as ``RuntimeConfig.tp_constraints``."""
+    import dataclasses
+
     from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
     from repro_torch.models.model import Model
     cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 4),
                   d_model=case.get("d_model", 64))
+    if case.get("heads"):
+        cfg = dataclasses.replace(cfg, n_heads=case["heads"][0],
+                                  n_kv_heads=case["heads"][1])
     rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
-                       sel_upload=case.get("sel_upload", False))
+                       sel_upload=case.get("sel_upload", False),
+                       tp_constraints=case.get("tp", False))
     return Model(cfg, rt, device="cpu")
+
+
+def _layout(model, mesh):
+    from repro_torch.sharding.fl_step import storage_layout
+    return storage_layout(model, mesh)
 
 
 def _numpy_tree(tree):
@@ -102,13 +115,13 @@ def _step_inputs(case, mesh):
     return batch, masks, sizes
 
 
-def _finish_step(new_local, metrics, specs, mesh):
+def _finish_step(new_local, metrics, specs, mesh, layout=None):
     """The step's results, its collectives counted before the gather of
     the full tree adds its own."""
     from repro_torch.bridge import gather_params
     from repro_torch.sharding.fl_step import COLLECTIVES
     collectives = dict(COLLECTIVES)
-    full = gather_params(new_local, specs, mesh)
+    full = gather_params(new_local, specs, mesh, layout=layout)
     return {"full": _numpy_tree(full), "local": _numpy_tree(new_local),
             "loss": float(metrics["loss"]),
             "union_frac": float(metrics["union_frac"]),
@@ -124,11 +137,12 @@ def case_fl_step(case, mesh):
     build = make_fl_train_step(model, mesh, zero3=case["zero3"],
                                sel_idx=case.get("sel_idx"))
     step, specs = build(case["params"])
-    local = params_to_local(case["params"], specs, mesh)
+    layout = _layout(model, mesh)
+    local = params_to_local(case["params"], specs, mesh, layout=layout)
     batch, masks, sizes = _step_inputs(case, mesh)
     reset_collectives()
     new, metrics = step(local, batch, masks, sizes, case["lr"])
-    return _finish_step(new, metrics, specs, mesh)
+    return _finish_step(new, metrics, specs, mesh, layout)
 
 
 def case_fl_step_tau(case, mesh):
@@ -141,12 +155,13 @@ def case_fl_step_tau(case, mesh):
     build = make_fl_train_step_tau(model, mesh, sel_idx=case["sel_idx"],
                                    tau=case["tau"], zero3=case["zero3"])
     step, specs = build(case["params"])
-    local = params_to_local(case["params"], specs, mesh)
+    layout = _layout(model, mesh)
+    local = params_to_local(case["params"], specs, mesh, layout=layout)
     batch, masks, sizes = _step_inputs(case, mesh)
     reset_collectives()
     ops.reset_launches()
     new, metrics = step(local, batch, masks, sizes, case["lr"])
-    out = _finish_step(new, metrics, specs, mesh)
+    out = _finish_step(new, metrics, specs, mesh, layout)
     out["launches"] = dict(ops.LAUNCHES)
     return out
 
@@ -192,7 +207,8 @@ def case_prefill(case, mesh):
     tokens = torch.from_numpy(case["tokens"])
     prefill, specs = make_prefill_step(model, mesh, zero3=case["zero3"])(
         case["params"], {"tokens": tokens})
-    local = params_to_local(case["params"], specs, mesh)
+    local = params_to_local(case["params"], specs, mesh,
+                            layout=_layout(model, mesh))
     b_spec = batch_spec(model, mesh, tokens.shape[0])
     mine = rules.local_shard(tokens, b_spec, mesh)
     return {"logits": prefill(local, {"tokens": mine}).numpy(),
@@ -207,7 +223,8 @@ def case_decode(case, mesh):
 
     from repro_torch.bridge import params_to_local
     from repro_torch.sharding import rules
-    from repro_torch.sharding.serve import batch_spec, make_serve_step
+    from repro_torch.sharding.serve import (batch_spec, make_serve_step,
+                                            shard_cache)
     model = _model(case)
     prompt = torch.from_numpy(case["prompt"])              # (B, P)
     B, P = prompt.shape
@@ -215,8 +232,9 @@ def case_decode(case, mesh):
     cache = model.init_cache(B, P + steps)
     serve, (specs, c_specs) = make_serve_step(
         model, mesh, zero3=case["zero3"])(case["params"], cache, B)
-    local = params_to_local(case["params"], specs, mesh)
-    cache = rules.shard_tree(cache, c_specs, mesh)
+    local = params_to_local(case["params"], specs, mesh,
+                            layout=_layout(model, mesh))
+    cache = shard_cache(model, mesh, cache, c_specs)
     b_spec = batch_spec(model, mesh, B)
     prompt = rules.local_shard(prompt, b_spec, mesh)
     out, tok = [], prompt[:, 0]
@@ -228,6 +246,26 @@ def case_decode(case, mesh):
             out.append(nxt)
     return {"tokens": torch.stack(out, 1).numpy(), "logits": logits.numpy(),
             "rows": rules.local_shard(torch.arange(B), b_spec, mesh).numpy()}
+
+
+def case_tp_round_trip(case, mesh):
+    """Tensor-parallel storage of the full params: this rank's shards,
+    its model slices (the shards gathered over ``data``), the full tree
+    gathered back, and its head counts."""
+    from repro_torch.bridge import gather_params, params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import gather_tree
+    model = _model(case)
+    layout = _layout(model, mesh)
+    specs = rules.params_pytree_specs(model.cfg, case["params"],
+                                      zero3=case["zero3"],
+                                      mesh_shape=dict(mesh.shape))
+    local = params_to_local(case["params"], specs, mesh, layout=layout)
+    return {"local": _numpy_tree(local),
+            "model_slice": _numpy_tree(gather_tree(local, specs, mesh)),
+            "full": _numpy_tree(gather_params(local, specs, mesh,
+                                              layout=layout)),
+            "mode": layout.mode}
 
 
 def case_dryrun_facts(case, mesh):
@@ -242,7 +280,8 @@ def case_dryrun_facts(case, mesh):
         dryrun.ZERO3_THRESHOLD_BYTES = 0
     cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 2),
                   d_model=case.get("d_model", 64))
-    rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16)
+    rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
+                       tp_constraints=case.get("tp", False))
     prog = dryrun.build_program(cfg, ShapeConfig(*case["shape"]), mesh, rt,
                                 kernel_mode=case.get("kernel_mode"))
     return {"facts": dryrun.program_facts(case["name"], prog).to_dict(),
@@ -250,9 +289,12 @@ def case_dryrun_facts(case, mesh):
 
 
 def case_dryrun_pair(case, mesh):
-    """``launch.dryrun.lower_pair`` of a full-width pair on this mesh."""
-    from repro_torch.launch.dryrun import lower_pair
-    return lower_pair(case["arch"], case["shape"], False, mesh=mesh)
+    """``launch.dryrun.lower_pair`` of a full-width pair on this mesh
+    (``opt``: the CLI's ``--opt`` levers)."""
+    from repro_torch.launch.dryrun import lower_pair, opt_runtime
+    from repro_torch.configs.base import RuntimeConfig
+    runtime = opt_runtime(0.0) if case.get("opt") else RuntimeConfig()
+    return lower_pair(case["arch"], case["shape"], False, runtime, mesh=mesh)
 
 
 def case_dry_refused(case, mesh):
@@ -277,6 +319,7 @@ CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "store_rows": case_store_rows, "prefill": case_prefill,
          "decode": case_decode, "dryrun_facts": case_dryrun_facts,
          "dryrun_pair": case_dryrun_pair, "dry_refused": case_dry_refused,
+         "tp_round_trip": case_tp_round_trip,
          "fail": case_fail}
 
 

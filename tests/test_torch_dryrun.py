@@ -17,11 +17,16 @@
   the same launches and recorder reports as the CUDA route, and a CPU run
   that neither launches nor reports;
 * the live-bytes tracker's peak on a hand-built program;
+* the same with tensor parallelism over ``model`` (``tp_constraints``):
+  TinyLlama's three programs, fake world against gloo;
 * full-width TinyLlama ``train_4k`` on the 16 × 16 fake world: argument
   bytes equal to rank 0's shards computed from the rules, collectives by
-  kind derived from the layer layout;
-* the refusals: ``--opt`` (no tensor parallelism), a dry mesh inside an
-  existing world, and the world torn down after a failure; the CLI's JSON.
+  kind derived from the layer layout; with ``--opt`` (tensor parallelism)
+  the dense family's ``train_4k`` per device: FLOPs, useful share and
+  argument bytes against the replicated step's;
+* the refusals: ``--opt`` on a family without tensor parallelism, a dry
+  mesh inside an existing world, and the world torn down after a
+  failure; the CLI's JSON.
 
 Every fake or gloo world runs in a process of its own
 (``tests/_torch_dist.py``): a process group is process-global.
@@ -190,16 +195,19 @@ SHAPES = {"train": ("train_4k", 32, 4, "train"),
 PAIRS = [(a, k) for a in ("tinyllama_1_1b", "mamba2_370m") for k in SHAPES]
 
 
-def _facts_case(arch, kind) -> dict:
+def _facts_case(arch, kind, tp=False) -> dict:
     return {"kind": "dryrun_facts", "name": f"{arch}/{kind}", "arch": arch,
-            "shape": SHAPES[kind], "zero3": True, "kernel_mode": "torch"}
+            "shape": SHAPES[kind], "zero3": True, "kernel_mode": "torch",
+            "tp": tp}
 
 
 @pytest.fixture(scope="module")
 def worlds():
-    """Rank 0's facts of each pair on the fake world and on gloo, and the
-    gloo ranks' answer to a dry mesh asked for inside their world."""
-    cases = [_facts_case(a, k) for a, k in PAIRS]
+    """Rank 0's facts of each pair on the fake world and on gloo (PAIRS,
+    then TinyLlama's under tensor parallelism), and the gloo ranks'
+    answer to a dry mesh asked for inside their world."""
+    cases = ([_facts_case(a, k) for a, k in PAIRS]
+             + [_facts_case("tinyllama_1_1b", k, tp=True) for k in SHAPES])
     dry = run_dry(WORLD, cases)
     real = run_world(4, WORLD, cases + [{"kind": "dry_refused"}])
     return dry, real
@@ -229,6 +237,27 @@ def test_fake_world_matches_gloo(arch, kind, worlds):
     assert f["collective_counts"]["all-gather"] > 0
     assert ("reduce-scatter" in f["collective_counts"]) == (kind == "train")
     assert f["temp_bytes"] > 0 and g["temp_bytes"] == 0
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_fake_world_matches_gloo_tp(kind, worlds):
+    """Tensor parallelism over ``model`` (reduced TinyLlama, heads split
+    over 2): the fake world's FLOPs, argument bytes and collectives by
+    kind are the gloo world's, and the model-axis all-reduces are there
+    (f, g, the vocab-parallel embedding and cross-entropy)."""
+    dry, real = worlds
+    assert dry["error"] is None
+    i = len(PAIRS) + list(SHAPES).index(kind)
+    f, g = dry["results"][i]["facts"], real[0][i]["facts"]
+    plain = dry["results"][PAIRS.index(("tinyllama_1_1b", kind))]["facts"]
+    assert f["flops"] > 0 and f["flops"] == g["flops"]
+    assert f["flops"] < plain["flops"]
+    assert f["arg_bytes"] == g["arg_bytes"] < plain["arg_bytes"]
+    assert f["collective_counts"] == g["collective_counts"]
+    assert f["collective_by_kind"] == g["collective_by_kind"]
+    assert f["collective_bytes"] == g["collective_bytes"]
+    assert (f["collective_counts"]["all-reduce"]
+            > plain["collective_counts"].get("all-reduce", 0))
 
 
 def test_dry_mesh_refused_inside_a_world(worlds):
@@ -389,11 +418,18 @@ def test_live_bytes_count_what_autograd_saves():
 # full-width TinyLlama train_4k on the 16 × 16 fake world
 # ---------------------------------------------------------------------------
 
+TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b", "gemma_7b")
+
+
 @pytest.fixture(scope="module")
 def full_width():
+    """``train_4k`` on 16 × 16: TinyLlama as laid out by default, then the
+    dense family with ``--opt`` (TP_ARCHS), then a planned failure."""
     return run_dry({"data": 16, "model": 16}, [
         {"kind": "dryrun_pair", "arch": "tinyllama_1_1b",
-         "shape": "train_4k"},
+         "shape": "train_4k"}] + [
+        {"kind": "dryrun_pair", "arch": a, "shape": "train_4k", "opt": True}
+        for a in TP_ARCHS] + [
         {"kind": "fail", "message": "a planned failure"}])
 
 
@@ -456,6 +492,37 @@ def test_full_width_train_4k_collectives(full_width):
     assert 0 < rep["useful_flops_frac"] < 1
 
 
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_full_width_train_4k_tensor_parallel(full_width, arch):
+    """``--opt`` splits each client's step over the 16 ranks of
+    ``model``: rank 0 stores a 16th of the params (under an eighth of the
+    replicated copy), the model-axis all-reduces are listed, and but for
+    SmolLM (15 heads: attention replicated) the useful share of the
+    per-device FLOPs is at least 0.5; TinyLlama's FLOPs are under an
+    eighth of the replicated step's."""
+    rep = full_width["results"][1 + TP_ARCHS.index(arch)]
+    assert rep["opts"] == ["tp", "rematsc", "moelocal"]
+    assert not rep["zero3"] and rep["n_chips"] == 256
+    shapes = init_params(get_arch(arch), None, torch.device("meta"))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(shapes))
+    assert rep["memory"]["argument_bytes"] <= nbytes / 8
+    # f and g around each split sub-block: attention and the MLP, or the
+    # MLP alone where attention is replicated
+    split = 1 if arch == "smollm_360m" else 2
+    assert rep["collective_counts"]["all-reduce"] > get_arch(
+        arch).n_layers * 2 * split
+    if arch == "smollm_360m":
+        assert "all-gather" in rep["collective_counts"]  # attention leaves
+        assert rep["useful_flops_frac"] > 0
+        return
+    assert rep["useful_flops_frac"] >= 0.5
+    if arch == "tinyllama_1_1b":
+        plain = full_width["results"][0]
+        assert rep["flops"] <= plain["flops"] / 8
+        assert rep["memory"]["argument_bytes"] <= 0.2e9
+        assert rep["kernel_launches"] == plain["kernel_launches"]
+
+
 def test_dry_world_torn_down_after_a_failure(full_width):
     assert "a planned failure" in full_width["error"]
     assert full_width["initialized_after"] is False
@@ -483,10 +550,23 @@ def test_cli_writes_the_named_report(tmp_path):
     assert "compile_s" not in rep and rep["opts"] == []
 
 
-def test_cli_opt_raises_the_tensor_parallelism_error(tmp_path):
-    r = _cli("--arch", "tinyllama_1_1b", "--shape", "train_4k", "--opt",
+def test_cli_opt_writes_the_tensor_parallel_report(tmp_path):
+    """``--opt`` on the dense family builds the tensor-parallel programs
+    and writes the report under the reference's name."""
+    r = _cli("--arch", "tinyllama_1_1b", "--shape", "decode_32k", "--opt",
+             tmp=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    path = tmp_path / ("tinyllama_1_1b__decode_32k__16x16__"
+                       "tp-rematsc-moelocal.json")
+    rep = json.loads(path.read_text())
+    assert rep["opts"] == ["tp", "rematsc", "moelocal"]
+    assert rep["collective_counts"]["all-reduce"] > 0
+
+
+def test_cli_opt_raises_for_a_family_without_tensor_parallelism(tmp_path):
+    r = _cli("--arch", "mamba2_370m", "--shape", "train_4k", "--opt",
              tmp=tmp_path)
     assert r.returncode != 0
-    assert "tensor parallelism over the 'model' axis is not ported" \
-        in r.stderr
+    assert "tensor parallelism over the 'model' axis" in r.stderr
+    assert "'ssm' family" in r.stderr
     assert not list(tmp_path.iterdir())
