@@ -284,6 +284,12 @@ def log(msg=""):
     print(msg, flush=True)
 
 
+def lap(t0: float, phase: str) -> None:
+    """Log the seconds from ``t0`` (the script's start) to the end of
+    ``phase``: where the script's time limit goes."""
+    log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1186,6 +1192,9 @@ def phase_ssd_kernel(card: str, cases=None) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     if cases is None:
         cases = [("main", m, bf16, False, True),
+                 # slice 17: one model rank's share at M = 16 (2 heads)
+                 ("tp_local_m16", dict(m, h=m["h"] // 16), bf16, False,
+                  True),
                  ("main/slow_decay", m, bf16, True, False),
                  ("single_chunk", dict(m, s=128), bf16, True, False),
                  ("groups_4", dict(m, g=4), bf16, True, False),
@@ -3235,6 +3244,8 @@ def phase_hybrid_kernels(card: str) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"ssd": phase_ssd_kernel(card, cases=[
         ("zamba2", SSD_ZAMBA, bf16, False, True),
+        ("zamba2/tp_local_m16", dict(SSD_ZAMBA, h=SSD_ZAMBA["h"] // 16),
+         bf16, False, True),
         ("zamba2/slow_decay", SSD_ZAMBA, bf16, True, False),
         ("zamba2/f32", SSD_ZAMBA, f32, True, False)])}
     check(out["ssd"]["zamba2"]["route"] == "mma"
@@ -5406,11 +5417,18 @@ DIST_SSM_SEL = (3, 40)      # Mamba2's selected rows
 # ulp of a moved D would exceed ROUND_PARAM_ATOL.
 DIST_LR = 1.0
 DIST_SSM_LR = 0.25
+# Slice 17: Zamba2-7B at the rounds' depth (HYBRID_ROUND_LAYERS): two of
+# its Mamba2 rows (the shared block's mask entry off, so that every group
+# but ``blocks`` stays bit-unchanged), at Mamba2's rate
+DIST_HYBRID_SEL = (3, 11)
+DIST_HYBRID_LR = 0.25
 DIST_UPDATE_RTOL = 0.05     # ‖new − ref‖₂ / ‖ref − old‖₂, selected rows
 DIST_MIN_MOVED = 0.2        # share of the selected rows' elements moved
 DIST_TAU = 2
 DIST_REPS = 3
 DIST_DECODE = dict(batch=4, prompt=8, steps=32)
+# Slice 17's decode checks (Mamba2, Zamba2): fewer steps, for the time limit
+DIST_DECODE_TP = dict(DIST_DECODE, steps=8)
 DIST_CPU_TOL = 1e-6
 CLI_ROUNDS = 3
 COLLECTIVE_OPS = {"all_gather": "c10d::_allgather_base_",
@@ -5470,19 +5488,24 @@ def dist_update_check(new, old, ref, rows) -> dict:
 def dist_collectives_want(model, specs, *, tau: int = 1, sel=None,
                           sel_upload: bool = False) -> dict:
     """One step's collectives by its structure (``blocks`` the only
-    selectable segment, as for TinyLlama and Mamba2): an all-gather per
-    sharded leaf of the groups gathered whole and, per layer, of each
+    selectable segment, as for TinyLlama and Mamba2, or the hybrid's
+    ``blocks`` and ``shared_attn`` in its plain τ = 1 step): an all-gather
+    per sharded leaf of the groups gathered whole and, per layer, of each
     sharded ``blocks`` leaf (τ > 1: of the unselected rows each local
     step, the selected rows once); a reduce-scatter per sharded block
-    leaf and layer (sel_upload and τ > 1: once, on the R rows); an
-    all-reduce for Eq.(7)'s denominators, each replicated block leaf's
-    residual sum and the two metrics."""
+    leaf and layer (sel_upload and τ > 1: once, on the R rows) and per
+    sharded shared leaf; an all-reduce for Eq.(7)'s denominators, each
+    replicated block and shared leaf's residual sum and the two
+    metrics."""
     from repro_torch.models.model import layer_layout
     from repro_torch.sharding import rules
     from repro_torch.tree import tree_leaves
     layout = layer_layout(model.cfg)
-    check([s.path for s in layout] == ["blocks"],
-          f"[dist] the structure count takes blocks only: {layout}")
+    shared = specs.get("shared_attn", {})
+    check([s.path for s in layout] in (["blocks"], ["blocks", "shared_attn"])
+          and (not shared or (tau == 1 and not sel_upload)),
+          f"[dist] the structure count takes blocks only, or the hybrid's "
+          f"plain τ = 1 step: {layout}")
     L = layout[0].count
 
     def n_sharded(tree):
@@ -5491,15 +5514,16 @@ def dist_collectives_want(model, specs, *, tau: int = 1, sel=None,
     blocks = n_sharded(specs["blocks"])
     rest = sum(n_sharded(v) for k, v in specs.items() if k != "blocks")
     replicated = len(specs["blocks"]) - blocks
+    shared_sharded = n_sharded(shared)
     if tau > 1:
         ag = rest + blocks + tau * (L - len(sel)) * blocks
     elif sel_upload:
         ag = rest + 2 * blocks
     else:
         ag = rest + L * blocks
-    rs = blocks if (tau > 1 or sel_upload) else L * blocks
+    rs = blocks if (tau > 1 or sel_upload) else L * blocks + shared_sharded
     return {"all_gather": ag, "reduce_scatter": rs,
-            "all_reduce": 1 + replicated + 2}
+            "all_reduce": 1 + replicated + len(shared) - shared_sharded + 2}
 
 
 def dist_profiled(fn):
@@ -5615,11 +5639,19 @@ def phase_distributed(card: str) -> dict:
     the collectives (counted by the step and seen by the profiler) against
     each step's structure, ms/step beside the single-host step, peak
     memory; (b) full-width Mamba2-370M (4 × 512): the τ = 1 step, held the
-    same way, ``ssd_scan`` counted; (c) a reduced f32 TinyLlama step
+    same way, ``ssd_scan`` counted, and (slice 17) its ``sel_upload`` and
+    τ = 2 steps, prefill and decode, each again with ``tp_constraints`` at
+    model = 1, bit-equal (``tp_family``); (c) a reduced f32 TinyLlama step
     against the CPU's (gloo, world 1, a child process); (d) mesh serving:
     a 4 × 1024 prefill against ``Model.logits_seq``, 32 greedy decode
     steps against ``Model.decode_step``; then (e) the train CLI under
-    ``torch.distributed.run`` for CLI_ROUNDS rounds."""
+    ``torch.distributed.run`` for CLI_ROUNDS rounds; (f, slice 17)
+    Zamba2-7B at full width and the rounds' depth HYBRID_ROUND_LAYERS (81
+    rows' bf16 params are 13.3 GB; with the single-host reference's
+    gradients, delta, f32 aggregate and update and the steps' results
+    about eight such copies, over the card's 80 GB): the
+    τ = 1 step against the single-host one, then the step and decode with
+    tensor parallelism at model = 1, bit-equal."""
     import json as _json
     import tempfile
     import numpy as np
@@ -5645,6 +5677,10 @@ def phase_distributed(card: str) -> dict:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     out, paths = {}, {}
+
+    def mark(what):
+        log(f"[dist] {what} done at {time.perf_counter() - t_phase:.1f} s "
+            f"of the phase")
     try:
         mesh = make_host_mesh(1, 1)
         check(dist.get_backend() == "nccl", "[dist] the world is not NCCL")
@@ -5653,18 +5689,29 @@ def phase_distributed(card: str) -> dict:
         gen = torch.Generator(device="cuda")
 
         def run_step(tag, model, step, local, batch, masks, sizes, want_c,
-                     want_l, ref, old, rows, lr=DIST_LR, ref_fn=None):
+                     want_l, ref, old, rows, lr=DIST_LR, ref_fn=None,
+                     profiled=True):
             """Profile one step (collectives, launches), time it against
             ``ref_fn`` and hold its params against ``ref``: within
             ROUND_PARAM_ATOL, the update on the selected ``rows`` of
             ``blocks`` against ``ref``'s from ``old``, every other row
-            and group bit-unchanged."""
+            and group bit-unchanged.  ``profiled=False`` runs the first
+            step without the profiler (a Mamba2 step's 14 000 launches
+            take it 14–28 s on the host): its collectives are then the
+            step's own count alone, held against the structure."""
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_collectives()
             ops.reset_launches()
-            (new, metrics), seen, nccl_ms, busy, host = dist_profiled(
-                lambda: step(local, batch, masks, sizes, lr))
+            t_run = time.perf_counter()
+            if profiled:
+                (new, metrics), seen, nccl_ms, busy, host = dist_profiled(
+                    lambda: step(local, batch, masks, sizes, lr))
+            else:
+                new, metrics = step(local, batch, masks, sizes, lr)
+                torch.cuda.synchronize()
+                seen, nccl_ms, busy, host = dict(COLLECTIVES), None, None, []
+            first_s = time.perf_counter() - t_run
             peak = torch.cuda.max_memory_allocated() / 1e9
             launches, counted = dict(ops.LAUNCHES), dict(COLLECTIVES)
             loss = float(metrics["loss"])
@@ -5675,8 +5722,10 @@ def phase_distributed(card: str) -> dict:
             bad = {k: (launches[k], v) for k, v in want_l.items()
                    if launches[k] != v}
             check(not bad, f"[dist] {tag}: launches (got, want) {bad}")
+            t_run = time.perf_counter()
             ms = dist_time_ms(lambda: step(local, batch, masks, sizes, lr))
             res = {"loss": loss, "ms": ms, "peak_gb": peak, "lr": lr,
+                   "first_run_s": first_s, "profiled": profiled,
                    "collectives": counted, "nccl_device_ms": nccl_ms,
                    "busy_ms_profiled": busy, "launches": launches,
                    "param_err": _tree_max_diff(new, ref),
@@ -5704,15 +5753,20 @@ def phase_distributed(card: str) -> dict:
                 res["single_host_ms"] = dist_time_ms(ref_fn)
                 res["single_host_peak_gb"] = (
                     torch.cuda.max_memory_allocated() / 1e9)
+            res["timed_s"] = time.perf_counter() - t_run
+            seen_by = (f"profiler {seen}; NCCL device {nccl_ms:.3f} ms; "
+                       f"busy {busy:.2f} ms profiled" if profiled
+                       else "not profiled")
             log(f"[dist] {tag}: loss {loss:.4f}; {ms:.2f} ms/step "
                 f"(single-host {res.get('single_host_ms', float('nan')):.2f}), peak "
-                f"{peak:.2f} GB; collectives {counted} (profiler "
-                f"{seen}; NCCL device {nccl_ms:.3f} ms; busy {busy:.2f} ms "
-                f"profiled); launches "
-                f"{({k: v for k, v in launches.items() if v})}   [{card}]")
-            log(f"[dist] {tag}: most host time in the profiled step (self "
-                f"ms, op, calls): "
-                f"{[(round(t, 2), k[:40], n) for t, k, n in host]}")
+                f"{peak:.2f} GB; collectives {counted} ({seen_by}); launches "
+                f"{({k: v for k, v in launches.items() if v})}; the first "
+                f"run took {first_s:.1f} s, the timed runs "
+                f"{res['timed_s']:.1f} s   [{card}]")
+            if profiled:
+                log(f"[dist] {tag}: most host time in the profiled step "
+                    f"(self ms, op, calls): "
+                    f"{[(round(t, 2), k[:40], n) for t, k, n in host]}")
             res["host_top"] = [[t, k, n] for t, k, n in host]
             return new, res
 
@@ -5722,6 +5776,7 @@ def phase_distributed(card: str) -> dict:
             result bit-equal to the plain program's (``want_fn()``), its
             collectives those of the plain step where given."""
             torch.cuda.synchronize()
+            t_run = time.perf_counter()
             reset_collectives()
             ops.reset_launches()
             got = fn()
@@ -5733,8 +5788,8 @@ def phase_distributed(card: str) -> dict:
             out.setdefault("tp_bit_equal", {})[tag] = same
             log(f"[dist] tensor parallelism on (model = 1), {tag}: bit-equal "
                 f"to the plain program: {same}; collectives {counted}; "
-                f"launches {({k: v for k, v in launches.items() if v})}"
-                f"   [{card}]")
+                f"launches {({k: v for k, v in launches.items() if v})}; "
+                f"{time.perf_counter() - t_run:.1f} s   [{card}]")
             check(same, f"[dist] the tensor-parallel {tag} program at "
                         f"model = 1 differs from the plain one")
             check(collectives is None or counted == collectives,
@@ -5922,8 +5977,169 @@ def phase_distributed(card: str) -> dict:
         del params, local, prefill, serve, step, sel_step, tau_step, client
         gc.collect()
         torch.cuda.empty_cache()
+        mark("TinyLlama")
 
-        # (b) full-width Mamba2-370M
+        # (b) full-width Mamba2-370M, and (slice 17) the same programs
+        # with tensor parallelism on at model = 1
+        def lockstep(fmodel, serve_fn, local_params, shard, prompt, total):
+            """Every step's logits of ``prompt`` fed a token a step and
+            then greedy tokens, through ``serve_fn(params, tok, pos,
+            cache) -> (next, logits, cache)``."""
+            cache = shard(fmodel.init_cache(prompt.shape[0], total))
+            tok, logits = prompt[:, 0], {}
+            for t in range(total - 1):
+                nxt, logits[t], cache = serve_fn(
+                    local_params, tok, torch.tensor(t, dtype=torch.int32,
+                                                    device="cuda"), cache)
+                tok = prompt[:, t + 1] if t + 1 < prompt.shape[1] else nxt
+            return logits
+
+        def model_serve(fmodel):
+            def serve_fn(p, tok, pos, cache):
+                logits, cache = fmodel.decode_step(p, tok, pos, cache)
+                return logits.argmax(-1).to(torch.int32), logits, cache
+            return serve_fn
+
+        def tp_family(tag, label, fmodel, params, specs, local, plain, batch,
+                      masks, sizes, lr, sel, want_l, collectives,
+                      programs, seed):
+            """Slice 17 for an ssm or hybrid model: its τ = 1 step again
+            with ``tp_constraints`` at model = 1, bit-equal to ``plain``;
+            then each of ``programs``: ``sel_upload`` over ``sel`` (held
+            against the plain τ = 1 step) and τ = DIST_TAU (against
+            ``Client.local_update`` + ``aggregate``), each again with
+            tensor parallelism, bit-equal; mesh prefill of this client's
+            rows against ``Model.logits_seq``; DIST_DECODE_TP greedy
+            decode steps against ``Model.decode_step`` (the same tokens);
+            both again with tensor parallelism, every logit bit-equal.
+            ``specs`` and ``local`` are the plain step's; the new plain
+            programs run unprofiled (``run_step(profiled=False)``)."""
+            fcfg, frt = fmodel.cfg, fmodel.runtime
+            tp_rt = dataclasses.replace(frt, tp_constraints=True)
+            tp_model = Model(fcfg, tp_rt)
+            tp_step, tp_specs = make_fl_train_step(tp_model, mesh)(params)
+            tp_local = shard_params(tp_model, mesh, params, tp_specs)
+            tp_same(f"{tag}_step", lambda: plain, lambda: tp_step(
+                tp_local, batch, masks, sizes, lr)[0], collectives)
+            del tp_step
+            n_leaves = len(params["blocks"])
+            rows = fmodel.cfg.n_layers
+            if "sel_upload" in programs:
+                sel_step, _ = make_fl_train_step(
+                    Model(fcfg, dataclasses.replace(frt, sel_upload=True)),
+                    mesh, sel_idx=sel)(params)
+                sel_new, out[f"{tag}_sel_upload"] = run_step(
+                    f"{label} τ = 1, sel_upload over rows {sel}", fmodel,
+                    sel_step, local, batch, masks, sizes,
+                    dist_collectives_want(fmodel, specs, sel_upload=True),
+                    want_l, plain, params, sel, lr=lr, profiled=False)
+                paths[f"distributed_{tag}_sel_upload"] = \
+                    out[f"{tag}_sel_upload"]["launches"]
+                tp_sel_step, _ = make_fl_train_step(
+                    Model(fcfg, dataclasses.replace(tp_rt, sel_upload=True)),
+                    mesh, sel_idx=sel)(params)
+                tp_same(f"{tag}_sel_upload", lambda: sel_new,
+                        lambda: tp_sel_step(tp_local, batch, masks, sizes,
+                                            lr)[0],
+                        out[f"{tag}_sel_upload"]["collectives"])
+                del sel_new, sel_step, tp_sel_step
+            if "tau" in programs:
+                gen.manual_seed(seed)
+                tau_tokens = torch.randint(
+                    0, fcfg.vocab_size, (1, DIST_TAU) + tuple(
+                        batch["tokens"].shape[1:]), device="cuda",
+                    generator=gen, dtype=torch.int32)
+                client = Client(fmodel)
+                mask_row = masks[0].cpu().numpy()
+
+                def tau_ref():
+                    delta, _ = client.local_update(
+                        params, {"tokens": tau_tokens[0]}, mask_row, lr)
+                    return agg.apply_update(params, agg.aggregate(
+                        [delta], masks, sizes, fcfg), lr)
+                tau_step, _ = make_fl_train_step_tau(
+                    fmodel, mesh, sel_idx=sel, tau=DIST_TAU)(params)
+                want_tau = {k: DIST_TAU * v for k, v in want_l.items()}
+                want_tau["masked_update"] = DIST_TAU * n_leaves
+                tau_new, out[f"{tag}_tau2"] = run_step(
+                    f"{label} τ = {DIST_TAU} over rows {sel}", fmodel,
+                    tau_step, local, {"tokens": tau_tokens}, masks, sizes,
+                    dist_collectives_want(fmodel, specs, tau=DIST_TAU,
+                                          sel=sel),
+                    want_tau, tau_ref(), params, sel, lr=lr, profiled=False)
+                paths[f"distributed_{tag}_tau2"] = \
+                    out[f"{tag}_tau2"]["launches"]
+                tp_tau_step, _ = make_fl_train_step_tau(
+                    tp_model, mesh, sel_idx=sel, tau=DIST_TAU)(params)
+                tp_same(f"{tag}_tau2", lambda: tau_new, lambda: tp_tau_step(
+                    tp_local, {"tokens": tau_tokens}, masks, sizes, lr)[0],
+                    out[f"{tag}_tau2"]["collectives"])
+                check(paths[f"distributed_tp_{tag}_tau2"]["masked_update"]
+                      == DIST_TAU * n_leaves,
+                      f"[dist] {label}: the tensor-parallel τ = {DIST_TAU} "
+                      f"step's masked_update launches: "
+                      f"{paths[f'distributed_tp_{tag}_tau2']}")
+                del tau_new, tau_step, tp_tau_step, client
+            one = {"tokens": batch["tokens"][0]}
+            if "prefill" in programs:
+                prefill, _ = make_prefill_step(fmodel, mesh)(params, one)
+                ops.reset_launches()
+                got = prefill(local, one)
+                torch.cuda.synchronize()
+                paths[f"distributed_{tag}_prefill"] = dict(ops.LAUNCHES)
+                with torch.no_grad():
+                    want = fmodel.logits_seq(params, one)
+                err = (got.float() - want.float()).abs().max().item()
+                out[f"{tag}_prefill"] = {
+                    "max_abs_err": err,
+                    "launches": paths[f"distributed_{tag}_prefill"]}
+                log(f"[dist] {label} prefill {tuple(one['tokens'].shape)}: "
+                    f"last-position logits against Model.logits_seq "
+                    f"{err:.3e}; ssd_scan "
+                    f"{paths[f'distributed_{tag}_prefill']['ssd_scan']}"
+                    f"   [{card}]")
+                check(err <= TOL["bfloat16"] and paths[
+                    f"distributed_{tag}_prefill"]["ssd_scan"] == rows,
+                      f"[dist] {label}: the mesh prefill's logits differ "
+                      f"from Model.logits_seq")
+                tp_prefill, _ = make_prefill_step(tp_model, mesh)(params,
+                                                                  one)
+                tp_same(f"{tag}_prefill", lambda: got,
+                        lambda: tp_prefill(tp_local, one))
+                del prefill, tp_prefill, got, want
+            dd = DIST_DECODE_TP
+            gen.manual_seed(seed + 1)
+            prompt = torch.randint(0, fcfg.vocab_size,
+                                   (dd["batch"], dd["prompt"]),
+                                   device="cuda", generator=gen,
+                                   dtype=torch.int32)
+            total = dd["prompt"] + dd["steps"]
+            serve, (_, c_specs) = make_serve_step(fmodel, mesh)(
+                params, fmodel.init_cache(dd["batch"], total), dd["batch"])
+            ops.reset_launches()
+            plain_logits = lockstep(fmodel, serve, local, lambda c: c,
+                                    prompt, total)
+            torch.cuda.synchronize()
+            paths[f"distributed_{tag}_decode"] = dict(ops.LAUNCHES)
+            model_logits = lockstep(fmodel, model_serve(fmodel), params,
+                                    lambda c: c, prompt, total)
+            same = all(torch.equal(plain_logits[t].argmax(-1),
+                                   model_logits[t].argmax(-1))
+                       for t in plain_logits)
+            out[f"{tag}_decode"] = {"same_tokens": same}
+            log(f"[dist] {label}: {dd['steps']} greedy decode steps (batch "
+                f"{dd['batch']}, prompt {dd['prompt']}): the same tokens as "
+                f"Model.decode_step: {same}   [{card}]")
+            mark(f"{label}: the plain decode against Model.decode_step")
+            check(same, f"[dist] {label}: the mesh decode's tokens differ "
+                        f"from Model.decode_step's")
+            tp_serve, (_, tp_cspecs) = make_serve_step(tp_model, mesh)(
+                params, fmodel.init_cache(dd["batch"], total), dd["batch"])
+            tp_same(f"{tag}_decode", lambda: plain_logits, lambda: lockstep(
+                fmodel, tp_serve, tp_local, lambda c: shard_cache(
+                    tp_model, mesh, c, tp_cspecs), prompt, total))
+            del plain_logits, model_logits, serve, tp_serve, tp_local
+
         cfg = get_arch("mamba2_370m")
         model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=SSM_SEQ))
         params = model.init(0)
@@ -5938,19 +6154,67 @@ def phase_distributed(card: str) -> dict:
         step, specs = make_fl_train_step(model, mesh)(params)
         local = rules.shard_tree(params, specs, mesh)
         one = {"tokens": tokens[0]}
-        _, out["mamba2_step"] = run_step(
+        ssd = {"ssd_scan": L, "ssd_scan_mma": L, "masked_update": 0,
+               "layer_grad_norm": 0, "flash_attention": 0}
+        plain, out["mamba2_step"] = run_step(
             "Mamba2-370M τ = 1", model, step, local, {"tokens": tokens},
-            masks, sizes, dist_collectives_want(model, specs),
-            {"ssd_scan": L, "ssd_scan_mma": L, "masked_update": 0,
-             "layer_grad_norm": 0, "flash_attention": 0},
+            masks, sizes, dist_collectives_want(model, specs), ssd,
             single_host_step(model, params, one, masks, sizes, DIST_SSM_LR),
             params, DIST_SSM_SEL, lr=DIST_SSM_LR,
             ref_fn=lambda: single_host_step(model, params, one, masks, sizes,
                                             DIST_SSM_LR))
         paths["distributed_mamba2_step"] = out["mamba2_step"]["launches"]
-        del params, local, step
+        tp_family("mamba2", "Mamba2-370M", model, params, specs, local,
+                  plain, {"tokens": tokens}, masks, sizes, DIST_SSM_LR,
+                  DIST_SSM_SEL, ssd, out["mamba2_step"]["collectives"],
+                  ("sel_upload", "tau", "prefill"), 27)
+        del params, local, step, plain
         gc.collect()
         torch.cuda.empty_cache()
+        mark("Mamba2-370M")
+
+        # (f) slice 17: Zamba2-7B (full width, the rounds' depth), its
+        # plain step against the single-host one, then the step and decode
+        # with tensor parallelism at model = 1
+        cfg = dataclasses.replace(get_arch("zamba2_7b"),
+                                  n_layers=HYBRID_ROUND_LAYERS)
+        model = Model(cfg, RuntimeConfig(remat=False, seq_chunk=SSM_SEQ))
+        params = model.init(0)
+        mark("Zamba2-7B's params")
+        L = model.n_selectable
+        sites = cfg.n_layers // cfg.attn_every
+        gen.manual_seed(28)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 4, SSM_SEQ),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        mask_np = np.zeros((1, L), np.float32)
+        mask_np[0, list(DIST_HYBRID_SEL)] = 1.0
+        masks = torch.from_numpy(mask_np).cuda()
+        step, specs = make_fl_train_step(model, mesh)(params)
+        local = rules.shard_tree(params, specs, mesh)
+        one = {"tokens": tokens[0]}
+        hyb = {"ssd_scan": cfg.n_layers, "ssd_scan_mma": cfg.n_layers,
+               "flash_attention": sites, "flash_attention_bwd": sites,
+               "flash_attention_mma": sites, "masked_update": 0,
+               "layer_grad_norm": 0}
+        plain, out["zamba2_step"] = run_step(
+            f"Zamba2-7B (depth {cfg.n_layers}) τ = 1", model, step, local,
+            {"tokens": tokens}, masks, sizes,
+            dist_collectives_want(model, specs), hyb,
+            single_host_step(model, params, one, masks, sizes,
+                             DIST_HYBRID_LR),
+            params, DIST_HYBRID_SEL, lr=DIST_HYBRID_LR,
+            ref_fn=lambda: single_host_step(model, params, one, masks, sizes,
+                                            DIST_HYBRID_LR))
+        paths["distributed_zamba2_step"] = out["zamba2_step"]["launches"]
+        tp_family("zamba2", f"Zamba2-7B (depth {cfg.n_layers})", model,
+                  params, specs, local, plain, {"tokens": tokens}, masks,
+                  sizes, DIST_HYBRID_LR, DIST_HYBRID_SEL, hyb,
+                  out["zamba2_step"]["collectives"], (), 29)
+        del params, local, step, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("Zamba2-7B")
 
         # (c) reduced f32: the card against the CPU (gloo, a child process)
         ops.reset_launches()
@@ -5976,6 +6240,7 @@ def phase_distributed(card: str) -> dict:
         f"   [{card}]")
     check(max(errs) <= DIST_CPU_TOL, "[dist] the card's reduced step differs "
                                      "from the CPU's")
+    mark("the reduced step, card and CPU")
 
     # (e) the CLI, its own world under torch.distributed.run
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -6058,87 +6323,168 @@ def tp_block_split(cfg, row: dict, x, dy, M: int):
     return out.detach(), dict(zip(["x", *leaves], grads))
 
 
+def tp_ssm_block_split(cfg, row: dict, x, dy, M: int):
+    """One Mamba2 block's parallel form at M model coordinates, computed
+    in this process (``ssd.mamba2_fwd`` on ``TPLayout.compute_slice`` of
+    the full leaves, a ``ModelAxis`` whose f and g are the identity), in
+    two passes, because the gate norm's statistic couples the
+    coordinates: the first records each coordinate's Σ y²; their sum S
+    stays in the graph, and the second pass is given S through
+    ``reduce_stat`` and sums the partials by hand, so the gradients
+    through both passes add up to the true ones.  Returns x + the block
+    and the gradients of ``x`` and of each full leaf for ``dy``."""
+    import torch
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models.model import _take
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.tensor_parallel import ModelAxis
+    layout = rules.TPLayout(cfg, M)
+    leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
+    xin = x.detach().requires_grad_()
+    slices = [_take({k: layout.compute_slice(k, v, m)
+                     for k, v in leaves.items()}, "ssm_") for m in range(M)]
+    stats = []
+
+    def record(st):
+        stats.append(st)
+        return st
+    for m in range(M):
+        SSD.mamba2_fwd(slices[m], xin, cfg,
+                       tp=ModelAxis(layout, m, reduce_stat=record))
+    total = torch.stack(stats).sum(0)
+    tot = None
+    for m in range(M):
+        y, _ = SSD.mamba2_fwd(slices[m], xin, cfg, tp=ModelAxis(
+            layout, m, reduce_stat=lambda st: total))
+        tot = y.float() if tot is None else tot + y.float()
+    out = xin + tot.to(xin.dtype)
+    grads = torch.autograd.grad(out, [xin, *leaves.values()], dy)
+    return out.detach(), dict(zip(["x", *leaves], grads))
+
+
+# Slice 17: the blocks split by hand on the card (arch, kind, batch, seq,
+# model sizes): TinyLlama's dense block (slice 16's), a Mamba2 block of
+# Mamba2-370M (2 / 16 of 32 SSD heads a coordinate) and of Zamba2-7B (56 /
+# 7 of 112), and Zamba2's shared attention+MLP block at 16 (2 of 32 heads
+# of 112 a coordinate, "heads")
+TP_BLOCKS = (("tinyllama_1_1b", "dense", 4, LONG_SEQ, TP_BLOCK_MS),
+             ("mamba2_370m", "ssm", 4, SSM_SEQ, TP_BLOCK_MS),
+             ("zamba2_7b", "ssm", 4, SSM_SEQ, TP_BLOCK_MS),
+             ("zamba2_7b", "attn_mlp_shared", 4, SSM_SEQ, (16,)))
+
+
 def phase_tp_block(card: str) -> dict:
-    """Slice 16 (b): the split itself on the card.  One full-width
-    TinyLlama-1.1B block (bf16, random weights, seed 0) on the long
-    round's batch (4 × 1024), forward and backward, at M = 2 (heads split:
-    16 query and 2 kv heads a coordinate) and M = 16 (2 query heads and
-    the one kv head they share; the flash kernels at 2/1 heads, D 64, on
-    the tensor-core route): each coordinate's partial in turn, the sums
-    by hand, against the whole block (``models.model._dense_block_fwd``):
-    the output, the input's gradient and every leaf's within
-    TP_BLOCK_RTOL.  The split's launches are the paths
-    ``tp_block_m<M>``."""
+    """Slice 16 (b), and slice 17: the split itself on the card.  Each
+    block of TP_BLOCKS at full width (bf16, random weights, seed 0, the
+    norms' scales drawn away from 0) on its round's batch, forward and
+    backward, at each model size M: each coordinate's partial in turn,
+    the sums by hand (``tp_block_split`` for a dense block,
+    ``tp_ssm_block_split`` for a Mamba2 block), against the whole block
+    (``models.model._dense_block_fwd``, x + ``ssd.mamba2_fwd``): the
+    output, the input's gradient and every leaf's within TP_BLOCK_RTOL of
+    the largest magnitude.  A dense block's attention must launch the
+    tensor-core flash kernels M times each way; a Mamba2 block's scan the
+    tensor-core ``ssd_scan`` 2 M times (both passes).  The split's
+    launches are the paths ``tp_block_m<M>`` (TinyLlama) and
+    ``tp_block_<arch>_<kind>_m<M>``."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import blocks as B
-    from repro_torch.models.model import _block_shapes, _dense_block_fwd
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models.model import (_block_shapes, _dense_block_fwd,
+                                          _take)
     from repro_torch.sharding import rules
     t_phase = time.perf_counter()
-    cfg = get_arch("tinyllama_1_1b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    row = {k: v[0] for k, v in B.init_stacked(
-        gen, _block_shapes(cfg, "dense"), 1, torch.bfloat16, "cuda").items()}
-    # the norms' scales away from 0, so their gradients are not vacuous
-    for k in ("attn_ln", "mlp_ln"):
-        row[k] = (torch.randn(row[k].shape, generator=gen, device="cuda")
-                  * 0.1).to(torch.bfloat16)
-    b, s = 4, LONG_SEQ
-    x = torch.randn((b, s, cfg.d_model), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
-    xin = x.detach().requires_grad_()
-    pos = torch.arange(s, dtype=torch.int32, device="cuda")
-    want = _dense_block_fwd(leaves, xin, cfg, positions=pos, window=0)
-    want_g = dict(zip(["x", *leaves], torch.autograd.grad(
-        want, [xin, *leaves.values()], dy)))
     out, paths = {}, {}
-    for M in TP_BLOCK_MS:
-        layout = rules.TPLayout(cfg, M)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        got, got_g = tp_block_split(cfg, row, x, dy, M)
-        torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)
-        paths[f"tp_block_m{M}"] = launches
+    for arch, kind, b, s, sizes in TP_BLOCKS:
+        cfg = get_arch(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        row = {k: v[0] for k, v in B.init_stacked(
+            gen, _block_shapes(cfg, kind), 1, torch.bfloat16,
+            "cuda").items()}
+        # the norms' scales away from 0, so their gradients are not vacuous
+        for k in ("attn_ln", "mlp_ln", "ssm_ln", "ssm_gate_ln"):
+            if k in row:
+                row[k] = (torch.randn(row[k].shape, generator=gen,
+                                      device="cuda") * 0.1).to(torch.bfloat16)
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        dy = torch.randn(x.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
+        xin = x.detach().requires_grad_()
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")
+        if kind == "ssm":
+            want = xin + SSD.mamba2_fwd(_take(leaves, "ssm_"), xin, cfg)[0]
+        else:
+            want = _dense_block_fwd(leaves, xin, cfg, positions=pos,
+                                    window=0)
+        want_g = dict(zip(["x", *leaves], torch.autograd.grad(
+            want, [xin, *leaves.values()], dy)))
+        name = cfg.name if kind != "attn_mlp_shared" else \
+            f"{cfg.name} shared"
+        for M in sizes:
+            layout = rules.TPLayout(cfg, M)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            got, got_g = (tp_ssm_block_split if kind == "ssm"
+                          else tp_block_split)(cfg, row, x, dy, M)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            tag = (f"m{M}" if arch == "tinyllama_1_1b"
+                   else f"{arch}_{kind}_m{M}")
+            paths[f"tp_block_{tag}"] = launches
 
-        def rel(a, b_):
-            return ((a.float() - b_.float()).abs().max()
-                    / b_.float().abs().max()).item()
+            def rel(a, b_):
+                return ((a.float() - b_.float()).abs().max()
+                        / b_.float().abs().max()).item()
 
-        def rel2(a, b_):
-            return ((a.float() - b_.float()).norm()
-                    / b_.float().norm()).item()
-        pairs = {"out": (got, want.detach()),
-                 **{k: (got_g[k], want_g[k]) for k in want_g}}
-        errs = {k: rel(*v) for k, v in pairs.items()}
-        worst = max(errs, key=errs.get)
-        q, kv = layout.q_heads(0)[1], layout.kv_heads(0)[1]
-        res = {"mode": layout.mode, "q_heads": q, "kv_heads": kv,
-               "rel_err": errs, "launches": launches,
-               "rel_l2_err": {k: rel2(*v) for k, v in pairs.items()}}
-        out[f"m{M}"] = res
-        log(f"[tp-block] TinyLlama-1.1B block, 4 × {s}, bf16, M = {M} "
-            f"({layout.mode}: {q} query / {kv} kv heads a coordinate): the "
-            f"hand-summed partials against the whole block, relative to "
-            f"its largest magnitude: out {errs['out']:.3e}, dx "
-            f"{errs['x']:.3e}, worst leaf {worst} {errs[worst]:.3e} (limit "
-            f"{TP_BLOCK_RTOL:g}; norm-wise, worst "
-            f"{max(res['rel_l2_err'].values()):.3e}); launches "
-            f"{({k: v for k, v in launches.items() if v})}   [{card}]")
-        check(max(errs.values()) <= TP_BLOCK_RTOL and all(
-            math.isfinite(e) for e in errs.values()),
-            f"[tp-block] M = {M}: the split block disagrees with the whole: "
-            f"{errs}")
-        check(launches["flash_attention_mma"] == M
-              and launches["flash_attention_bwd_mma"] == M
-              and launches["flash_attention"] == M,
-              f"[tp-block] M = {M}: each coordinate's attention must launch "
-              f"the tensor-core flash kernels once forward and once "
-              f"backward: {launches}")
-        del got, got_g
+            def rel2(a, b_):
+                return ((a.float() - b_.float()).norm()
+                        / b_.float().norm()).item()
+            pairs = {"out": (got, want.detach()),
+                     **{k: (got_g[k], want_g[k]) for k in want_g}}
+            errs = {k: rel(*v) for k, v in pairs.items()}
+            worst = max(errs, key=errs.get)
+            if kind == "ssm":
+                share = (f"{layout.ssm_heads(0)[1]} of "
+                         f"{cfg.resolved_ssm_heads} SSD heads")
+                res = {"ssm_heads": layout.ssm_heads(0)[1]}
+            else:
+                q, kv = layout.q_heads(0)[1], layout.kv_heads(0)[1]
+                share = f"{layout.mode}: {q} query / {kv} kv heads"
+                res = {"mode": layout.mode, "q_heads": q, "kv_heads": kv}
+            res.update(rel_err=errs, launches=launches,
+                       rel_l2_err={k: rel2(*v) for k, v in pairs.items()})
+            out[tag] = res
+            log(f"[tp-block] {name} {kind} block, {b} × {s}, bf16, M = {M} "
+                f"({share} a coordinate): the hand-summed partials against "
+                f"the whole block, relative to its largest magnitude: out "
+                f"{errs['out']:.3e}, dx {errs['x']:.3e}, worst leaf {worst} "
+                f"{errs[worst]:.3e} (limit {TP_BLOCK_RTOL:g}; norm-wise, "
+                f"worst {max(res['rel_l2_err'].values()):.3e}); launches "
+                f"{({k: v for k, v in launches.items() if v})}   [{card}]")
+            check(max(errs.values()) <= TP_BLOCK_RTOL and all(
+                math.isfinite(e) for e in errs.values()),
+                f"[tp-block] {name} {kind}, M = {M}: the split block "
+                f"disagrees with the whole: {errs}")
+            if kind == "ssm":
+                check(launches["ssd_scan"] == 2 * M
+                      and launches["ssd_scan_mma"] == 2 * M,
+                      f"[tp-block] {name}, M = {M}: each coordinate's scan "
+                      f"must launch the tensor-core ssd_scan kernel once a "
+                      f"pass: {launches}")
+            else:
+                check(launches["flash_attention_mma"] == M
+                      and launches["flash_attention_bwd_mma"] == M
+                      and launches["flash_attention"] == M,
+                      f"[tp-block] {name}, M = {M}: each coordinate's "
+                      f"attention must launch the tensor-core flash kernels "
+                      f"once forward and once backward: {launches}")
+            del got, got_g
+        del row, leaves, xin, want, want_g, x, dy
+        torch.cuda.empty_cache()
     out["paths"] = paths
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[tp-block] phase {out['phase_s']:.1f} s   [{card}]")
@@ -6158,11 +6504,21 @@ DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
                ("mamba2_370m", "train_4k", 4),
                ("mamba2_370m", "prefill_32k", 2),
                ("mamba2_370m", "decode_32k", 8))
-# Slice 16: TinyLlama's three again under tensor parallelism (model = 1)
-DRYRUN_CARD_TP = tuple(p for p in DRYRUN_CARD if p[0] == "tinyllama_1_1b")
-# The dense family, whose --opt (tensor-parallel) programs the dry run runs
+# Slice 16: TinyLlama's three again under tensor parallelism (model = 1);
+# slice 17: Mamba2's three too
+DRYRUN_CARD_TP = DRYRUN_CARD
+# The archs whose --opt (tensor-parallel) programs the dry run runs: the
+# dense family, and (slice 17) the ssm and hybrid ones
 DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
-                   "gemma_7b")
+                   "gemma_7b", "mamba2_370m", "zamba2_7b")
+# What --opt must at least give a train_4k step on 16 × 16, per device,
+# against the step replicated over 'model': (argument bytes ÷, FLOPs ÷,
+# useful share), None where not held.  SmolLM's attention (15 heads) and
+# Mamba2's vocabulary (50 280 rows do not divide by 16: the embedding and
+# the tied head whole on every rank) stay replicated.
+DRYRUN_TP_MIN = {"smollm_360m": (8, None, None),
+                 "mamba2_370m": (4, 4, 0.25)}
+DRYRUN_TP_MIN_DEFAULT = (8, 8, 0.5)
 DRYRUN_TP_OPTS = ["tp", "rematsc", "moelocal"]
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
 DRYRUN_META = os.path.join(DRYRUN_DIR, "card_check_meta.json")
@@ -6352,11 +6708,13 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
             f"{tp['useful_flops_frac']:.4f}, temp "
             f"{plain['memory']['temp_bytes'] / 1e9:.3f} → "
             f"{tp['memory']['temp_bytes'] / 1e9:.3f} GB a device")
-        check(pa >= 8 and tp["collective_counts"].get("all-reduce", 0)
+        min_pa, min_pf, min_useful = DRYRUN_TP_MIN.get(
+            a, DRYRUN_TP_MIN_DEFAULT)
+        check(pa >= min_pa and tp["collective_counts"].get("all-reduce", 0)
               > plain["collective_counts"].get("all-reduce", 0),
               f"[dryrun] {a}: --opt does not split the step over 'model'")
-        check(a == "smollm_360m" or (pf >= 8
-                                     and tp["useful_flops_frac"] >= 0.5),
+        check(min_pf is None or (pf >= min_pf and tp["useful_flops_frac"]
+                                 >= min_useful),
               f"[dryrun] {a}: --opt FLOPs ÷{pf:.2f}, useful "
               f"{tp['useful_flops_frac']}")
 
@@ -6364,7 +6722,7 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
     with open(DRYRUN_META) as fh:
         meta_rows = json.load(fh)
     tols = dict(BUDGET_TOLERANCES, arg_bytes=0.0)
-    paths, rows = {}, {}
+    paths, rows, card_facts = {}, {}, {}
     gc.collect()
     torch.cuda.empty_cache()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -6420,6 +6778,17 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
             check(not runtime.tp_constraints or f.flops == dry.flops,
                   f"[dryrun] {name}: FLOPs {f.flops} on the card, "
                   f"{dry.flops} in the dry run")
+            card_facts[name] = f
+            if runtime.tp_constraints:
+                # model = 1: the tensor-parallel program is the plain one
+                p_ = card_facts[name[:-len("/tp")]]
+                check(f.flops == p_.flops
+                      and f.collective_counts == p_.collective_counts
+                      and f.kernel_launches == p_.kernel_launches,
+                      f"[dryrun] {name}: FLOPs {f.flops}, collectives "
+                      f"{f.collective_counts}, launches {f.kernel_launches}"
+                      f" on the card; the plain program's {p_.flops}, "
+                      f"{p_.collective_counts}, {p_.kernel_launches}")
         check(any(p.get("flash_attention", 0) for p in paths.values())
               and any(p.get("ssd_scan", 0) for p in paths.values()),
               f"[dryrun] the card check launched no flash or ssd_scan "
@@ -6487,64 +6856,98 @@ def main(argv=None) -> int:
         # slice 15: the dry run's CPU children run beside the card phases
         children = DryrunChildren()
         phase_lint(card)
+        lap(t0, "phase_lint")
         build_kernels()
+        lap(t0, "build_kernels")
         ssd = phase_ssd_kernel(card)
+        lap(t0, "phase_ssd_kernel")
         kern = phase_kernel(card)
+        lap(t0, "phase_kernel")
         served = phase_serve(card)
+        lap(t0, "phase_serve")
         phase_exact(card)
+        lap(t0, "phase_exact")
         train = phase_train_kernels(card)
+        lap(t0, "phase_train_kernels")
         rounds = phase_round(card)
+        lap(t0, "phase_round")
         phase_round_exact(card)
+        lap(t0, "phase_round_exact")
         train_ssm = phase_train_kernels(card, "mamba2_370m", "ssm",
                                         f32_leaves=("ssm_D", "ssm_in_proj"),
                                         ragged=False)
+        lap(t0, "phase_train_kernels")
         ssm_rounds = phase_ssm_round(card)
+        lap(t0, "phase_ssm_round")
         phase_profile(card, "mamba2_370m", SSM_SEQ, "ssm-profile",
                       {"ssd_scan (forward kernel)": ("ssd_scan",)})
+        lap(t0, "phase_profile")
         phase_ssm_serve(card)
+        lap(t0, "phase_ssm_serve")
         flash = phase_flash_kernel(card)
+        lap(t0, "phase_flash_kernel")
         long_rounds = phase_round(card, LONG_SEQ)
+        lap(t0, "phase_round")
         phase_profile(card, "tinyllama_1_1b", LONG_SEQ, "long-profile", {
             "flash_attention (forward kernel)": ("flash_fwd",),
             "flash_attention_bwd (dQ, dK/dV kernels, the split's sum)": (
                 "flash_dq", "flash_dkdv")})
+        lap(t0, "phase_profile")
         pipe = phase_pipeline(card)
+        lap(t0, "phase_pipeline")
         pre = phase_pretrain(card)
+        lap(t0, "phase_pretrain")
         ckp = phase_checkpoint(card)
+        lap(t0, "phase_checkpoint")
         faults = phase_faults(card, pipe)
+        lap(t0, "phase_faults")
         # slice 9: the earlier phases' models are gone with their frames
         gc.collect()
         torch.cuda.empty_cache()
         hyk = phase_hybrid_kernels(card)
+        lap(t0, "phase_hybrid_kernels")
         phase_hybrid_serve(card)
+        lap(t0, "phase_hybrid_serve")
         hyr = phase_hybrid_round(card)
+        lap(t0, "phase_hybrid_round")
         # slice 10: the full DeepSeek-V2-Lite-16B takes 31.4 GB
         gc.collect()
         torch.cuda.empty_cache()
         mok = phase_moe_kernels(card)
+        lap(t0, "phase_moe_kernels")
         phase_moe_serve(card)
+        lap(t0, "phase_moe_serve")
         mor = phase_moe_round(card)
+        lap(t0, "phase_moe_round")
         # slice 11: whisper-medium, after the 31.4 GB DeepSeek model
         gc.collect()
         torch.cuda.empty_cache()
         auk = phase_audio_kernels(card)
+        lap(t0, "phase_audio_kernels")
         aur = phase_audio_round(card)
+        lap(t0, "phase_audio_round")
         phase_audio_decode(card)
+        lap(t0, "phase_audio_decode")
         # slice 12: theory at full TinyLlama width, strict mode, the auditor
         gc.collect()
         torch.cuda.empty_cache()
         thr = phase_theory(card)
+        lap(t0, "phase_theory")
         con = phase_contracts(card)
+        lap(t0, "phase_contracts")
         # slice 13: the distributed round and mesh serving (NCCL, world 1)
         gc.collect()
         torch.cuda.empty_cache()
         dst = phase_distributed(card)
+        lap(t0, "phase_distributed")
         # slice 16: the tensor-parallel split of one block, summed by hand
         tpb = phase_tp_block(card)
+        lap(t0, "phase_tp_block")
         # slice 15: the dry run, and its counts against the card's
         gc.collect()
         torch.cuda.empty_cache()
         dry = phase_dryrun(card, children)
+        lap(t0, "phase_dryrun")
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -6685,6 +7088,14 @@ def main(argv=None) -> int:
         "simt_ms": main_ssd["simt_ms"],
         "timed_as": "one Mamba2-370M layer's scan on the round's batch: "
                     "b 4, S 512, H 32, P 64, G 1, N 128, chunk 128, bf16",
+        # slice 17: one model rank's heads at M = 16
+        "tp_local_heads": {
+            arch: {k: r[k] for k in ("b", "s", "h", "p", "g", "n",
+                                     "max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")}
+            for arch, r in (("mamba2_370m", ssd["tp_local_m16"]),
+                            ("zamba2_7b",
+                             hyk["ssd"]["zamba2/tp_local_m16"]))},
         "library_call": None,
         "shapes": list(ssd.values()) + list(hyk["ssd"].values())})
     fm = flash["main"]

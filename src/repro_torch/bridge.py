@@ -12,9 +12,11 @@ this rank's storage shards (sliced on the host, so the full tree never
 reaches the device) and :func:`gather_params` joins the shards back into
 the full tree on every rank (a collective: every rank calls it).  Given a
 tensor-parallel ``layout`` (``sharding.fl_step.storage_layout``), both
-take its storage: model slices too, a gated ``mlp_wi`` reordered
-(``sharding.rules.TPLayout``); a full tree goes to shards and back to
-the same full tree, bit for bit.
+take its storage: model slices too, a gated ``mlp_wi`` and a Mamba2
+``ssm_in_proj`` / ``ssm_conv_w`` / ``ssm_conv_b`` reordered so that each
+model slice holds its part of every packed piece
+(``sharding.rules.TPLayout``); a full tree goes to shards and back to the
+same full tree, bit for bit.
 """
 from __future__ import annotations
 

@@ -412,11 +412,12 @@ class Model:
 
     # -- embedding / head --------------------------------------------------
     def _embed_tokens(self, params, tokens, tp=None):
-        """Token embeddings.  ``tp``: vocab-parallel, ``tok`` holds this
-        model coordinate's rows; ids outside them embed as zeros and
-        ``tp.reduce`` sums the coordinates' rows."""
+        """Token embeddings.  ``tp`` with ``tp.vocab_split``:
+        vocab-parallel, ``tok`` holds this model coordinate's rows; ids
+        outside them embed as zeros and ``tp.reduce`` sums the
+        coordinates' rows (else ``tok`` is whole on every rank)."""
         cfg = self.cfg
-        if tp is None:
+        if tp is None or not tp.vocab_split:
             x = params["embed"]["tok"][tokens.long()]
         else:
             tok = params["embed"]["tok"]
@@ -432,14 +433,15 @@ class Model:
                     if cfg.name.startswith(("gemma", "paligemma")) else 1.0)
 
     def _head(self, params, h, tp=None):
-        """Logits of ``h``.  ``tp``: vocab-parallel, all-gathered over
-        ``model`` (``tp.gather_last``), so every rank returns them whole."""
+        """Logits of ``h``.  ``tp`` with ``tp.vocab_split``:
+        vocab-parallel, all-gathered over ``model`` (``tp.gather_last``),
+        so every rank returns them whole (else computed whole)."""
         cfg = self.cfg
         h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
         if cfg.task == "classification":
             return h @ params["head"]
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]
-        if tp is not None:
+        if tp is not None and tp.vocab_split:
             return tp.gather_last(B.softcap(tp.copy(h) @ w,
                                             cfg.logit_softcap))
         return B.softcap(h @ w, cfg.logit_softcap)
@@ -495,20 +497,23 @@ class Model:
             return checkpoint(layer_fn, h, p, use_reentrant=False)
         return layer_fn(h, p)
 
-    def _mamba_layer(self, carry, p):
-        """One residual Mamba2 block of the sequence forward."""
+    def _mamba_layer(self, carry, p, tp=None):
+        """One residual Mamba2 block of the sequence forward (``tp``: its
+        parallel form, the partial sums added up by ``tp.reduce``)."""
         h, aux = carry
         out, _ = SSD.mamba2_fwd(_take(p, "ssm_"), h, self.cfg,
-                                mode=self.kernel_mode)
-        return h + out, aux
+                                mode=self.kernel_mode, tp=tp)
+        return h + (out if tp is None else tp.reduce(out)), aux
 
-    def _hybrid_sites(self, shared: dict, positions: torch.Tensor):
+    def _hybrid_sites(self, shared: dict, positions: torch.Tensor,
+                      tp=None):
         """The zamba2 hook of the Mamba2 row loop (ref
         ``Model._zamba_seq``): after every ``attn_every`` residual Mamba2
         blocks, the shared attention+MLP block (causal,
         ``cfg.sliding_window``); the ``n_layers % attn_every`` tail runs
         without it.  The shared block is not rematerialized, as in the
-        reference."""
+        reference.  ``tp``: ``shared`` is this model coordinate's view of
+        the block, made once a step by the caller."""
         cfg, rt = self.cfg, self.runtime
 
         def after_row(i: int, carry):
@@ -519,7 +524,7 @@ class Model:
                                     causal=True, window=cfg.sliding_window,
                                     seq_chunk=rt.seq_chunk,
                                     remat_chunk=rt.remat_scores,
-                                    kernel_mode=self.kernel_mode), aux
+                                    kernel_mode=self.kernel_mode, tp=tp), aux
         return after_row
 
     def encode(self, params: dict, frames: torch.Tensor, *,
@@ -576,9 +581,13 @@ class Model:
                                         cross_kv=xkv), carry[1]
             return [("blocks", encdec_row, None)]
         if cfg.family in ("ssm", "hybrid"):
-            after_row = (self._hybrid_sites(params["shared_attn"], positions)
+            after_row = (self._hybrid_sites(params["shared_attn"], positions,
+                                            tp)
                          if cfg.family == "hybrid" else None)
-            return [("blocks", self._mamba_layer, after_row)]
+
+            def mamba_row(carry, p):
+                return self._mamba_layer(carry, p, tp)
+            return [("blocks", mamba_row, after_row)]
         if cfg.family == "moe":
             attn = dict(positions=positions, window=cfg.sliding_window,
                         seq_chunk=rt.seq_chunk, remat_chunk=rt.remat_scores,
@@ -630,10 +639,11 @@ class Model:
         decoder's rows over the token embeddings; a fully frozen encoder
         (a cut at or past ``n_enc_layers``) runs without a graph.
 
-        ``tp`` (``sharding.tensor_parallel.ModelAxis``, the dense family's
-        language models): the parallel form over ``model``, ``params``
-        this model coordinate's (the hook's rows too); the hidden state
-        comes out whole on every rank.
+        ``tp`` (``sharding.tensor_parallel.ModelAxis``, the language
+        models of the dense, ssm and hybrid families): the parallel form
+        over ``model``, ``params`` this model coordinate's (the hook's
+        rows too, and the hybrid's shared block, viewed once by the
+        caller); the hidden state comes out whole on every rank.
         """
         cfg = self.cfg
         if trainable is not None and not supports_prefix_cut(cfg):
@@ -722,8 +732,9 @@ class Model:
                chunk: int = 1024, tp=None) -> torch.Tensor:
         """Next-token cross-entropy, by chunks of ``chunk`` positions when
         the sequence is a longer multiple of it (never the whole (B,S,V)
-        f32 logits at once).  ``tp``: vocab-parallel, each chunk's logits
-        this model coordinate's columns: the max over ``model``
+        f32 logits at once).  ``tp`` with ``tp.vocab_split``:
+        vocab-parallel, each chunk's logits this model coordinate's
+        columns: the max over ``model``
         (``tp.reduce_max``), then Σ exp and the gold logit (from the rank
         that owns it) summed over ``model`` in one ``tp.reduce``."""
         cfg = self.cfg
@@ -732,7 +743,7 @@ class Model:
             and cfg.task == "lm" else params["head"]
 
         def token_ce(hi, ti):
-            if tp is not None:
+            if tp is not None and tp.vocab_split:
                 return vocab_parallel_ce(hi, ti)
             logits = B.softcap(hi @ w, cfg.logit_softcap).float()
             gold = logits.gather(-1, ti.long()[..., None])[..., 0]
@@ -838,12 +849,13 @@ class Model:
     def _mamba_stack_decode(self, params: dict, x: torch.Tensor,
                             positions: torch.Tensor, pos: torch.Tensor,
                             cache: dict, window: int,
-                            hook=_no_hook) -> torch.Tensor:
+                            hook=_no_hook, tp=None) -> torch.Tensor:
         """One decode step through the Mamba2 rows (ssm and hybrid), their
         conv and state rows updated in place.  The hybrid (ref
         ``Model._zamba_decode``) runs the shared block after every
         ``attn_every`` rows, over its application site's KV row
-        ``cache["shared_attn"][g]``, written in place."""
+        ``cache["shared_attn"][g]``, written in place.  ``tp``: the
+        parallel form, over the rank's cache rows."""
         cfg = self.cfg
         blocks, mc = params["blocks"], cache["blocks"]
         kv = cache.get("shared_attn")
@@ -851,10 +863,10 @@ class Model:
             c = {name: leaf[li] for name, leaf in mc.items()}
             out, nc = SSD.mamba2_fwd(
                 _take(hook({name: leaf[li] for name, leaf in blocks.items()},
-                           li, "blocks"), "ssm_"), x, cfg, cache=c)
+                           li, "blocks"), "ssm_"), x, cfg, cache=c, tp=tp)
             for name, t in nc.items():
                 c[name].copy_(t)
-            x = x + out
+            x = x + (out if tp is None else tp.reduce(out))
             if kv is not None and (li + 1) % cfg.attn_every == 0:
                 g = li // cfg.attn_every
                 x = _dense_block_fwd(params["shared_attn"], x, cfg,
@@ -862,7 +874,7 @@ class Model:
                                      cache={name: leaf[g]
                                             for name, leaf in kv.items()},
                                      cache_pos=pos,
-                                     kernel_mode=self.kernel_mode)
+                                     kernel_mode=self.kernel_mode, tp=tp)
         return x
 
     def _moe_stack_decode(self, params: dict, x: torch.Tensor,
@@ -910,9 +922,10 @@ class Model:
         ``blocks`` row before it runs (the mesh serve step gathers the
         row's ZeRO-3 shards there).
 
-        ``tp``: the parallel form over ``model`` (dense language models,
-        no delta): this model coordinate's params, a cache of its kv heads
-        (``sharding.serve.shard_cache``), the logits gathered whole.
+        ``tp``: the parallel form over ``model`` (the language models of
+        the dense, ssm and hybrid families, no delta): this model
+        coordinate's params, a cache of its kv heads and Mamba2 channels
+        and heads (``sharding.serve.shard_cache``), the logits whole.
 
         Returns (logits (B, V), cache) — the cache updated in place.
         """
@@ -940,8 +953,8 @@ class Model:
         hook = layer_hook or _no_hook
         if cfg.family in ("ssm", "hybrid"):
             x = self._mamba_stack_decode(params, x, positions, pos, cache, w,
-                                         hook)
-            return self._head(params, x)[:, 0], cache
+                                         hook, tp)
+            return self._head(params, x, tp)[:, 0], cache
         if cfg.family == "moe":
             x = self._moe_stack_decode(params, x, positions, pos, cache, w,
                                        hook)

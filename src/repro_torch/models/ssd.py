@@ -136,13 +136,12 @@ def mamba2_param_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    d_in = cfg.d_inner
-    g, n = cfg.ssm_groups, cfg.ssm_state
-    idx = [d_in, 2 * d_in, 2 * d_in + g * n, 2 * d_in + 2 * g * n]
-    z = zxbcdt[..., :idx[0]]
-    xbc = zxbcdt[..., idx[0]:idx[3]]        # conv applies to x|B|C jointly
-    dt = zxbcdt[..., idx[3]:]
+def _split_in_proj(zxbcdt: torch.Tensor, d_in: int, gn: int):
+    """z | x | B | C | dt → (z, x | B | C, dt): ``d_in`` channels of z
+    and x, ``gn`` = G·N columns of B and of C."""
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:2 * d_in + 2 * gn]   # conv applies to x|B|C jointly
+    dt = zxbcdt[..., 2 * d_in + 2 * gn:]
     return z, xbc, dt
 
 
@@ -168,44 +167,87 @@ def _conv_decode(u: torch.Tensor, conv_cache: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b), new_cache
 
 
+def _heads_groups(t: torch.Tensor, first: int, count: int,
+                  h: int) -> torch.Tensor:
+    """B or C (…, G, N) for heads [first, first + count) of ``h``: head j
+    reads group j // (h // G), so with one group every head reads it; else
+    each head's group, in head order."""
+    g = t.shape[-2]
+    if g == 1:
+        return t
+    idx = torch.arange(first, first + count, device=t.device) // (h // g)
+    return t.index_select(t.dim() - 2, idx)
+
+
+def _gate_norm(y: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig,
+               tp=None) -> torch.Tensor:
+    """``blocks.rms_norm`` over the whole ``d_inner``.  Under ``tp`` the
+    last dim of ``y`` holds this model coordinate's channels: Σ y² over
+    them is summed over ``model`` in both directions (``tp.reduce_stat``),
+    and the mean divides by ``cfg.d_inner``, not by the local width."""
+    dt = y.dtype
+    y = y.float()
+    sq = torch.square(y).sum(-1, keepdim=True)
+    var = (sq if tp is None else tp.reduce_stat(sq)) / cfg.d_inner
+    return ((y * torch.rsqrt(var + cfg.norm_eps))
+            * (1.0 + scale.float())).to(dt)
+
+
 def mamba2_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-               cache: Optional[dict] = None, mode: Optional[str] = None):
+               cache: Optional[dict] = None, mode: Optional[str] = None,
+               tp=None):
     """Mamba2 block (pre-norm, residual added by caller).
 
     cache: {"conv": (B,K-1,Cd), "state": (B,H,P,N)} for decode.
     ``mode`` picks the scan's implementation (``kernels.ops.ssd``).
+
+    ``tp`` (``sharding.tensor_parallel.ModelAxis``): the parallel form
+    over ``model``.  ``p`` holds this model coordinate's weights
+    (``TPLayout.compute_slice``): ``in_proj`` z_m | x_m | B | C | dt_m,
+    the conv's x_m | B | C, its heads' ``dt_bias`` / ``A_log`` / ``D``,
+    its channels' ``gate_ln`` and ``out_proj`` rows; the normed input
+    passes ``tp.copy`` (f), the scan runs on ``tp.ssm_heads`` heads, the
+    gate norm's statistic is summed over ``model`` and the result is this
+    coordinate's partial sum, which the caller reduces.  A cache holds the
+    rank's conv channels and state heads (``rules.tp_shard_cache``).
     Returns (out, new_cache).
     """
     B_, S, _ = x.shape
-    d_in = cfg.d_inner
     g, n = cfg.ssm_groups, cfg.ssm_state
-    h = cfg.resolved_ssm_heads
+    h, d_in = cfg.resolved_ssm_heads, cfg.d_inner
     phead = d_in // h
+    if tp is not None:
+        h, d_in = tp.ssm_heads, tp.d_inner
 
     hid = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xbc, dt = _split_in_proj(hid @ p["in_proj"], cfg)
+    if tp is not None:
+        hid = tp.copy(hid)
+    z, xbc, dt = _split_in_proj(hid @ p["in_proj"], d_in, g * n)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
     new_cache = None
     if cache is None:
         xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-        xs = xbc[..., :d_in].reshape(B_, S, h, phead)
-        Bs = xbc[..., d_in:d_in + g * n].reshape(B_, S, g, n)
-        Cs = xbc[..., d_in + g * n:].reshape(B_, S, g, n)
-        y = _kops.ssd(xs, dt, p["A_log"], Bs, Cs, p["D"],
-                      chunk=min(cfg.ssm_chunk, S), mode=mode)
     else:
         xbc, conv_cache = _conv_decode(xbc, cache["conv"], p["conv_w"],
                                        p["conv_b"])
-        xs = xbc[..., :d_in].reshape(B_, 1, h, phead)
-        Bs = xbc[..., d_in:d_in + g * n].reshape(B_, 1, g, n)
-        Cs = xbc[..., d_in + g * n:].reshape(B_, 1, g, n)
+    xs = xbc[..., :d_in].reshape(B_, S, h, phead)
+    Bs = xbc[..., d_in:d_in + g * n].reshape(B_, S, g, n)
+    Cs = xbc[..., d_in + g * n:].reshape(B_, S, g, n)
+    if tp is not None:
+        H = cfg.resolved_ssm_heads
+        Bs = _heads_groups(Bs, tp.ssm_head_first, h, H)
+        Cs = _heads_groups(Cs, tp.ssm_head_first, h, H)
+    if cache is None:
+        y = _kops.ssd(xs, dt, p["A_log"], Bs, Cs, p["D"],
+                      chunk=min(cfg.ssm_chunk, S), mode=mode)
+    else:
         y, state = ssd_decode_step(cache["state"], xs, dt, p["A_log"], Bs,
                                    Cs, p["D"])
         new_cache = {"conv": conv_cache, "state": state}
 
-    y = y.reshape(B_, S, d_in)
-    y = rms_norm(y * F.silu(z), p["gate_ln"], cfg.norm_eps)
+    y = y.reshape(B_, S, d_in) * F.silu(z)
+    y = _gate_norm(y, p["gate_ln"], cfg, tp)
     return y @ p["out_proj"], new_cache
 
 

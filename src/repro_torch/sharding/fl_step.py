@@ -7,14 +7,17 @@ local shards; the cohort meets only in the collectives, which run on the
 ``data`` (and ``pod``) sub-groups of the mesh.  By default each client's
 compute is replicated over ``model``, as in the reference's own fully
 manual fallback (its ``_shard_map`` docstring).  With
-``RuntimeConfig(tp_constraints=True)`` the dense family's step is split
-over ``model`` instead, the values those of GSPMD under the reference's
-Megatron constraints: a rank stores and computes its model slice
-(``rules.TPLayout``, :func:`storage_layout`), the row loop's hook views
-each gathered row as the rank's share (``tensor_parallel.ModelAxis``)
-and the model runs its parallel form (f and g around every block's
-products, a vocab-parallel embedding and cross-entropy).  Every other
-family raises on it (``rules.check_tp_family``).
+``RuntimeConfig(tp_constraints=True)`` the step of the dense, ssm and
+hybrid families is split over ``model`` instead, the values those of
+GSPMD under the reference's Megatron constraints: a rank stores and
+computes its model slice (``rules.TPLayout``, :func:`storage_layout`),
+the row loop's hook views each gathered row as the rank's share
+(``tensor_parallel.ModelAxis``; the hybrid's unstacked shared block once
+a step, :func:`view_shared`) and the model runs its parallel form (f and
+g around every block's products, a Mamba2 block split by SSD heads, a
+vocab-parallel embedding and cross-entropy where the vocabulary
+divides).  The moe, vlm and audio families raise on it
+(``rules.check_tp_family``).
 
 The per-(client, layer) aggregation of Eq. (5)-(7) is fused into one
 backward pass, with the reference's two tricks:
@@ -181,6 +184,18 @@ def model_axis(layout: Optional[rules.TPLayout],
     return ModelAxis.on_mesh(layout, mesh)
 
 
+def view_shared(tree: PyTree, specs: PyTree,
+                axis: Optional[ModelAxis]) -> PyTree:
+    """``tree`` with the hybrid's shared block (unstacked leaves,
+    gathered over ``data``) viewed as this rank's share
+    (``ModelAxis.view_row``), once a step rather than at each of its
+    sites; any other tree, or no axis, as it is."""
+    if axis is None or "shared_attn" not in tree:
+        return tree
+    return {**tree, "shared_attn": axis.view_row(
+        tree["shared_attn"], specs["shared_attn"], lead=0)}
+
+
 def shard_params(model: Model, mesh, params: PyTree,
                  specs: PyTree) -> PyTree:
     """This rank's storage of the full ``params``: ``rules.shard_tree``,
@@ -264,10 +279,13 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
     paper's R/L upload, made structural); the rest of the model is
     gathered without a gradient and stays as it is.
 
-    ``RuntimeConfig(tp_constraints=True)`` (dense family): the local
-    shards are :func:`shard_params`'s, model slices included; the Eq.(5)
-    sums are unchanged, and the leaves replicated over ``model`` (the
-    norms) get identical gradients on every model rank through f.
+    ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm and hybrid
+    families): the local shards are :func:`shard_params`'s, model slices
+    included; the Eq.(5) sums are unchanged.  The leaves replicated over
+    ``model`` get the same gradient on every model rank: the norms whole
+    through f, and the ones a Mamba2 rank narrows to its heads or channels
+    (``gate_ln``, ``A_log``, ``D``, ``dt_bias``) by gathering the slices'
+    gradients back over ``model`` (``tensor_parallel._NarrowGather``).
     """
     cfg, rt = model.cfg, model.runtime
     axis = model_axis(storage_layout(model, mesh), mesh)
@@ -294,7 +312,8 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
             blocks = {nm: frozen["blocks"][nm].index_copy(
                 0, sel, gather_leaf(r, specs["blocks"][nm], mesh))
                 for nm, r in wrt.items()}
-            p_eff = _scale_tree({**frozen, "blocks": blocks}, w, cfg)
+            p_eff = _scale_tree(view_shared({**frozen, "blocks": blocks},
+                                            specs, axis), w, cfg)
             loss = model.seq_loss(
                 p_eff, my_batch, tp=axis, layer_hook=None if axis is None
                 else lambda pl, idx, seg: axis.view_row(pl, specs[seg]))
@@ -330,7 +349,8 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
         p_full = {key: sub if key in hooked
                   else gather_tree(sub, specs[key], mesh)
                   for key, sub in p_in.items()}
-        p_eff = _scale_tree(p_full, w, cfg, skip=hooked)
+        p_eff = _scale_tree(view_shared(p_full, specs, axis), w, cfg,
+                            skip=hooked)
         loss = model.seq_loss(p_eff, my_batch, layer_hook=layer_hook,
                               tp=axis)
         grads = _grads(loss, [t for _, t in wrt])
@@ -405,8 +425,9 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
         with torch.no_grad():
             rows0 = {nm: gather_leaf(x[sel], bspecs[nm], mesh)
                      for nm, x in params["blocks"].items()}
-            others = {k: gather_tree(v, specs[k], mesh)
-                      for k, v in params.items() if k != "blocks"}
+            others = view_shared({k: gather_tree(v, specs[k], mesh)
+                                  for k, v in params.items()
+                                  if k != "blocks"}, specs, axis)
         m_sel = mask_parts["blocks"][sel].contiguous()            # (R,)
 
         def view(rows):

@@ -13,15 +13,16 @@ the port keeps those entries, so its specs equal the reference's leaf by
 leaf.  With tensor parallelism off (``RuntimeConfig(tp_constraints=
 False)``) a rank stores the slice of a leaf along the client axes of its
 spec and holds it whole over ``model`` (:func:`local_shard`), as the
-reference's fully manual fallback does.  With it on, for the dense
-family, a rank stores the slice its spec gives, ``model`` included
-(:class:`TPLayout`, :func:`tp_local_shard`), and computes its share of
-each layer (``sharding/tensor_parallel.py``); :func:`attention_mode`
-says how a config's heads split.  :func:`cache_specs` stays the
-reference's; a tensor-parallel decode keeps each rank's kv heads whole
-over the sequence instead (:func:`tp_shard_cache`), a layout difference
+reference's fully manual fallback does.  With it on, for the dense,
+ssm and hybrid families, a rank stores the slice its spec gives,
+``model`` included (:class:`TPLayout`, :func:`tp_local_shard`), and
+computes its share of each layer (``sharding/tensor_parallel.py``);
+:func:`attention_mode` says how a config's heads split.
+:func:`cache_specs` stays the reference's; a tensor-parallel decode keeps
+each rank's kv heads whole over the sequence and its Mamba2 conv channels
+in its own order instead (:func:`tp_shard_cache`), a layout difference
 with the same values.  ``make_shard_hook`` (the moe experts' activation
-constraints) waits with the other families' tensor parallelism
+constraints) waits with the moe family's tensor parallelism
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -280,18 +281,20 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
 # Tensor parallelism over 'model' (RuntimeConfig(tp_constraints=True))
 # ---------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_tp_family(cfg: ArchConfig) -> None:
-    """Tensor parallelism over ``model`` is ported for the dense family's
-    language models; any other family raises, naming it."""
+    """Tensor parallelism over ``model`` is ported for the language models
+    of the dense, ssm and hybrid families; the moe, vlm and audio families
+    raise, naming themselves."""
     if cfg.family not in TP_FAMILIES or cfg.task != "lm":
         raise ValueError(
             f"RuntimeConfig(tp_constraints=True): tensor parallelism over "
-            f"the 'model' axis is ported for the dense family's language "
-            f"models; the {cfg.family!r} family's ({cfg.name}, task "
-            f"{cfg.task!r}) waits (ROADMAP.md)")
+            f"the 'model' axis is ported for the dense, ssm and hybrid "
+            f"families' language models; the moe, vlm and audio families "
+            f"wait, and so does the {cfg.family!r} family's {cfg.name} "
+            f"(task {cfg.task!r}) (ROADMAP.md)")
 
 
 def attention_mode(cfg: ArchConfig, msz: int) -> str:
@@ -316,37 +319,58 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
 
 
 class TPLayout:
-    """A dense model's storage and compute under tensor parallelism over a
-    ``model`` axis of ``size`` ranks.
+    """A model's storage and compute under tensor parallelism over a
+    ``model`` axis of ``size`` ranks: the dense family's blocks, the ssm
+    and hybrid families' Mamba2 blocks, and the hybrid's shared block,
+    which splits as a dense block.
 
     Storage (:func:`tp_local_shard`): a rank holds the slice of each leaf
     that its spec gives, ``model`` included; a tuple entry ``(model,
     data)`` is model-major, data-minor, as ``PartitionSpec`` lays it, so a
     gather over ``data`` within model coordinate m yields model slice m.
-    One leaf is reordered first: a gated ``mlp_wi`` ([gate|up] on its last
-    dim) is stored in the order gate[:, 0] | up[:, 0] | gate[:, 1] | …
-    (:meth:`to_storage_order`), so that model slice m is gate[:, m] |
-    up[:, m], the halves ``blocks.mlp_fwd`` splits.  ``wk`` / ``wv`` keep
-    the contiguous split; under ``"kv_shared"`` a model slice is a part of
-    one kv head, and the step all-gathers them over ``model``
-    (``sharding/tensor_parallel.py``).
+    Leaves packed from pieces on their last dim are reordered first
+    (:meth:`to_storage_order`) so that model slice m is the m-th part of
+    every piece side by side: a gated ``mlp_wi`` (gate | up) as gate[:, m]
+    | up[:, m], the halves ``blocks.mlp_fwd`` splits; a Mamba2
+    ``ssm_in_proj`` (z | x | B | C | dt) as z_m | x_m | B_m | C_m | dt_m,
+    and ``ssm_conv_w`` / ``ssm_conv_b`` (x | B | C) as x_m | B_m | C_m.
+    ``wk`` / ``wv`` keep the contiguous split; under ``"kv_shared"`` a
+    model slice is a part of one kv head, and the step all-gathers them
+    over ``model`` (``sharding/tensor_parallel.py``), as it does every
+    B_m | C_m.
 
     Compute (:meth:`compute_slice`): model coordinate m computes query
     heads :meth:`q_heads` and kv heads :meth:`kv_heads` (all of them under
-    ``"replicated"``), the ``d_ff / size`` MLP columns m and the vocabulary
-    rows ``[m·V/size, (m+1)·V/size)``.
+    ``"replicated"``), the ``d_ff / size`` MLP columns m, the SSD heads
+    :meth:`ssm_heads` with their ``d_inner / size`` channels of z and x
+    and all of B and C, and, where the spec of ``embed.tok`` names
+    ``model`` (``vocab_split``: the vocabulary divides), the vocabulary
+    rows ``[m·V/size, (m+1)·V/size)``; else the embedding and the head are
+    whole on every rank.
     """
 
     def __init__(self, cfg: ArchConfig, size: int):
         check_tp_family(cfg)
-        for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
-            if n % size:
-                raise ValueError(f"tensor parallelism over 'model' of "
-                                 f"{size}: {cfg.name}'s {what} {n} does "
-                                 f"not divide")
+        if cfg.d_ff % size:
+            raise ValueError(f"tensor parallelism over 'model' of {size}: "
+                             f"{cfg.name}'s d_ff {cfg.d_ff} does not divide")
+        self.ssm = cfg.family in ("ssm", "hybrid")
+        if self.ssm:
+            H, GN = cfg.resolved_ssm_heads, cfg.ssm_groups * cfg.ssm_state
+            if H % size or GN % size:
+                raise ValueError(
+                    f"tensor parallelism over 'model' of {size}: {cfg.name}'s"
+                    f" ssm_heads {H} and ssm_groups·ssm_state {GN} must both "
+                    f"divide by it")
         self.cfg, self.size = cfg, size
-        self.mode = attention_mode(cfg, size)
+        # Mamba2 alone has no attention (n_heads 0): nothing to split
+        self.mode = attention_mode(cfg, size) if cfg.n_heads else "heads"
         self.gated = cfg.mlp_act != "gelu_plain"
+        # split the vocabulary where the spec of embed.tok names 'model'
+        tok = torch.empty((cfg.vocab_size, cfg.d_model), device="meta")
+        self.vocab_split = model_dim(param_spec(
+            ("embed", "tok"), tok, cfg, zero3=False,
+            mesh_shape={MODEL: size})) is not None
 
     def q_heads(self, m: int) -> tuple[int, int]:
         """(first, count) of the query heads model coordinate m computes."""
@@ -364,14 +388,36 @@ class TPLayout:
             return self.q_heads(m)[0] // (H // K), 1
         return 0, K
 
-    def _reordered(self, path: tuple) -> bool:
-        return self.size > 1 and self.gated and path[-1] == "mlp_wi"
+    def ssm_heads(self, m: int) -> tuple[int, int]:
+        """(first, count) of the SSD heads model coordinate m computes."""
+        n = self.cfg.resolved_ssm_heads // self.size
+        return m * n, n
 
-    def _order(self, n: int, inverse: bool) -> np.ndarray:
-        ff, w = n // 2, n // 2 // self.size
-        order = np.concatenate([np.r_[m * w:(m + 1) * w,
-                                      ff + m * w:ff + (m + 1) * w]
-                                for m in range(self.size)])
+    def ssm_widths(self) -> tuple[int, int, int]:
+        """(d_inner, ssm_groups·ssm_state, ssm_heads) of the whole block."""
+        cfg = self.cfg
+        return (cfg.d_inner, cfg.ssm_groups * cfg.ssm_state,
+                cfg.resolved_ssm_heads)
+
+    def _pieces(self, path: tuple, n: int) -> Optional[list]:
+        """Widths of the pieces packed on the last dim (``n`` wide) of the
+        leaf at ``path`` that storage reorders, or None."""
+        if self.size == 1:
+            return None
+        if path[-1] == "mlp_wi" and self.gated:
+            return [n // 2, n // 2]
+        if self.ssm and path[-1] in ("ssm_in_proj", "ssm_conv_w",
+                                     "ssm_conv_b"):
+            di, gn, h = self.ssm_widths()
+            return ([di, di, gn, gn, h] if path[-1] == "ssm_in_proj"
+                    else [di, gn, gn])
+        return None
+
+    def _order(self, pieces: list, inverse: bool) -> np.ndarray:
+        starts = np.cumsum([0] + pieces[:-1])
+        order = np.concatenate([
+            np.r_[s + m * (w // self.size):s + (m + 1) * (w // self.size)]
+            for m in range(self.size) for s, w in zip(starts, pieces)])
         return np.argsort(order) if inverse else order
 
     def _take_last(self, leaf, order: np.ndarray):
@@ -382,24 +428,29 @@ class TPLayout:
 
     def to_storage_order(self, path: tuple, leaf):
         """A full leaf (tensor or array) in its storage order."""
-        if not self._reordered(path):
+        pieces = self._pieces(path, leaf.shape[-1])
+        if pieces is None:
             return leaf
-        return self._take_last(leaf, self._order(leaf.shape[-1], False))
+        return self._take_last(leaf, self._order(pieces, False))
 
     def from_storage_order(self, path: tuple, leaf):
         """The inverse of :meth:`to_storage_order`."""
-        if not self._reordered(path):
+        pieces = self._pieces(path, leaf.shape[-1])
+        if pieces is None:
             return leaf
-        return self._take_last(leaf, self._order(leaf.shape[-1], True))
+        return self._take_last(leaf, self._order(pieces, True))
 
     def compute_slice(self, name: str, row, m: int):
-        """What model coordinate m computes with of one full ``blocks``
-        row's leaf ``name`` (``attn_wq``, ``mlp_wi``, …): the parallel
+        """What model coordinate m computes with of one full row's leaf
+        ``name`` (``attn_wq``, ``mlp_wi``, ``ssm_in_proj``, …, of a
+        ``blocks`` row or of the hybrid's shared block): the parallel
         form's weights, as the step's gathers leave them."""
-        hd = self.cfg.resolved_head_dim
-        if name in ("attn_ln", "mlp_ln"):
+        if name in ("attn_ln", "mlp_ln", "ssm_ln"):
             return row
+        if name.startswith("ssm_"):
+            return self._ssm_slice(name[len("ssm_"):], row, m)
         if name.startswith("attn_"):
+            hd = self.cfg.resolved_head_dim
             leaf = name[len("attn_"):]
             first, n = (self.kv_heads(m) if leaf in ("wk", "wv", "bk", "bv")
                         else self.q_heads(m))
@@ -416,6 +467,24 @@ class TPLayout:
         if name == "mlp_wo":
             return row[m * w:(m + 1) * w]
         raise ValueError(f"no tensor-parallel slice for {name!r}")
+
+    def _ssm_slice(self, leaf: str, row, m: int):
+        di, gn, _ = self.ssm_widths()
+        dm, (h0, hm) = di // self.size, self.ssm_heads(m)
+        if leaf == "in_proj":                      # z_m | x_m | B | C | dt_m
+            dt0 = 2 * di + 2 * gn + h0
+            return torch.cat([row[..., m * dm:(m + 1) * dm],
+                              row[..., di + m * dm:di + (m + 1) * dm],
+                              row[..., 2 * di:2 * di + 2 * gn],
+                              row[..., dt0:dt0 + hm]], -1)
+        if leaf in ("conv_w", "conv_b"):           # x_m | B | C
+            return torch.cat([row[..., m * dm:(m + 1) * dm],
+                              row[..., di:]], -1)
+        if leaf in ("out_proj", "gate_ln"):        # the rank's channels
+            return row[m * dm:(m + 1) * dm]
+        if leaf in ("A_log", "D", "dt_bias"):      # the rank's heads
+            return row[h0:h0 + hm]
+        raise ValueError(f"no tensor-parallel slice for 'ssm_{leaf}'")
 
 
 def tp_shard_dim(spec: Spec) -> tuple[Optional[int], tuple[str, ...]]:
@@ -465,13 +534,21 @@ def tp_shard_cache(cache: PyTree, c_specs: PyTree, mesh,
     """This rank's decode cache under tensor parallelism: the batch rows
     of :func:`shard_tree` by ``c_specs`` (:func:`cache_specs`, the
     reference's), then of each ``k`` / ``v`` leaf (L, B, W, K, hd) the kv
-    heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W.
-    Where K % M ≠ 0 the reference's rule splits W over ``model``
-    instead; the values read are the same."""
-    first, n = layout.kv_heads(mesh.coord(MODEL))
+    heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W; of
+    a Mamba2 ``conv`` leaf (L, B, K−1, x | B | C) the rank's channels of x
+    and all of B | C, and of a ``state`` leaf (L, B, H, P, N) its SSD
+    heads.  Where K % M ≠ 0 the reference's rule splits W over ``model``
+    instead, and it splits ``conv`` contiguously; the values read are the
+    same."""
+    m = mesh.coord(MODEL)
+    first, n = layout.kv_heads(m)
 
     def one(path, leaf):
         if path[-1] in ("k", "v"):
             return leaf.narrow(3, first, n)
+        if path[-1] == "conv":
+            return layout.compute_slice("ssm_conv_b", leaf, m)
+        if path[-1] == "state":
+            return leaf.narrow(2, *layout.ssm_heads(m))
         return leaf
     return tree_map_with_path(one, shard_tree(cache, c_specs, mesh))

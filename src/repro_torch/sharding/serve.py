@@ -8,12 +8,15 @@ through the model's ``layer_hook``, the other groups whole at the start
 of the step.  The batch and the KV / state caches are split over the
 client axes when their batch divides (``rules.batch_spec_serve``,
 ``rules.cache_specs``).  By default a rank runs its own rows whole over
-``model``.  With ``RuntimeConfig(tp_constraints=True)`` (dense family) a
-rank stores its model slice (``fl_step.storage_layout``), computes its
-heads, MLP columns and vocabulary rows (``tensor_parallel.ModelAxis``),
-keeps its kv heads' cache rows whole over the sequence
-(``rules.tp_shard_cache``), and all-gathers the last-position logits
-over ``model`` before it returns or argmaxes them.  A moe model whose
+``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm
+and hybrid families) a rank stores its model slice
+(``fl_step.storage_layout``), computes its heads, MLP columns, SSD heads
+and, where the vocabulary divides, vocabulary rows
+(``tensor_parallel.ModelAxis``; the hybrid's shared block viewed once a
+step), keeps its kv heads' cache rows whole over the sequence and its
+Mamba2 conv channels and state heads (``rules.tp_shard_cache``), and
+all-gathers split last-position logits over ``model`` before it returns
+or argmaxes them.  A moe model whose
 routers share their capacity across the batch keeps the batch whole on
 every rank (:func:`batch_spec`).
 
@@ -29,7 +32,8 @@ import torch
 from repro_torch.models.model import HOOKED_SEGMENTS, Model
 from repro_torch.sharding import rules
 from repro_torch.sharding.fl_step import (gather_leaf, gather_tree,
-                                          model_axis, storage_layout)
+                                          model_axis, storage_layout,
+                                          view_shared)
 from repro_torch.tree import tree_map
 
 
@@ -71,11 +75,12 @@ def shard_cache(model: Model, mesh, cache, c_specs):
 def gathered(params: dict, specs: dict, mesh, axis=None):
     """(the groups gathered whole, the ``layer_hook`` that gathers a
     hooked segment's row), without a gradient; with a ``ModelAxis`` the
-    hook also views the row as the rank's share."""
+    hook also views the row as the rank's share, and the hybrid's shared
+    block is viewed once here."""
     with torch.no_grad():
-        full = {k: (v if k in HOOKED_SEGMENTS else
-                    gather_tree(v, specs[k], mesh))
-                for k, v in params.items()}
+        full = view_shared({k: (v if k in HOOKED_SEGMENTS else
+                                gather_tree(v, specs[k], mesh))
+                            for k, v in params.items()}, specs, axis)
 
     def hook(pl, idx, segment):
         with torch.no_grad():

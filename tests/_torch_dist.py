@@ -77,8 +77,9 @@ def _run(n: int, mesh: dict, cases: list, timeout: float):
 # ---------------------------------------------------------------------------
 
 def _model(case):
-    """The case's reduced arch (``heads``: (H, K) replaced, as the parent
-    builds it), with ``tp`` as ``RuntimeConfig.tp_constraints``."""
+    """The case's reduced arch (``heads``: (H, K) replaced, ``vocab``: the
+    vocabulary's size replaced, as the parent builds it), with ``tp`` as
+    ``RuntimeConfig.tp_constraints``."""
     import dataclasses
 
     from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
@@ -88,6 +89,8 @@ def _model(case):
     if case.get("heads"):
         cfg = dataclasses.replace(cfg, n_heads=case["heads"][0],
                                   n_kv_heads=case["heads"][1])
+    if case.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
     rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
                        sel_upload=case.get("sel_upload", False),
                        tp_constraints=case.get("tp", False))
@@ -268,6 +271,40 @@ def case_tp_round_trip(case, mesh):
             "mode": layout.mode}
 
 
+def case_tp_ssm_block(case, mesh):
+    """One Mamba2 block's parallel form on this rank (f32): its model
+    slice of each full leaf of ``case["row"]`` (the storage of a spec
+    without ZeRO-3, so the data ranks hold the same), viewed as the step's
+    row hook views it (``ModelAxis.view_row``: B | C gathered over
+    ``model``, the replicated vectors narrowed), the block on
+    ``case["x"]`` with the gate norm's statistic summed over ``model``,
+    g, and the gradients for ``case["dy"]``: x + the block, dx and each
+    local leaf's gradient."""
+    import torch
+
+    from repro_torch.models.model import _take
+    from repro_torch.models.ssd import mamba2_fwd
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import model_axis, storage_layout
+    model = _model(case)
+    cfg, layout = model.cfg, storage_layout(model, mesh)
+    axis = model_axis(layout, mesh)
+    stacked = {k: torch.from_numpy(v)[None] for k, v in case["row"].items()}
+    specs = rules.params_pytree_specs(cfg, {"blocks": stacked}, zero3=False,
+                                      mesh_shape=dict(mesh.shape))["blocks"]
+    local = {k: rules.tp_local_shard(v, specs[k], mesh, layout,
+                                     ("blocks", k))[0].clone()
+             .requires_grad_() for k, v in stacked.items()}
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    y, _ = mamba2_fwd(_take(axis.view_row(local, specs), "ssm_"), x, cfg,
+                      tp=axis)
+    out = x + axis.reduce(y)
+    grads = torch.autograd.grad(out, [x, *local.values()],
+                                torch.from_numpy(case["dy"]))
+    return {"out": out.detach().numpy(), "dx": grads[0].numpy(),
+            "grads": {k: g.numpy() for k, g in zip(local, grads[1:])}}
+
+
 def case_dryrun_facts(case, mesh):
     """``launch.dryrun.build_program`` of a reduced arch at a small
     ``ShapeConfig`` on this mesh (meta stand-ins on a fake world, seeded
@@ -320,6 +357,7 @@ CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "decode": case_decode, "dryrun_facts": case_dryrun_facts,
          "dryrun_pair": case_dryrun_pair, "dry_refused": case_dry_refused,
          "tp_round_trip": case_tp_round_trip,
+         "tp_ssm_block": case_tp_ssm_block,
          "fail": case_fail}
 
 

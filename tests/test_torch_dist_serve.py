@@ -7,9 +7,10 @@ stored by the training rules (ZeRO-3 over ``data``, gathered a layer at a
 time through ``layer_hook``); a batch of 4 splits over the two data
 coordinates, a batch of 3 (which does not divide) stays whole on every
 rank.  Decode feeds a 4-token prompt one token a step, then 6 greedy
-tokens.  Mamba2 (conv and state caches) and DeepSeek (``dense0`` gathered
-whole, the moe ``blocks`` rows through the hook, MLA's latent caches)
-decode in the same world.
+tokens.  Mamba2 (conv and state caches), DeepSeek (``dense0`` gathered
+whole, the moe ``blocks`` rows through the hook, MLA's latent caches) and
+Zamba2 (the shared block gathered whole, its kv cache beside the Mamba2
+rows') decode in the same world.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +23,8 @@ from repro.models.model import Model
 
 TOL = 1e-5
 PROMPT, STEPS = 4, 6
-FAMILIES = {"ssm": "mamba2_370m", "moe": "deepseek_v2_lite_16b"}
+FAMILIES = {"ssm": "mamba2_370m", "moe": "deepseek_v2_lite_16b",
+            "hybrid": "zamba2_7b"}
 
 
 def _host(tree):
@@ -110,17 +112,17 @@ def test_mesh_decode_matches_decode_step(served, B, zero3):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_mesh_decode_other_families_match_decode_step(served, family):
-    """The hook in the Mamba2 and moe decode loops gathers each ``blocks``
-    row: the same tokens and logits as the reference's single-device
-    decode.  Mamba2 runs this rank's half of the batch; deepseek's
-    routers share their capacity across the batch, so every rank runs
-    all of it (``serve.batch_spec``)."""
+    """The hook in the Mamba2, hybrid and moe decode loops gathers each
+    ``blocks`` row: the same tokens and logits as the reference's
+    single-device decode.  Mamba2 and Zamba2 run this rank's half of the
+    batch; deepseek's routers share their capacity across the batch, so
+    every rank runs all of it (``serve.batch_spec``)."""
     tokens, logits = served["refs"][family]
     for r in served["ranks"]:
         res = r[8 + list(FAMILIES).index(family)]
         rows = res["rows"]
         d = res["coords"]["data"]
-        assert rows.tolist() == ([2 * d, 2 * d + 1] if family == "ssm"
+        assert rows.tolist() == ([2 * d, 2 * d + 1] if family != "moe"
                                  else [0, 1, 2, 3])
         np.testing.assert_array_equal(res["tokens"], tokens[rows])
         np.testing.assert_allclose(res["logits"], logits[rows], atol=TOL,

@@ -201,13 +201,16 @@ def _facts_case(arch, kind, tp=False) -> dict:
             "tp": tp}
 
 
+TP_PAIRS = [(a, k) for a in ("tinyllama_1_1b", "mamba2_370m") for k in SHAPES]
+
+
 @pytest.fixture(scope="module")
 def worlds():
     """Rank 0's facts of each pair on the fake world and on gloo (PAIRS,
-    then TinyLlama's under tensor parallelism), and the gloo ranks'
-    answer to a dry mesh asked for inside their world."""
+    then TP_PAIRS under tensor parallelism), and the gloo ranks' answer to
+    a dry mesh asked for inside their world."""
     cases = ([_facts_case(a, k) for a, k in PAIRS]
-             + [_facts_case("tinyllama_1_1b", k, tp=True) for k in SHAPES])
+             + [_facts_case(a, k, tp=True) for a, k in TP_PAIRS])
     dry = run_dry(WORLD, cases)
     real = run_world(4, WORLD, cases + [{"kind": "dry_refused"}])
     return dry, real
@@ -239,17 +242,12 @@ def test_fake_world_matches_gloo(arch, kind, worlds):
     assert f["temp_bytes"] > 0 and g["temp_bytes"] == 0
 
 
-@pytest.mark.parametrize("kind", list(SHAPES))
-def test_fake_world_matches_gloo_tp(kind, worlds):
-    """Tensor parallelism over ``model`` (reduced TinyLlama, heads split
-    over 2): the fake world's FLOPs, argument bytes and collectives by
-    kind are the gloo world's, and the model-axis all-reduces are there
-    (f, g, the vocab-parallel embedding and cross-entropy)."""
+def _held_tp(arch, kind, worlds):
     dry, real = worlds
     assert dry["error"] is None
-    i = len(PAIRS) + list(SHAPES).index(kind)
+    i = len(PAIRS) + TP_PAIRS.index((arch, kind))
     f, g = dry["results"][i]["facts"], real[0][i]["facts"]
-    plain = dry["results"][PAIRS.index(("tinyllama_1_1b", kind))]["facts"]
+    plain = dry["results"][PAIRS.index((arch, kind))]["facts"]
     assert f["flops"] > 0 and f["flops"] == g["flops"]
     assert f["flops"] < plain["flops"]
     assert f["arg_bytes"] == g["arg_bytes"] < plain["arg_bytes"]
@@ -258,6 +256,22 @@ def test_fake_world_matches_gloo_tp(kind, worlds):
     assert f["collective_bytes"] == g["collective_bytes"]
     assert (f["collective_counts"]["all-reduce"]
             > plain["collective_counts"].get("all-reduce", 0))
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_fake_world_matches_gloo_tp(kind, worlds):
+    """Tensor parallelism over ``model`` (reduced TinyLlama, heads split
+    over 2): the fake world's FLOPs, argument bytes and collectives by
+    kind are the gloo world's, and the model-axis all-reduces are there
+    (f, g, the vocab-parallel embedding and cross-entropy)."""
+    _held_tp("tinyllama_1_1b", kind, worlds)
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_fake_world_matches_gloo_tp_mamba2(kind, worlds):
+    """The same for reduced Mamba2 split by SSD heads over 2 (B | C
+    all-gathered over ``model``, the gate norm's statistic all-reduced)."""
+    _held_tp("mamba2_370m", kind, worlds)
 
 
 def test_dry_mesh_refused_inside_a_world(worlds):
@@ -564,9 +578,9 @@ def test_cli_opt_writes_the_tensor_parallel_report(tmp_path):
 
 
 def test_cli_opt_raises_for_a_family_without_tensor_parallelism(tmp_path):
-    r = _cli("--arch", "mamba2_370m", "--shape", "train_4k", "--opt",
-             tmp=tmp_path)
+    r = _cli("--arch", "deepseek_v2_lite_16b", "--shape", "train_4k",
+             "--opt", tmp=tmp_path)
     assert r.returncode != 0
     assert "tensor parallelism over the 'model' axis" in r.stderr
-    assert "'ssm' family" in r.stderr
+    assert "'moe' family" in r.stderr
     assert not list(tmp_path.iterdir())

@@ -334,7 +334,6 @@ def test_attention_mode_of_the_dense_family(arch, want):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("mamba2_370m", "ssm"), ("zamba2_7b", "hybrid"),
     ("deepseek_v2_lite_16b", "moe"), ("whisper_medium", "audio"),
     ("paligemma_3b", "vlm")])
 def test_tp_refused_for_other_families(arch, family):
