@@ -5429,6 +5429,14 @@ DIST_REPS = 3
 DIST_DECODE = dict(batch=4, prompt=8, steps=32)
 # Slice 17's decode checks (Mamba2, Zamba2): fewer steps, for the time limit
 DIST_DECODE_TP = dict(DIST_DECODE, steps=8)
+# Slice 18: DeepSeek-V2-Lite at the moe rounds' depth (dense0 + 3 blocks
+# rows), 4 × SSM_SEQ tokens: the τ = 1 step's mask rows (dense0's row 0
+# and blocks row 1, mask column 2), the blocks rows of sel_upload and
+# τ = 2 (mask columns 2 and 3), a rate at which the bf16 update moves
+DIST_MOE_MASK = (0, 2)
+DIST_MOE_SEL = (1, 2)
+DIST_MOE_LR = 0.25
+DIST_DECODE_MOE = dict(DIST_DECODE, steps=8)
 DIST_CPU_TOL = 1e-6
 CLI_ROUNDS = 3
 COLLECTIVE_OPS = {"all_gather": "c10d::_allgather_base_",
@@ -5627,6 +5635,187 @@ def dist_cpu_step(out_path: str) -> int:
     return 0
 
 
+def moe_programs(card: str, mesh, gen, out: dict, paths: dict,
+                 tp_same) -> None:
+    """Slice 18 in ``phase_distributed``: DeepSeek-V2-Lite-16B at full
+    width and depth MOE_ROUND_LAYERS (bf16, 1 client × 4 × SSM_SEQ, zero3)
+    on the phase's (1, 1) mesh: the τ = 1 step over DIST_MOE_MASK (a
+    ``dense0`` row and a ``blocks`` row) against the single-host step,
+    ``sel_upload`` and τ = DIST_TAU over the ``blocks`` rows DIST_MOE_SEL,
+    a 4 × SSM_SEQ prefill against ``Model.logits_seq`` and
+    DIST_DECODE_MOE greedy decode steps against ``Model.decode_step``;
+    each again with ``tp_constraints`` at model = 1 (``tp_same``):
+    bit-equal, with the plain program's collectives.  No program runs
+    under the profiler (the collectives are the step's own count)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import (COLLECTIVES, make_fl_train_step,
+                                              make_fl_train_step_tau,
+                                              reset_collectives, shard_params)
+    from repro_torch.sharding.serve import (make_prefill_step, make_serve_step,
+                                            shard_cache)
+    cfg = dataclasses.replace(get_arch("deepseek_v2_lite_16b"),
+                              n_layers=MOE_ROUND_LAYERS)
+    rt = RuntimeConfig(remat=False, seq_chunk=SSM_SEQ)
+    model = Model(cfg, rt)
+    tp_rt = dataclasses.replace(rt, tp_constraints=True)
+    tp_model = Model(cfg, tp_rt)
+    params = model.init(0)
+    L = model.n_selectable
+    gen.manual_seed(30)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4, SSM_SEQ), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    batch, one = {"tokens": tokens}, {"tokens": tokens[0]}
+    sizes = torch.tensor([7.0], device="cuda")
+
+    def mask_of(cols):
+        m = torch.zeros((1, L), device="cuda")
+        m[0, list(cols)] = 1.0
+        return m
+    masks = mask_of(DIST_MOE_MASK)
+    sel_masks = mask_of([1 + i for i in DIST_MOE_SEL])
+    step, specs = make_fl_train_step(model, mesh)(params)
+    local = rules.shard_tree(params, specs, mesh)
+    tp_local = shard_params(tp_model, mesh, params, specs)
+
+    def plain(tag, fn):
+        """``fn()`` once: its result, collectives, launches (the path
+        ``distributed_deepseek_<tag>``) and seconds."""
+        torch.cuda.synchronize()
+        reset_collectives()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        paths[f"distributed_deepseek_{tag}"] = dict(ops.LAUNCHES)
+        return got, dict(COLLECTIVES), time.perf_counter() - t0
+
+    res = {}
+    new, coll, s = plain("step", lambda: step(local, batch, masks, sizes,
+                                              DIST_MOE_LR))
+    loss = float(new[1]["loss"])
+    new = new[0]
+    ref = single_host_step(model, params, one, masks, sizes, DIST_MOE_LR)
+    err = _tree_max_diff(new, ref)
+    moved = {k: _tree_max_diff(new[k], params[k]) for k in ("dense0",
+                                                            "blocks")}
+    res["step"] = {"loss": loss, "param_err": err, "moved_max": moved,
+                   "collectives": coll, "s": s}
+    log(f"[dist] DeepSeek-V2-Lite (depth {cfg.n_layers}) τ = 1 over mask "
+        f"columns {DIST_MOE_MASK}: loss {loss:.4f}; params off the "
+        f"single-host step {err:.3e} (limit {ROUND_PARAM_ATOL:g}); moved by "
+        f"up to {moved}; collectives {coll}; {s:.1f} s   [{card}]")
+    check(math.isfinite(loss) and err <= ROUND_PARAM_ATOL
+          and min(moved.values()) > 0,
+          f"[dist] DeepSeek-V2-Lite τ = 1: loss {loss}, params off the "
+          f"single-host step {err:.3e}, moved {moved}")
+    del ref
+    tp_step = make_fl_train_step(tp_model, mesh)(params)[0]
+    tp_same("deepseek_step", lambda: new, lambda: tp_step(
+        tp_local, batch, masks, sizes, DIST_MOE_LR)[0], coll)
+    del new, tp_step
+
+    sel_model = Model(cfg, dataclasses.replace(rt, sel_upload=True))
+    sel_step = make_fl_train_step(sel_model, mesh,
+                                  sel_idx=DIST_MOE_SEL)(params)[0]
+    new, coll, s = plain("sel_upload", lambda: sel_step(
+        local, batch, sel_masks, sizes, DIST_MOE_LR)[0])
+    res["sel_upload"] = {"collectives": coll, "s": s,
+                         "moved_max": _tree_max_diff(new, params)}
+    tp_sel = make_fl_train_step(
+        Model(cfg, dataclasses.replace(tp_rt, sel_upload=True)), mesh,
+        sel_idx=DIST_MOE_SEL)(params)[0]
+    tp_same("deepseek_sel_upload", lambda: new, lambda: tp_sel(
+        tp_local, batch, sel_masks, sizes, DIST_MOE_LR)[0], coll)
+    del new, sel_step, tp_sel
+
+    gen.manual_seed(31)
+    tau_tokens = torch.randint(0, cfg.vocab_size, (1, DIST_TAU, 4, SSM_SEQ),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+    tau_step = make_fl_train_step_tau(model, mesh, sel_idx=DIST_MOE_SEL,
+                                      tau=DIST_TAU)(params)[0]
+    new, coll, s = plain("tau2", lambda: tau_step(
+        local, {"tokens": tau_tokens}, sel_masks, sizes, DIST_MOE_LR)[0])
+    n_leaves = len(params["blocks"])
+    res["tau2"] = {"collectives": coll, "s": s,
+                   "moved_max": _tree_max_diff(new, params),
+                   "launches": paths["distributed_deepseek_tau2"]}
+    tp_tau = make_fl_train_step_tau(tp_model, mesh, sel_idx=DIST_MOE_SEL,
+                                    tau=DIST_TAU)(params)[0]
+    tp_same("deepseek_tau2", lambda: new, lambda: tp_tau(
+        tp_local, {"tokens": tau_tokens}, sel_masks, sizes, DIST_MOE_LR)[0],
+        coll)
+    for tag in ("distributed_deepseek_tau2", "distributed_tp_deepseek_tau2"):
+        check(paths[tag]["masked_update"] == DIST_TAU * n_leaves,
+              f"[dist] DeepSeek-V2-Lite: {tag}'s masked_update launches "
+              f"{paths[tag]}, want {DIST_TAU * n_leaves}")
+    del new, tau_step, tp_tau
+
+    prefill = make_prefill_step(model, mesh)(params, one)[0]
+    got, coll, s = plain("prefill", lambda: prefill(local, one))
+    with torch.no_grad():
+        want = model.logits_seq(params, one)
+    err = (got.float() - want.float()).abs().max().item()
+    res["prefill"] = {"max_abs_err": err, "collectives": coll, "s": s}
+    log(f"[dist] DeepSeek-V2-Lite prefill {tuple(one['tokens'].shape)}: "
+        f"last-position logits against Model.logits_seq {err:.3e} (limit "
+        f"{TOL['bfloat16']:g}); collectives {coll}   [{card}]")
+    check(err <= TOL["bfloat16"], "[dist] DeepSeek-V2-Lite: the mesh "
+                                  "prefill's logits differ from "
+                                  "Model.logits_seq")
+    tp_prefill = make_prefill_step(tp_model, mesh)(params, one)[0]
+    tp_same("deepseek_prefill", lambda: got,
+            lambda: tp_prefill(tp_local, one), coll)
+    del prefill, tp_prefill, got, want
+
+    dd = DIST_DECODE_MOE
+    gen.manual_seed(32)
+    prompt = torch.randint(0, cfg.vocab_size, (dd["batch"], dd["prompt"]),
+                           device="cuda", generator=gen, dtype=torch.int32)
+    total = dd["prompt"] + dd["steps"]
+
+    def lockstep(serve_fn, p, shard):
+        cache = shard(model.init_cache(dd["batch"], total))
+        tok, logits = prompt[:, 0], {}
+        for t in range(total - 1):
+            nxt, logits[t], cache = serve_fn(
+                p, tok, torch.tensor(t, dtype=torch.int32, device="cuda"),
+                cache)
+            tok = prompt[:, t + 1] if t + 1 < dd["prompt"] else nxt
+        return logits
+
+    def model_serve(p, tok, pos, cache):
+        logits, cache = model.decode_step(p, tok, pos, cache)
+        return logits.argmax(-1).to(torch.int32), logits, cache
+    serve = make_serve_step(model, mesh)(
+        params, model.init_cache(dd["batch"], total), dd["batch"])[0]
+    mesh_logits, coll, s = plain("decode", lambda: lockstep(
+        serve, local, lambda c: c))
+    model_logits = lockstep(model_serve, params, lambda c: c)
+    same = all(torch.equal(mesh_logits[t].argmax(-1),
+                           model_logits[t].argmax(-1)) for t in mesh_logits)
+    res["decode"] = {"same_tokens": same, "collectives": coll, "s": s}
+    log(f"[dist] DeepSeek-V2-Lite: {dd['steps']} greedy decode steps (batch "
+        f"{dd['batch']}, prompt {dd['prompt']}): the same tokens as "
+        f"Model.decode_step: {same}; collectives {coll}   [{card}]")
+    check(same, "[dist] DeepSeek-V2-Lite: the mesh decode's tokens differ "
+                "from Model.decode_step's")
+    tp_serve, (_, tp_cspecs) = make_serve_step(tp_model, mesh)(
+        params, model.init_cache(dd["batch"], total), dd["batch"])
+    tp_same("deepseek_decode", lambda: mesh_logits, lambda: lockstep(
+        tp_serve, tp_local, lambda c: shard_cache(tp_model, mesh, c,
+                                                  tp_cspecs)), coll)
+    out["deepseek"] = res
+    del params, local, tp_local, serve, tp_serve, mesh_logits, model_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_distributed(card: str) -> dict:
     """Slice 13 on one card: a world of 1 on NCCL in this process (no
     fallback), a (1, 1) mesh, and through it (a) full-width TinyLlama-1.1B
@@ -5651,7 +5840,11 @@ def phase_distributed(card: str) -> dict:
     gradients, delta, f32 aggregate and update and the steps' results
     about eight such copies, over the card's 80 GB): the
     τ = 1 step against the single-host one, then the step and decode with
-    tensor parallelism at model = 1, bit-equal."""
+    tensor parallelism at model = 1, bit-equal; (g, slice 18)
+    DeepSeek-V2-Lite at full width and the moe rounds' depth
+    (:func:`moe_programs`): its τ = 1, ``sel_upload`` and τ = 2 steps,
+    prefill and decode, plain and with tensor parallelism at model = 1,
+    bit-equal with the same collectives."""
     import json as _json
     import tempfile
     import numpy as np
@@ -6216,6 +6409,12 @@ def phase_distributed(card: str) -> dict:
         torch.cuda.empty_cache()
         mark("Zamba2-7B")
 
+        # (g) slice 18: DeepSeek-V2-Lite (full width, the moe rounds'
+        # depth), each program plain and with tensor parallelism at model =
+        # 1, bit-equal with the same collectives, none profiled
+        moe_programs(card, mesh, gen, out, paths, tp_same)
+        mark("DeepSeek-V2-Lite")
+
         # (c) reduced f32: the card against the CPU (gloo, a child process)
         ops.reset_launches()
         card_new = dist_reduced_step("cuda")
@@ -6373,6 +6572,182 @@ TP_BLOCKS = (("tinyllama_1_1b", "dense", 4, LONG_SEQ, TP_BLOCK_MS),
              ("zamba2_7b", "attn_mlp_shared", 4, SSM_SEQ, (16,)))
 
 
+# Slice 18: the moe family's blocks split by hand on the card (arch, kind,
+# batch, seq, model sizes): DeepSeek-V2-Lite's moe block expert-parallel
+# (32 and 4 of 64 experts a coordinate; MLA whole) and its dense0 (the MLP
+# of 11 264 columns, 704 a coordinate), Grok-1's moe block at full width
+# (one layer: 9.7 GB of bf16 experts), expert-parallel at 2 (4 of 8
+# experts) and on ff at 16 (2048 of 32 768 columns), its attention 24/4
+# and 3/1 heads a coordinate.  Each sub-block is held on the same input
+# as the whole one (see tp_moe_block_split): the router's bf16 logits tie
+# often at full width, and a tie broken by the summed attention's
+# rounding would route a token elsewhere.
+TP_MOE_BLOCKS = (("deepseek_v2_lite_16b", "moe", 4, LONG_SEQ, TP_BLOCK_MS),
+                 ("deepseek_v2_lite_16b", "moe_dense0", 4, LONG_SEQ, (16,)),
+                 ("grok_1_314b", "moe", 4, LONG_SEQ, TP_BLOCK_MS))
+TP_MOE_RTOL = 2e-2
+
+
+def tp_moe_block_split(cfg, kind: str, row: dict, x, h, dy, M):
+    """One moe-family block's two sub-blocks, whole (M None) or at M model
+    coordinates computed in this process (``TPLayout.compute_slice`` of
+    the full leaves, a ``ModelAxis`` whose f and g are the identity, the
+    partials summed by hand in f32): the attention on ``x`` (MLA once,
+    whole: ``"replicated"``) and the moe layer (or ``dense0``'s MLP) on
+    ``h``, the same input whole and split, so that both route alike.  The
+    split's inputs and the leaves every coordinate reads whole (the
+    norms, the router) reach the coordinates through one f32 copy each,
+    so that their gradients, like the outputs, are summed in f32 and
+    rounded once.  Returns ({"attn": x + attention, "ffn": h + the
+    layer}, the gradients of ``x``, ``h`` and each full leaf for the
+    cotangent ``dy`` on both)."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import _moe_attention, _take
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.tensor_parallel import ModelAxis
+    leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
+    xin, hin = x.detach().requires_grad_(), h.detach().requires_grad_()
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    attn = dict(positions=pos, window=0, seq_chunk=x.shape[1])
+
+    def ffn(p, tp, inp):
+        if kind == "moe":
+            return MOE.moe_fwd(_take(p, "moe_"), inp, cfg, tp=tp)[0]
+        return B.mlp_fwd(_take(p, "mlp_"), inp, cfg, tp=tp)
+    if M is None:
+        a = _moe_attention(_take(leaves, "attn_"), xin, cfg, **attn)
+        f = ffn(leaves, None, hin)
+    else:
+        layout = rules.TPLayout(cfg, M)
+        n = 1 if layout.mode == "replicated" else M
+        whole = {k: v.float() for k, v in leaves.items()
+                 if k in ("attn_ln", "attn_kv_ln", "mlp_ln", "moe_ln",
+                          "moe_router")}
+        x32, h32 = xin.float(), hin.float()
+        a = f = 0.0
+        for m in range(M):
+            tp = ModelAxis(layout, m)
+            p = {k: (whole[k].to(v.dtype) if k in whole
+                     else layout.compute_slice(k, v, m))
+                 for k, v in leaves.items()}
+            if m < n:
+                a = a + _moe_attention(_take(p, "attn_"), x32.to(x.dtype),
+                                       cfg, tp=tp, **attn).float()
+            f = f + ffn(p, tp, h32.to(h.dtype)).float()
+        a, f = a.to(x.dtype), f.to(x.dtype)
+    outs = {"attn": xin + a, "ffn": hin + f}
+    grads = torch.autograd.grad(list(outs.values()),
+                                [xin, hin, *leaves.values()], [dy, dy])
+    return ({k: v.detach() for k, v in outs.items()},
+            dict(zip(["x", "h", *leaves], grads)))
+
+
+def phase_tp_moe_block(card: str, out: dict, paths: dict) -> None:
+    """Slice 18 in ``phase_tp_block``: each block of TP_MOE_BLOCKS at full
+    width (bf16, random weights, seed 0, the norms' scales drawn away from
+    0), forward and backward, whole and at each model size M
+    (:func:`tp_moe_block_split`): both sub-blocks' outputs, the inputs'
+    gradients and every leaf's within TP_MOE_RTOL of the whole's largest
+    magnitude.  Grok's attention must launch the tensor-core flash kernels
+    M times each way (the split's launches are the paths
+    ``tp_block_<arch>_<kind>_m<M>``)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks as B
+    from repro_torch.models.model import _block_shapes
+    from repro_torch.sharding import rules
+    for arch, kind, b, s, sizes in TP_MOE_BLOCKS:
+        cfg = get_arch(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        row = {k: v[0] for k, v in B.init_stacked(
+            gen, _block_shapes(cfg, kind), 1, torch.bfloat16,
+            "cuda").items()}
+        for k in ("attn_ln", "attn_kv_ln", "mlp_ln", "moe_ln"):
+            if k in row:
+                row[k] = (torch.randn(row[k].shape, generator=gen,
+                                      device="cuda") * 0.1).to(torch.bfloat16)
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        h = torch.randn(x.shape, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        dy = torch.randn(x.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_g = tp_moe_block_split(cfg, kind, row, x, h, dy, None)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        for M in sizes:
+            layout = rules.TPLayout(cfg, M)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got, got_g = tp_moe_block_split(cfg, kind, row, x, h, dy, M)
+            torch.cuda.synchronize()
+            split_s = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            tag = f"{arch}_{kind}_m{M}"
+            paths[f"tp_block_{tag}"] = launches
+
+            def rel(a, b_):
+                """max |a − b| / max |b|, by chunks of 2^26 elements (a
+                Grok expert leaf is 3.2 G elements)."""
+                num = den = 0.0
+                for ca, cb in zip(a.reshape(-1).split(1 << 26),
+                                  b_.reshape(-1).split(1 << 26)):
+                    num = max(num, (ca.float() - cb.float()).abs().max()
+                              .item())
+                    den = max(den, cb.float().abs().max().item())
+                return num / den
+            pairs = {**{k: (got[k], want[k]) for k in want},
+                     **{k: (got_g[k], want_g[k]) for k in want_g}}
+            errs = {k: rel(*v) for k, v in pairs.items()}
+            worst = max(errs, key=errs.get)
+            q, kv = layout.q_heads(0)[1], layout.kv_heads(0)[1]
+            e0, ne = layout.experts(0) if kind == "moe" else (0, 0)
+            split = (f"{ne} of {cfg.n_experts} experts whole"
+                     if layout.expert_parallel else
+                     f"all {cfg.n_experts} experts on "
+                     f"{cfg.d_ff // M} of {cfg.d_ff} ff columns")
+            if kind != "moe":
+                split = (f"the MLP's {row['mlp_wo'].shape[0] // M} of "
+                         f"{row['mlp_wo'].shape[0]} columns")
+            share = f"attention {layout.mode}: {q} query / {kv} kv heads; "
+            share += split
+            out[tag] = {"mode": layout.mode, "q_heads": q, "kv_heads": kv,
+                        "expert_parallel": layout.expert_parallel,
+                        "experts": ne, "rel_err": errs, "launches": launches,
+                        "whole_s": whole_s, "split_s": split_s}
+            log(f"[tp-block] {cfg.name} {kind} block, {b} × {s}, bf16, M = "
+                f"{M} ({share} a coordinate): the hand-summed partials "
+                f"against the whole, relative to its largest magnitude: "
+                f"attention {errs['attn']:.3e}, ffn {errs['ffn']:.3e}, dx "
+                f"{errs['x']:.3e}, dh {errs['h']:.3e}, worst {worst} "
+                f"{errs[worst]:.3e} (limit {TP_MOE_RTOL:g}); launches "
+                f"{({k: v for k, v in launches.items() if v})}; whole "
+                f"{whole_s:.2f} s, split {split_s:.2f} s   [{card}]")
+            check(max(errs.values()) <= TP_MOE_RTOL and all(
+                math.isfinite(e) for e in errs.values()),
+                f"[tp-block] {cfg.name} {kind}, M = {M}: the split block "
+                f"disagrees with the whole: {errs}")
+            if not cfg.use_mla:
+                check(launches["flash_attention_mma"] == M
+                      and launches["flash_attention_bwd_mma"] == M
+                      and launches["flash_attention"] == M,
+                      f"[tp-block] {cfg.name}, M = {M}: each coordinate's "
+                      f"attention must launch the tensor-core flash "
+                      f"kernels once forward and once backward: {launches}")
+            del got, got_g
+        del row, want, want_g, x, h, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_tp_block(card: str) -> dict:
     """Slice 16 (b), and slice 17: the split itself on the card.  Each
     block of TP_BLOCKS at full width (bf16, random weights, seed 0, the
@@ -6386,7 +6761,8 @@ def phase_tp_block(card: str) -> dict:
     tensor-core flash kernels M times each way; a Mamba2 block's scan the
     tensor-core ``ssd_scan`` 2 M times (both passes).  The split's
     launches are the paths ``tp_block_m<M>`` (TinyLlama) and
-    ``tp_block_<arch>_<kind>_m<M>``."""
+    ``tp_block_<arch>_<kind>_m<M>``.  Then (slice 18) the moe family's
+    blocks, :func:`phase_tp_moe_block`."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
@@ -6485,6 +6861,7 @@ def phase_tp_block(card: str) -> dict:
             del got, got_g
         del row, leaves, xin, want, want_g, x, dy
         torch.cuda.empty_cache()
+    phase_tp_moe_block(card, out, paths)
     out["paths"] = paths
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[tp-block] phase {out['phase_s']:.1f} s   [{card}]")
@@ -6508,16 +6885,22 @@ DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
 # slice 17: Mamba2's three too
 DRYRUN_CARD_TP = DRYRUN_CARD
 # The archs whose --opt (tensor-parallel) programs the dry run runs: the
-# dense family, and (slice 17) the ssm and hybrid ones
+# dense family, (slice 17) the ssm and hybrid ones and (slice 18) the moe
 DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
-                   "gemma_7b", "mamba2_370m", "zamba2_7b")
+                   "gemma_7b", "mamba2_370m", "zamba2_7b",
+                   "deepseek_v2_lite_16b", "grok_1_314b")
 # What --opt must at least give a train_4k step on 16 × 16, per device,
 # against the step replicated over 'model': (argument bytes ÷, FLOPs ÷,
-# useful share), None where not held.  SmolLM's attention (15 heads) and
+# useful share), None where not held.  SmolLM's attention (15 heads),
 # Mamba2's vocabulary (50 280 rows do not divide by 16: the embedding and
-# the tied head whole on every rank) stay replicated.
+# the tied head whole on every rank) and DeepSeek's MLA stay replicated
+# (its meta count: FLOPs ÷2.96, useful 0.1153).
 DRYRUN_TP_MIN = {"smollm_360m": (8, None, None),
-                 "mamba2_370m": (4, 4, 0.25)}
+                 "mamba2_370m": (4, 4, 0.25),
+                 "deepseek_v2_lite_16b": (8, 2.5, 0.1)}
+# A device's memory, against which the --opt programs' argument and peak
+# temporary bytes are read
+DEVICE_GB = 80.0
 DRYRUN_TP_MIN_DEFAULT = (8, 8, 0.5)
 DRYRUN_TP_OPTS = ["tp", "rematsc", "moelocal"]
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
@@ -6570,8 +6953,12 @@ class DryrunChildren:
     """``phase_dryrun``'s CPU processes, started together at the beginning
     of the script (``CUDA_VISIBLE_DEVICES`` empty: they never touch the
     card): the CLI over every pair on 16 × 16, over TinyLlama's on
-    2 × 16 × 16, and the card check's dry side.  Each writes its output to
-    a log under DRYRUN_DIR; a thread per child notes when it ended."""
+    2 × 16 × 16, the ``--opt`` programs and the card check's dry side, at
+    the lowest scheduling priority (``os.nice(19)``): they have most of
+    the script's run to finish, while its host-bound phases beside them
+    do not wait well.  Each writes its output to a log under DRYRUN_DIR;
+    a thread per child, started once every child is, notes when it
+    ended."""
 
     def __init__(self):
         import shutil
@@ -6596,7 +6983,9 @@ class DryrunChildren:
             with open(self.logs[tag], "w") as out:
                 self.procs[tag] = subprocess.Popen(
                     cmd, cwd=ROOT, env=env, stdout=out,
-                    stderr=subprocess.STDOUT, start_new_session=True)
+                    stderr=subprocess.STDOUT, start_new_session=True,
+                    preexec_fn=lambda: os.nice(19))
+        for tag in cmds:
             threading.Thread(target=self._note_end, args=(tag,),
                              daemon=True).start()
 
@@ -6717,6 +7106,16 @@ def phase_dryrun(card: str, children: DryrunChildren) -> dict:
                                  >= min_useful),
               f"[dryrun] {a}: --opt FLOPs ÷{pf:.2f}, useful "
               f"{tp['useful_flops_frac']}")
+        for s_ in ("train_4k", "prefill_32k"):
+            mem = [out["pairs"][f"{a}/{s_}/16x16" + t]["memory"]
+                   for t in ("", "/tp")]
+            gb = [(m_["argument_bytes"] + m_["temp_bytes"]) / 1e9
+                  for m_ in mem]
+            out["pairs"][f"{a}/{s_}/16x16/tp"]["fits"] = gb[1] <= DEVICE_GB
+            log(f"[dryrun] {a} {s_} on 16x16, argument + temp a device: "
+                f"{gb[0]:.3f} → {gb[1]:.3f} GB under --opt (fits "
+                f"{DEVICE_GB:g} GB: {gb[0] <= DEVICE_GB} → "
+                f"{gb[1] <= DEVICE_GB})")
 
     # (b) the card check
     with open(DRYRUN_META) as fh:

@@ -44,10 +44,12 @@ Usage:
       --shape train_4k [--multi-pod] [--all] [--opt] [--out DIR]
 
 ``--opt`` turns on the reference's §Perf levers (:func:`opt_runtime`),
-tensor parallelism over ``model`` among them: the steps of the dense, ssm
-and hybrid families split over ``model`` (``sharding/tensor_parallel.py``)
-and write ``…__tp-rematsc-moelocal.json``; the moe, vlm and audio
-families' raise, naming the family.
+tensor parallelism over ``model`` among them: the steps of the dense,
+ssm, hybrid and moe families split over ``model``
+(``sharding/tensor_parallel.py``; a moe model with per-sample dispatch,
+as the reference's ``--opt`` runs it) and write
+``…__tp-rematsc-moelocal.json``; the vlm and audio families' raise,
+naming the family.
 """
 from __future__ import annotations
 
@@ -356,10 +358,10 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--continue-on-error", action="store_true")
     ap.add_argument("--opt", action="store_true",
-                    help="enable §Perf levers (tp constraints + chunk remat): "
-                         "tensor parallelism over 'model' for the dense, "
-                         "ssm and hybrid families; the moe, vlm and audio "
-                         "families' steps raise")
+                    help="enable §Perf levers (tp constraints + chunk remat "
+                         "+ per-sample moe dispatch): tensor parallelism "
+                         "over 'model' for the dense, ssm, hybrid and moe "
+                         "families; the vlm and audio families' steps raise")
     ap.add_argument("--sel-frac", type=float, default=0.0,
                     help="static selected-layer fraction for sel_upload")
     ap.add_argument("--out", default=OUT_DIR,

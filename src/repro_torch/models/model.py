@@ -206,9 +206,8 @@ def _block_shapes(cfg: ArchConfig, kind: str) -> dict:
                     **_prefixed("moe_", MOE.moe_param_shapes(cfg))}
         # deepseek's leading dense block: an MLP as wide as the active
         # experts together
-        ff = cfg.d_ff * max(cfg.top_k + cfg.n_shared_experts, 1)
-        return {**_prefixed("attn_", attn),
-                **_prefixed("mlp_", B.mlp_param_shapes(cfg, d_ff=ff))}
+        return {**_prefixed("attn_", attn), **_prefixed(
+            "mlp_", B.mlp_param_shapes(cfg, d_ff=MOE.dense0_ff(cfg)))}
     raise ValueError(kind)
 
 
@@ -323,35 +322,42 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 def _moe_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
                    window, seq_chunk, cache=None, cache_pos=None,
-                   remat_chunk=False, kernel_mode=None) -> torch.Tensor:
+                   remat_chunk=False, kernel_mode=None,
+                   tp=None) -> torch.Tensor:
     """The moe family's (causal) attention sub-block: MLA when
-    ``cfg.use_mla``, else the dense family's GQA (grok-1)."""
+    ``cfg.use_mla``, else the dense family's GQA (grok-1).  ``tp``: GQA's
+    parallel form, its partial sums reduced over ``model`` here; MLA runs
+    whole on every rank (``"replicated"``)."""
     if cfg.use_mla:
         return MLA.mla_fwd(p, x, cfg, positions=positions, cache=cache,
                            cache_pos=cache_pos, window=window,
                            seq_chunk=seq_chunk)
-    return B.attention_fwd(p, x, cfg, positions=positions, cache=cache,
-                           cache_pos=cache_pos, causal=True, window=window,
-                           seq_chunk=seq_chunk, remat_chunk=remat_chunk,
-                           kernel_mode=kernel_mode)
+    a = B.attention_fwd(p, x, cfg, positions=positions, cache=cache,
+                        cache_pos=cache_pos, causal=True, window=window,
+                        seq_chunk=seq_chunk, remat_chunk=remat_chunk,
+                        kernel_mode=kernel_mode, tp=tp)
+    return tp.reduce(a) if tp is not None and tp.attn_split else a
 
 
-def _moe_dense0_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig,
+def _moe_dense0_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, tp=None,
                     **attn) -> torch.Tensor:
     """One of deepseek's leading dense blocks: attention, then a plain
-    MLP."""
-    x = x + _moe_attention(_take(p, "attn_"), x, cfg, **attn)
-    return x + B.mlp_fwd(_take(p, "mlp_"), x, cfg)
+    MLP (``tp``: split as the dense family's)."""
+    x = x + _moe_attention(_take(p, "attn_"), x, cfg, tp=tp, **attn)
+    m = B.mlp_fwd(_take(p, "mlp_"), x, cfg, tp=tp)
+    return x + (m if tp is None else tp.reduce(m))
 
 
 def _moe_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                   moe_local: bool = False, **attn):
+                   moe_local: bool = False, tp=None, **attn):
     """One moe block: attention, then the routed MoE layer.  Returns the
-    new hidden state and the router's aux loss."""
-    x = x + _moe_attention(_take(p, "attn_"), x, cfg, **attn)
+    new hidden state and the router's aux loss.  ``tp``: the parallel
+    form; one ``tp.reduce`` sums the routed and shared experts' partials
+    over ``model``."""
+    x = x + _moe_attention(_take(p, "attn_"), x, cfg, tp=tp, **attn)
     out, stats = MOE.moe_fwd(_take(p, "moe_"), x, cfg,
-                             local_dispatch=moe_local)
-    return x + out, stats.aux_loss
+                             local_dispatch=moe_local, tp=tp)
+    return x + (out if tp is None else tp.reduce(out)), stats.aux_loss
 
 
 # Stacked segments whose rows pass through a ``layer_hook`` (the
@@ -594,12 +600,13 @@ class Model:
                         kernel_mode=km)
 
             def dense0_row(carry, p):
-                return _moe_dense0_fwd(p, carry[0], cfg, **attn), carry[1]
+                return _moe_dense0_fwd(p, carry[0], cfg, tp=tp,
+                                       **attn), carry[1]
 
             def moe_row(carry, p):
                 h, aux = _moe_block_fwd(p, carry[0], cfg,
                                         moe_local=rt.moe_local_dispatch,
-                                        **attn)
+                                        tp=tp, **attn)
                 return h, carry[1] + aux
             return ([("dense0", dense0_row, None)] if cfg.first_dense
                     else []) + [("blocks", moe_row, None)]
@@ -640,10 +647,11 @@ class Model:
         (a cut at or past ``n_enc_layers``) runs without a graph.
 
         ``tp`` (``sharding.tensor_parallel.ModelAxis``, the language
-        models of the dense, ssm and hybrid families): the parallel form
-        over ``model``, ``params`` this model coordinate's (the hook's
-        rows too, and the hybrid's shared block, viewed once by the
-        caller); the hidden state comes out whole on every rank.
+        models of the dense, ssm, hybrid and moe families): the parallel
+        form over ``model``, ``params`` this model coordinate's (the
+        hook's rows too, and the hybrid's shared block and deepseek's
+        ``dense0``, viewed once by the caller); the hidden state and the
+        aux loss come out whole on every rank.
         """
         cfg = self.cfg
         if trainable is not None and not supports_prefix_cut(cfg):
@@ -880,11 +888,12 @@ class Model:
     def _moe_stack_decode(self, params: dict, x: torch.Tensor,
                           positions: torch.Tensor, pos: torch.Tensor,
                           cache: dict, window: int,
-                          hook=_no_hook) -> torch.Tensor:
+                          hook=_no_hook, tp=None) -> torch.Tensor:
         """One decode step through ``dense0`` and then the moe ``blocks``,
         each row over its own cache row (MLA's latent rows or GQA's k/v),
         written in place.  The step's B tokens share the routers'
-        capacity, as the reference's do."""
+        capacity, as the reference's do.  ``tp``: the parallel form, over
+        the rank's kv heads' cache rows (MLA's whole)."""
         cfg, rt = self.cfg, self.runtime
         attn = dict(positions=positions, window=window,
                     seq_chunk=rt.seq_chunk, cache_pos=pos,
@@ -897,11 +906,11 @@ class Model:
                     p = hook(p, li, seg.path)
                 c = {name: leaf[li] for name, leaf in seg_cache.items()}
                 if seg.path == "dense0":
-                    x = _moe_dense0_fwd(p, x, cfg, cache=c, **attn)
+                    x = _moe_dense0_fwd(p, x, cfg, tp=tp, cache=c, **attn)
                 else:
                     x, _ = _moe_block_fwd(p, x, cfg, cache=c,
                                           moe_local=rt.moe_local_dispatch,
-                                          **attn)
+                                          tp=tp, **attn)
         return x
 
     @torch.inference_mode()
@@ -923,9 +932,10 @@ class Model:
         row's ZeRO-3 shards there).
 
         ``tp``: the parallel form over ``model`` (the language models of
-        the dense, ssm and hybrid families, no delta): this model
+        the dense, ssm, hybrid and moe families, no delta): this model
         coordinate's params, a cache of its kv heads and Mamba2 channels
-        and heads (``sharding.serve.shard_cache``), the logits whole.
+        and heads (``sharding.serve.shard_cache``; MLA's latent rows
+        whole), the logits whole.
 
         Returns (logits (B, V), cache) — the cache updated in place.
         """
@@ -957,8 +967,8 @@ class Model:
             return self._head(params, x, tp)[:, 0], cache
         if cfg.family == "moe":
             x = self._moe_stack_decode(params, x, positions, pos, cache, w,
-                                       hook)
-            return self._head(params, x)[:, 0], cache
+                                       hook, tp)
+            return self._head(params, x, tp)[:, 0], cache
         blocks, kv = params["blocks"], cache["blocks"]
         xkv = cache.get("cross_kv")
         for li in range(cfg.n_layers):

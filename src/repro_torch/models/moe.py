@@ -27,6 +27,17 @@ reference's primitives promise an order PyTorch's do not:
   sorted index backward, so a step's gradients repeat bit for bit too.
 
 The load-balance auxiliary loss is Switch-Transformer's E · Σ_e f_e · p_e.
+
+The parallel form (``tp``, ``sharding.tensor_parallel.ModelAxis``) splits
+the experts over ``model`` as the reference's ``make_shard_hook`` pins
+their buffers: by expert (a rank computes the (E/M, C, d) slots of its
+experts) or on ff (every expert on the rank's ff columns).  Routing, the
+capacity and the slot tables stay whole on every rank, computed from the
+same input, so every rank sends each token to the same slots.  Megatron's
+f (``tp.copy``) wraps the dispatch input and the combine weights, whose
+gradients are partial sums over ``model``, and not the router's logits or
+the aux loss, which every rank computes whole: the router and the norm get
+the whole gradient on every rank, and the aux loss counts once.
 """
 from __future__ import annotations
 
@@ -60,6 +71,12 @@ def moe_param_shapes(cfg: ArchConfig) -> dict:
             "wo_s": (ff * cfg.n_shared_experts, d),
         })
     return shapes
+
+
+def dense0_ff(cfg: ArchConfig) -> int:
+    """The width of deepseek's leading dense MLP (``dense0``): as wide as
+    the active experts together, ``d_ff · (top_k + n_shared_experts)``."""
+    return cfg.d_ff * max(cfg.top_k + cfg.n_shared_experts, 1)
 
 
 def capacity(n_tokens: int, cfg: ArchConfig) -> int:
@@ -109,38 +126,50 @@ def _shared_experts(p: dict, h2d: torch.Tensor, cfg: ArchConfig):
 
 
 def moe_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig,
-            local_dispatch: bool = False):
+            local_dispatch: bool = False, tp=None):
     """Sort-based MoE block. x: (B, S, d) → ((B, S, d), MoEStats).
 
     ``local_dispatch``: route each sample on its own (the reference's vmap
     over B), with a per-sample capacity ⌈S·k/E·cf⌉; the aux loss and the
     dropped fraction are the means over the samples.  Otherwise the
-    capacity is shared by all B·S tokens of the batch."""
+    capacity is shared by all B·S tokens of the batch.
+
+    ``tp`` (the parallel form): ``p`` holds this model coordinate's
+    experts (``tp.expert_first``, ``tp.n_experts``) or ff columns, and its
+    shared experts' Megatron columns; the result is its partial sum, which
+    the caller reduces over ``model``; the stats are whole."""
     B, S, d = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    hc = h if tp is None else tp.copy(h)        # the dispatch's input (f)
     if local_dispatch:
         C = capacity(S, cfg)
-        outs, auxs, drops = zip(*(_dispatch_2d(p, h[b], cfg, C)
+        outs, auxs, drops = zip(*(_dispatch_2d(p, h[b], hc[b], cfg, C, tp)
                                   for b in range(B)))
         out2d = torch.stack(outs)
         aux, dropped = torch.stack(auxs).mean(), torch.stack(drops).mean()
     else:
-        out2d, aux, dropped = _dispatch_2d(p, h.reshape(B * S, d), cfg,
-                                           capacity(B * S, cfg))
+        out2d, aux, dropped = _dispatch_2d(
+            p, h.reshape(B * S, d), hc.reshape(B * S, d), cfg,
+            capacity(B * S, cfg), tp)
         out2d = out2d.reshape(B, S, d)
     if cfg.n_shared_experts:
-        out2d = out2d + _shared_experts(p, h.reshape(B * S, d),
+        out2d = out2d + _shared_experts(p, hc.reshape(B * S, d),
                                         cfg).reshape(B, S, d)
     return out2d, MoEStats(aux, dropped)
 
 
-def _dispatch_2d(p: dict, h2d: torch.Tensor, cfg: ArchConfig, C: int):
+def _dispatch_2d(p: dict, h2d: torch.Tensor, hc2d: torch.Tensor,
+                 cfg: ArchConfig, C: int, tp=None):
     """Core sort-based dispatch over flat tokens. h2d: (T, d) →
-    ((T, d), aux, dropped_frac)."""
+    ((T, d), aux, dropped_frac).  The router reads ``h2d``, the experts
+    ``hc2d`` (``tp``: ``h2d`` through f, else ``h2d`` itself); ``tp``: the
+    rank's experts' slots only, its share of the combine."""
     T, d = h2d.shape
     k, E = cfg.top_k, cfg.n_experts
     dev = h2d.device
     top_w, top_idx, aux = _route(h2d, p["router"], cfg)
+    if tp is not None:
+        top_w = tp.copy(top_w)
 
     # --- sort-based dispatch: group the T·k pairs by expert --------------
     n = T * k
@@ -159,9 +188,13 @@ def _dispatch_2d(p: dict, h2d: torch.Tensor, cfg: ArchConfig, C: int):
         .index_put_((slot,), st)[:-1]
     valid = torch.zeros(E * C + 1, dtype=torch.bool, device=dev) \
         .index_put_((slot,), keep)[:-1]
-    expert_in = torch.where(valid[:, None], h2d[token_of],
+    e0, ne = (0, E) if tp is None else (tp.expert_first, tp.n_experts)
+    if ne != E:                              # expert-parallel: the rank's
+        token_of = token_of[e0 * C:(e0 + ne) * C]
+        valid = valid[e0 * C:(e0 + ne) * C]
+    expert_in = torch.where(valid[:, None], hc2d[token_of],
                             torch.zeros((), dtype=h2d.dtype, device=dev))
-    expert_out = _expert_ffn(expert_in.reshape(E, C, d), p["wi_e"],
+    expert_out = _expert_ffn(expert_in.reshape(ne, C, d), p["wi_e"],
                              p["wo_e"], cfg.mlp_act)
 
     # --- ordered combine: each token's slots in ascending expert order ----
@@ -169,7 +202,11 @@ def _dispatch_2d(p: dict, h2d: torch.Tensor, cfg: ArchConfig, C: int):
     by_expert = torch.argsort(top_idx, dim=1)      # a token's experts differ
     tok_slot = slot_of.reshape(T, k).gather(1, by_expert)
     tok_w = top_w.gather(1, by_expert) * (tok_slot < E * C)
-    rows = torch.cat([expert_out.reshape(E * C, d),
+    if ne != E:                # other ranks' slots read the zero row
+        local = tok_slot - e0 * C
+        tok_slot = torch.where((local >= 0) & (local < ne * C), local,
+                               ne * C)
+    rows = torch.cat([expert_out.reshape(ne * C, d),
                       torch.zeros((1, d), dtype=expert_out.dtype,
                                   device=dev)])[tok_slot]       # (T, k, d)
     weighted = rows * tok_w[..., None]

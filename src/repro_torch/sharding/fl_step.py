@@ -7,16 +7,17 @@ local shards; the cohort meets only in the collectives, which run on the
 ``data`` (and ``pod``) sub-groups of the mesh.  By default each client's
 compute is replicated over ``model``, as in the reference's own fully
 manual fallback (its ``_shard_map`` docstring).  With
-``RuntimeConfig(tp_constraints=True)`` the step of the dense, ssm and
-hybrid families is split over ``model`` instead, the values those of
-GSPMD under the reference's Megatron constraints: a rank stores and
-computes its model slice (``rules.TPLayout``, :func:`storage_layout`),
+``RuntimeConfig(tp_constraints=True)`` the step of the dense, ssm,
+hybrid and moe families is split over ``model`` instead, the values
+those of GSPMD under the reference's Megatron constraints: a rank stores
+and computes its model slice (``rules.TPLayout``, :func:`storage_layout`),
 the row loop's hook views each gathered row as the rank's share
-(``tensor_parallel.ModelAxis``; the hybrid's unstacked shared block once
-a step, :func:`view_shared`) and the model runs its parallel form (f and
-g around every block's products, a Mamba2 block split by SSD heads, a
-vocab-parallel embedding and cross-entropy where the vocabulary
-divides).  The moe, vlm and audio families raise on it
+(``tensor_parallel.ModelAxis``; the hybrid's unstacked shared block and
+deepseek's ``dense0`` once a step, :func:`view_shared`) and the model
+runs its parallel form (f and g around every block's products, a Mamba2
+block split by SSD heads, the routed experts by expert or on ff with the
+routers whole, a vocab-parallel embedding and cross-entropy where the
+vocabulary divides).  The vlm and audio families raise on it
 (``rules.check_tp_family``).
 
 The per-(client, layer) aggregation of Eq. (5)-(7) is fused into one
@@ -184,16 +185,23 @@ def model_axis(layout: Optional[rules.TPLayout],
     return ModelAxis.on_mesh(layout, mesh)
 
 
+# Groups gathered whole (not row by row through the hook) that hold
+# blocks: the hybrid's unstacked shared block and deepseek's stacked
+# ``dense0`` (not a hooked segment, as in the reference)
+VIEWED = ("shared_attn", "dense0")
+
+
 def view_shared(tree: PyTree, specs: PyTree,
                 axis: Optional[ModelAxis]) -> PyTree:
-    """``tree`` with the hybrid's shared block (unstacked leaves,
-    gathered over ``data``) viewed as this rank's share
-    (``ModelAxis.view_row``), once a step rather than at each of its
-    sites; any other tree, or no axis, as it is."""
-    if axis is None or "shared_attn" not in tree:
+    """``tree`` with its :data:`VIEWED` groups (gathered over ``data``)
+    viewed as this rank's share (``ModelAxis.view_row``, its spec dims
+    all present: ``lead=0``), once a step rather than at each of the
+    hybrid's sites or each ``dense0`` row; any other group, or no axis, as
+    it is."""
+    if axis is None:
         return tree
-    return {**tree, "shared_attn": axis.view_row(
-        tree["shared_attn"], specs["shared_attn"], lead=0)}
+    return {k: axis.view_row(v, specs[k], lead=0) if k in VIEWED else v
+            for k, v in tree.items()}
 
 
 def shard_params(model: Model, mesh, params: PyTree,
@@ -279,13 +287,14 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
     paper's R/L upload, made structural); the rest of the model is
     gathered without a gradient and stays as it is.
 
-    ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm and hybrid
-    families): the local shards are :func:`shard_params`'s, model slices
-    included; the Eq.(5) sums are unchanged.  The leaves replicated over
-    ``model`` get the same gradient on every model rank: the norms whole
-    through f, and the ones a Mamba2 rank narrows to its heads or channels
-    (``gate_ln``, ``A_log``, ``D``, ``dt_bias``) by gathering the slices'
-    gradients back over ``model`` (``tensor_parallel._NarrowGather``).
+    ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm, hybrid and
+    moe families): the local shards are :func:`shard_params`'s, model
+    slices included; the Eq.(5) sums are unchanged.  The leaves replicated
+    over ``model`` get the same gradient on every model rank: the norms
+    and the moe routers whole through f, and the ones a Mamba2 rank
+    narrows to its heads or channels (``gate_ln``, ``A_log``, ``D``,
+    ``dt_bias``) by gathering the slices' gradients back over ``model``
+    (``tensor_parallel._NarrowGather``).
     """
     cfg, rt = model.cfg, model.runtime
     axis = model_axis(storage_layout(model, mesh), mesh)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.moe import dense0_ff
 from repro_torch.tree import tree_map_with_path
 
 PyTree = Any
@@ -281,20 +282,20 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
 # Tensor parallelism over 'model' (RuntimeConfig(tp_constraints=True))
 # ---------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "ssm", "hybrid")
+TP_FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def check_tp_family(cfg: ArchConfig) -> None:
     """Tensor parallelism over ``model`` is ported for the language models
-    of the dense, ssm and hybrid families; the moe, vlm and audio families
+    of the dense, ssm, hybrid and moe families; the vlm and audio families
     raise, naming themselves."""
     if cfg.family not in TP_FAMILIES or cfg.task != "lm":
         raise ValueError(
             f"RuntimeConfig(tp_constraints=True): tensor parallelism over "
-            f"the 'model' axis is ported for the dense, ssm and hybrid "
-            f"families' language models; the moe, vlm and audio families "
-            f"wait, and so does the {cfg.family!r} family's {cfg.name} "
-            f"(task {cfg.task!r}) (ROADMAP.md)")
+            f"the 'model' axis is ported for the dense, ssm, hybrid and moe "
+            f"families' language models; the vlm and audio families wait, "
+            f"and so does the {cfg.family!r} family's {cfg.name} (task "
+            f"{cfg.task!r}) (ROADMAP.md)")
 
 
 def attention_mode(cfg: ArchConfig, msz: int) -> str:
@@ -306,10 +307,14 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
     * ``"kv_shared"`` when M divides H and K divides M (and K·hd): a rank
       computes H/M query heads, all of one kv head, whose ``wk`` / ``wv``
       columns it all-gathers over ``model``;
-    * ``"replicated"`` otherwise (SmolLM's 15 heads at 16): attention runs
-      whole on every rank, its leaves all-gathered over ``model``; only the
-      MLP, the embedding and the head are split.
+    * ``"replicated"`` otherwise (SmolLM's 15 heads at 16), and for MLA
+      (DeepSeek), whose latent projections ``w_dkv``, ``w_krope``,
+      ``kv_ln`` and ``w_ukv`` are not split by head: attention runs whole
+      on every rank, its leaves all-gathered over ``model``; only the MLP
+      or the experts, the embedding and the head are split.
     """
+    if cfg.use_mla:
+        return "replicated"
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     if H % msz == 0 and K % msz == 0:
         return "heads"
@@ -321,8 +326,8 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
 class TPLayout:
     """A model's storage and compute under tensor parallelism over a
     ``model`` axis of ``size`` ranks: the dense family's blocks, the ssm
-    and hybrid families' Mamba2 blocks, and the hybrid's shared block,
-    which splits as a dense block.
+    and hybrid families' Mamba2 blocks, the hybrid's shared block, which
+    splits as a dense block, and the moe family's blocks and ``dense0``.
 
     Storage (:func:`tp_local_shard`): a rank holds the slice of each leaf
     that its spec gives, ``model`` included; a tuple entry ``(model,
@@ -330,30 +335,49 @@ class TPLayout:
     gather over ``data`` within model coordinate m yields model slice m.
     Leaves packed from pieces on their last dim are reordered first
     (:meth:`to_storage_order`) so that model slice m is the m-th part of
-    every piece side by side: a gated ``mlp_wi`` (gate | up) as gate[:, m]
-    | up[:, m], the halves ``blocks.mlp_fwd`` splits; a Mamba2
-    ``ssm_in_proj`` (z | x | B | C | dt) as z_m | x_m | B_m | C_m | dt_m,
-    and ``ssm_conv_w`` / ``ssm_conv_b`` (x | B | C) as x_m | B_m | C_m.
-    ``wk`` / ``wv`` keep the contiguous split; under ``"kv_shared"`` a
-    model slice is a part of one kv head, and the step all-gathers them
-    over ``model`` (``sharding/tensor_parallel.py``), as it does every
-    B_m | C_m.
+    every piece side by side: a gated ``mlp_wi`` (gate | up, ``dense0``'s
+    too) as gate[:, m] | up[:, m], the halves ``blocks.mlp_fwd`` splits,
+    and so the shared experts' ``moe_wi_s`` and, split on ff, the routed
+    experts' ``moe_wi_e``; a Mamba2 ``ssm_in_proj`` (z | x | B | C | dt)
+    as z_m | x_m | B_m | C_m | dt_m, and ``ssm_conv_w`` / ``ssm_conv_b``
+    (x | B | C) as x_m | B_m | C_m.  ``wk`` / ``wv`` keep the contiguous
+    split; under ``"kv_shared"`` a model slice is a part of one kv head,
+    and the step all-gathers them over ``model``
+    (``sharding/tensor_parallel.py``), as it does every B_m | C_m.
 
     Compute (:meth:`compute_slice`): model coordinate m computes query
     heads :meth:`q_heads` and kv heads :meth:`kv_heads` (all of them under
-    ``"replicated"``), the ``d_ff / size`` MLP columns m, the SSD heads
+    ``"replicated"``, MLA's always), the m-th 1/size of each MLP's columns
+    (``d_ff`` wide, ``dense0``'s ``d_ff · (top_k + n_shared_experts)``,
+    the shared experts' ``d_ff · n_shared_experts``), the SSD heads
     :meth:`ssm_heads` with their ``d_inner / size`` channels of z and x
     and all of B and C, and, where the spec of ``embed.tok`` names
     ``model`` (``vocab_split``: the vocabulary divides), the vocabulary
     rows ``[m·V/size, (m+1)·V/size)``; else the embedding and the head are
-    whole on every rank.
+    whole on every rank.  The routed experts split as the reference's
+    ``make_shard_hook`` pins their buffers: by expert where ``size``
+    divides ``n_experts`` (``expert_parallel``: the rank's
+    :meth:`experts`, whole), else on ff (every expert, its ``d_ff /
+    size`` columns m).  The routers stay whole on every rank.  A split
+    width that does not divide by ``size`` raises.
     """
 
     def __init__(self, cfg: ArchConfig, size: int):
         check_tp_family(cfg)
-        if cfg.d_ff % size:
-            raise ValueError(f"tensor parallelism over 'model' of {size}: "
-                             f"{cfg.name}'s d_ff {cfg.d_ff} does not divide")
+        self.moe = cfg.family == "moe"
+        self.expert_parallel = self.moe and cfg.n_experts % size == 0
+        # the split widths: expert-parallel experts are whole on a rank
+        widths = {} if self.expert_parallel else {"d_ff": cfg.d_ff}
+        if self.moe and cfg.n_shared_experts:
+            widths["d_ff·n_shared_experts"] = cfg.d_ff * cfg.n_shared_experts
+        if self.moe and cfg.first_dense:
+            widths["dense0's d_ff·(top_k + n_shared_experts)"] = \
+                dense0_ff(cfg)
+        for what, n in widths.items():
+            if n % size:
+                raise ValueError(
+                    f"tensor parallelism over 'model' of {size}: "
+                    f"{cfg.name}'s {what} {n} does not divide")
         self.ssm = cfg.family in ("ssm", "hybrid")
         if self.ssm:
             H, GN = cfg.resolved_ssm_heads, cfg.ssm_groups * cfg.ssm_state
@@ -388,6 +412,15 @@ class TPLayout:
             return self.q_heads(m)[0] // (H // K), 1
         return 0, K
 
+    def experts(self, m: int) -> tuple[int, int]:
+        """(first, count) of the routed experts model coordinate m
+        computes: its E/size whole experts when ``expert_parallel``, else
+        every expert (on its share of ff)."""
+        E = self.cfg.n_experts
+        if self.expert_parallel:
+            return m * (E // self.size), E // self.size
+        return 0, E
+
     def ssm_heads(self, m: int) -> tuple[int, int]:
         """(first, count) of the SSD heads model coordinate m computes."""
         n = self.cfg.resolved_ssm_heads // self.size
@@ -404,7 +437,8 @@ class TPLayout:
         leaf at ``path`` that storage reorders, or None."""
         if self.size == 1:
             return None
-        if path[-1] == "mlp_wi" and self.gated:
+        if self.gated and (path[-1] in ("mlp_wi", "moe_wi_s") or (
+                path[-1] == "moe_wi_e" and not self.expert_parallel)):
             return [n // 2, n // 2]
         if self.ssm and path[-1] in ("ssm_in_proj", "ssm_conv_w",
                                      "ssm_conv_b"):
@@ -442,30 +476,37 @@ class TPLayout:
 
     def compute_slice(self, name: str, row, m: int):
         """What model coordinate m computes with of one full row's leaf
-        ``name`` (``attn_wq``, ``mlp_wi``, ``ssm_in_proj``, …, of a
-        ``blocks`` row or of the hybrid's shared block): the parallel
-        form's weights, as the step's gathers leave them."""
-        if name in ("attn_ln", "mlp_ln", "ssm_ln"):
+        ``name`` (``attn_wq``, ``mlp_wi``, ``ssm_in_proj``, ``moe_wi_e``,
+        …, of a ``blocks`` or ``dense0`` row or of the hybrid's shared
+        block): the parallel form's weights, as the step's gathers leave
+        them."""
+        if name in ("attn_ln", "mlp_ln", "ssm_ln", "moe_ln", "moe_router"):
             return row
         if name.startswith("ssm_"):
             return self._ssm_slice(name[len("ssm_"):], row, m)
         if name.startswith("attn_"):
+            if self.mode == "replicated":
+                return row
             hd = self.cfg.resolved_head_dim
             leaf = name[len("attn_"):]
             first, n = (self.kv_heads(m) if leaf in ("wk", "wv", "bk", "bv")
                         else self.q_heads(m))
             dim = 0 if leaf == "wo" else row.dim() - 1
             return row.narrow(dim, first * hd, n * hd)
-        if name == "mlp_wi" and self.gated:
+        if self.expert_parallel and name in ("moe_wi_e", "moe_wo_e"):
+            return row.narrow(0, *self.experts(m))
+        if name in ("mlp_wi", "moe_wi_s", "moe_wi_e"):   # column-parallel
+            if not self.gated:
+                w = row.shape[-1] // self.size
+                return row[..., m * w:(m + 1) * w]
             ff = row.shape[-1] // 2
             w = ff // self.size
             return torch.cat([row[..., m * w:(m + 1) * w],
                               row[..., ff + m * w:ff + (m + 1) * w]], -1)
-        w = self.cfg.d_ff // self.size
-        if name == "mlp_wi":
-            return row[..., m * w:(m + 1) * w]
-        if name == "mlp_wo":
-            return row[m * w:(m + 1) * w]
+        if name in ("mlp_wo", "moe_wo_s", "moe_wo_e"):   # row-parallel
+            dim = row.dim() - 2                        # the ff rows
+            w = row.shape[dim] // self.size
+            return row.narrow(dim, m * w, w)
         raise ValueError(f"no tensor-parallel slice for {name!r}")
 
     def _ssm_slice(self, leaf: str, row, m: int):
@@ -487,17 +528,6 @@ class TPLayout:
         raise ValueError(f"no tensor-parallel slice for 'ssm_{leaf}'")
 
 
-def tp_shard_dim(spec: Spec) -> tuple[Optional[int], tuple[str, ...]]:
-    """(dim, axes) along which a leaf of ``spec`` is stored split under
-    tensor parallelism: the first entry naming a client axis or
-    ``model``, its axes in the entry's (major-to-minor) order."""
-    for i, entry in enumerate(spec):
-        names = tuple(a for a in _names(entry) if a in CLIENT or a == MODEL)
-        if names:
-            return i, names
-    return None, ()
-
-
 def model_dim(spec: Spec) -> Optional[int]:
     """Index of the spec's ``model`` entry (None if whole over model)."""
     for i, entry in enumerate(spec):
@@ -509,15 +539,19 @@ def model_dim(spec: Spec) -> Optional[int]:
 def tp_local_shard(leaf, spec: Spec, mesh, layout: TPLayout,
                    path: tuple = ()):
     """This rank's storage of a full ``leaf`` (tensor or array) under
-    tensor parallelism: its block along :func:`tp_shard_dim`, after
-    :meth:`TPLayout.to_storage_order`."""
+    tensor parallelism: after :meth:`TPLayout.to_storage_order`, its block
+    along every dim whose spec entry names a client axis or ``model``
+    (expert-parallel ``moe_wi_e`` / ``moe_wo_e``: the experts over
+    ``model`` and ff over ``data``)."""
     leaf = layout.to_storage_order(path, leaf)
-    dim, axes = tp_shard_dim(spec)
-    if dim is None:
-        return leaf
-    size = leaf.shape[dim] // mesh.size(axes)
-    start = mesh.index(axes) * size
-    return leaf[(slice(None),) * dim + (slice(start, start + size),)]
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in _names(entry) if a in CLIENT or a == MODEL)
+        if not axes:
+            continue
+        size = leaf.shape[dim] // mesh.size(axes)
+        start = mesh.index(axes) * size
+        leaf = leaf[(slice(None),) * dim + (slice(start, start + size),)]
+    return leaf
 
 
 def tp_shard_tree(tree: PyTree, specs: PyTree, mesh, layout: TPLayout,
@@ -537,9 +571,10 @@ def tp_shard_cache(cache: PyTree, c_specs: PyTree, mesh,
     heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W; of
     a Mamba2 ``conv`` leaf (L, B, K−1, x | B | C) the rank's channels of x
     and all of B | C, and of a ``state`` leaf (L, B, H, P, N) its SSD
-    heads.  Where K % M ≠ 0 the reference's rule splits W over ``model``
-    instead, and it splits ``conv`` contiguously; the values read are the
-    same."""
+    heads; MLA's latent ``ckv`` / ``krope`` rows stay whole (its attention
+    runs whole on every rank).  Where K % M ≠ 0 the reference's rule
+    splits W over ``model`` instead, it splits ``conv`` contiguously and
+    the latent rows on their rank dim; the values read are the same."""
     m = mesh.coord(MODEL)
     first, n = layout.kv_heads(m)
 

@@ -8,15 +8,16 @@ through the model's ``layer_hook``, the other groups whole at the start
 of the step.  The batch and the KV / state caches are split over the
 client axes when their batch divides (``rules.batch_spec_serve``,
 ``rules.cache_specs``).  By default a rank runs its own rows whole over
-``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm
-and hybrid families) a rank stores its model slice
-(``fl_step.storage_layout``), computes its heads, MLP columns, SSD heads
-and, where the vocabulary divides, vocabulary rows
-(``tensor_parallel.ModelAxis``; the hybrid's shared block viewed once a
-step), keeps its kv heads' cache rows whole over the sequence and its
-Mamba2 conv channels and state heads (``rules.tp_shard_cache``), and
-all-gathers split last-position logits over ``model`` before it returns
-or argmaxes them.  A moe model whose
+``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm,
+hybrid and moe families) a rank stores its model slice
+(``fl_step.storage_layout``), computes its heads, MLP columns, SSD heads,
+experts or their ff columns and, where the vocabulary divides,
+vocabulary rows (``tensor_parallel.ModelAxis``; the hybrid's shared block
+and deepseek's ``dense0`` viewed once a step), keeps its kv heads' cache
+rows whole over the sequence, its Mamba2 conv channels and state heads
+and MLA's latent rows whole (``rules.tp_shard_cache``), and all-gathers
+split last-position logits over ``model`` before it returns or argmaxes
+them.  A moe model whose
 routers share their capacity across the batch keeps the batch whole on
 every rank (:func:`batch_spec`).
 
@@ -76,7 +77,7 @@ def gathered(params: dict, specs: dict, mesh, axis=None):
     """(the groups gathered whole, the ``layer_hook`` that gathers a
     hooked segment's row), without a gradient; with a ``ModelAxis`` the
     hook also views the row as the rank's share, and the hybrid's shared
-    block is viewed once here."""
+    block and deepseek's ``dense0`` are viewed once here."""
     with torch.no_grad():
         full = view_shared({k: (v if k in HOOKED_SEGMENTS else
                                 gather_tree(v, specs[k], mesh))

@@ -1,5 +1,5 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the dense, ssm
-and hybrid families (new; the reference gets the same values from GSPMD
+"""Tensor parallelism over the mesh's ``model`` axis for the dense, ssm,
+hybrid and moe families (new; the reference gets the same values from GSPMD
 under ``RuntimeConfig(tp_constraints=True)``, whose Megatron constraints
 are ``repro/sharding/fl_step.py``'s ``_tp_constrain`` and
 ``_model_only``).
@@ -18,8 +18,11 @@ over ``model`` in both directions (:class:`_Sum`); and the replicated
 leaves it narrows to its heads or channels (``gate_ln``, ``A_log``,
 ``D``, ``dt_bias``) gather their gradient slices back over ``model``
 (:class:`_NarrowGather`), so that every rank's copy gets the same whole
-gradient.  The embedding and the cross-entropy are vocab-parallel where
-the vocabulary divides (``models/model.py``).  Every collective goes
+gradient.  A moe layer (``models/moe.py``) splits its routed experts by
+expert or on ff and its shared experts as an MLP, its router whole on
+every rank; MLA runs replicated, its leaves all-gathered.  The embedding
+and the cross-entropy are vocab-parallel where the vocabulary divides
+(``models/model.py``).  Every collective goes
 through the counted helpers of ``sharding/collectives.py``.
 
 :class:`ModelAxis` is the models' parallel form's argument
@@ -128,7 +131,9 @@ class ModelAxis:
     (:class:`rules.TPLayout`): ``mode`` and ``attn_split`` (attention
     split over ``model``, not replicated), the rank's ``n_heads`` /
     ``n_kv_heads``, ``ssm_head_first`` / ``ssm_heads`` and ``d_inner``
-    (its Mamba2 channels), ``vocab_split`` and ``vocab_start`` /
+    (its Mamba2 channels), ``expert_first`` / ``n_experts`` (its routed
+    experts: all of them on its ff columns unless expert-parallel),
+    ``vocab_split`` and ``vocab_start`` /
     ``vocab_size``, and the operations: ``copy`` (f), ``reduce`` (g),
     ``reduce_stat`` (Σ over ``model`` both ways), ``reduce_max`` (max over
     ``model``, no gradient), ``gather_last`` (the logits' all-gather along
@@ -152,6 +157,8 @@ class ModelAxis:
         if layout.ssm:
             self.ssm_head_first, self.ssm_heads = layout.ssm_heads(index)
             self.d_inner = cfg.d_inner // layout.size
+        if layout.moe:
+            self.expert_first, self.n_experts = layout.experts(index)
         self.vocab_split = layout.vocab_split
         self.vocab_size = cfg.vocab_size // (layout.size if self.vocab_split
                                              else 1)
@@ -191,7 +198,9 @@ class ModelAxis:
         over ``model`` (reduce-scatter backward) and narrowed to the rank's
         kv head; under ``"replicated"`` every split attention leaf
         all-gathered (its own slice backward).  Mamba2 (:meth:`_ssm_leaf`):
-        the B | C columns all-gathered, the replicated vectors narrowed."""
+        the B | C columns all-gathered, the replicated vectors narrowed.
+        A moe row's ``moe_`` leaves and a ``dense0`` row's MLP are the
+        rank's already; MLA's attention leaves are ``"replicated"``."""
         out = {}
         for nm, x in row.items():
             if nm.startswith("ssm_"):

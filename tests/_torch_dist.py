@@ -77,15 +77,18 @@ def _run(n: int, mesh: dict, cases: list, timeout: float):
 # ---------------------------------------------------------------------------
 
 def _model(case):
-    """The case's reduced arch (``heads``: (H, K) replaced, ``vocab``: the
-    vocabulary's size replaced, as the parent builds it), with ``tp`` as
-    ``RuntimeConfig.tp_constraints``."""
+    """The case's reduced arch (``experts``: at most that many experts,
+    ``heads``: (H, K) replaced, ``vocab``: the vocabulary's size replaced,
+    as the parent builds it), with ``tp`` as
+    ``RuntimeConfig.tp_constraints`` and ``local`` as its
+    ``moe_local_dispatch``."""
     import dataclasses
 
     from repro_torch.configs.base import RuntimeConfig, get_arch, reduced
     from repro_torch.models.model import Model
     cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 4),
-                  d_model=case.get("d_model", 64))
+                  d_model=case.get("d_model", 64),
+                  max_experts=case.get("experts", 4))
     if case.get("heads"):
         cfg = dataclasses.replace(cfg, n_heads=case["heads"][0],
                                   n_kv_heads=case["heads"][1])
@@ -93,7 +96,8 @@ def _model(case):
         cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
     rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
                        sel_upload=case.get("sel_upload", False),
-                       tp_constraints=case.get("tp", False))
+                       tp_constraints=case.get("tp", False),
+                       moe_local_dispatch=case.get("local", False))
     return Model(cfg, rt, device="cpu")
 
 
@@ -305,20 +309,58 @@ def case_tp_ssm_block(case, mesh):
             "grads": {k: g.numpy() for k, g in zip(local, grads[1:])}}
 
 
+def case_tp_moe_grads(case, mesh):
+    """The loss of ``case["tokens"]`` (every rank the same batch) under the
+    moe family's parallel form, its params stored without ZeRO-3 (the data
+    ranks hold the same model slices): the loss, the routers' aux loss
+    and the gradients of the rank's ``blocks`` router and ``moe_ln``
+    (replicated over ``model``) and of its ``moe_wi_e`` slice."""
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import (model_axis, storage_layout,
+                                              view_shared)
+    model = _model(case)
+    layout = storage_layout(model, mesh)
+    axis = model_axis(layout, mesh)
+    specs = rules.params_pytree_specs(model.cfg, case["params"], zero3=False,
+                                      mesh_shape=dict(mesh.shape))
+    local = params_to_local(case["params"], specs, mesh, layout=layout)
+    names = ("moe_router", "moe_ln", "moe_wi_e")
+    wrt = {nm: local["blocks"][nm].detach().requires_grad_()
+           for nm in names}
+    params = view_shared({**local, "blocks": {**local["blocks"], **wrt}},
+                         specs, axis)
+    batch = {"tokens": torch.from_numpy(case["tokens"])}
+    hook = (lambda pl, idx, seg: axis.view_row(pl, specs[seg]))
+    h, aux, prefix = model.hidden_seq(params, batch, tp=axis,
+                                      layer_hook=hook)
+    loss = model.loss_from_hidden(params, h, aux, prefix, batch, tp=axis)
+    grads = torch.autograd.grad(loss, list(wrt.values()))
+    return {"loss": float(loss), "aux": float(aux),
+            "grads": {nm: g.numpy() for nm, g in zip(names, grads)},
+            "expert_parallel": layout.expert_parallel}
+
+
 def case_dryrun_facts(case, mesh):
     """``launch.dryrun.build_program`` of a reduced arch at a small
     ``ShapeConfig`` on this mesh (meta stand-ins on a fake world, seeded
     tensors on gloo), run once under the auditor: its fact row.  With
-    ``zero3`` the ZeRO-3 threshold is 0, so the base is stored sharded."""
+    ``zero3`` the ZeRO-3 threshold is 0, so the base is stored sharded;
+    ``experts`` caps a moe arch's experts, ``local`` is its
+    ``moe_local_dispatch``."""
     from repro_torch.configs.base import (RuntimeConfig, ShapeConfig,
                                           get_arch, reduced)
     from repro_torch.launch import dryrun
     if case.get("zero3"):
         dryrun.ZERO3_THRESHOLD_BYTES = 0
     cfg = reduced(get_arch(case["arch"]), n_layers=case.get("layers", 2),
-                  d_model=case.get("d_model", 64))
+                  d_model=case.get("d_model", 64),
+                  max_experts=case.get("experts", 4))
     rt = RuntimeConfig(remat=case.get("remat", False), seq_chunk=16,
-                       tp_constraints=case.get("tp", False))
+                       tp_constraints=case.get("tp", False),
+                       moe_local_dispatch=case.get("local", False))
     prog = dryrun.build_program(cfg, ShapeConfig(*case["shape"]), mesh, rt,
                                 kernel_mode=case.get("kernel_mode"))
     return {"facts": dryrun.program_facts(case["name"], prog).to_dict(),
@@ -358,7 +400,7 @@ CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "dryrun_pair": case_dryrun_pair, "dry_refused": case_dry_refused,
          "tp_round_trip": case_tp_round_trip,
          "tp_ssm_block": case_tp_ssm_block,
-         "fail": case_fail}
+         "tp_moe_grads": case_tp_moe_grads, "fail": case_fail}
 
 
 def _mesh_dims(m: dict) -> tuple:

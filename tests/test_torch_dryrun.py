@@ -18,13 +18,15 @@
   that neither launches nor reports;
 * the live-bytes tracker's peak on a hand-built program;
 * the same with tensor parallelism over ``model`` (``tp_constraints``):
-  TinyLlama's three programs, fake world against gloo;
+  TinyLlama's and Mamba2's three programs, and the moe family's train
+  step, prefill and decode (DeepSeek's experts split by expert, Grok's on
+  ff), fake world against gloo;
 * full-width TinyLlama ``train_4k`` on the 16 × 16 fake world: argument
   bytes equal to rank 0's shards computed from the rules, collectives by
   kind derived from the layer layout; with ``--opt`` (tensor parallelism)
   the dense family's ``train_4k`` per device: FLOPs, useful share and
   argument bytes against the replicated step's;
-* the refusals: ``--opt`` on a family without tensor parallelism, a dry
+* the refusals: ``--opt`` on a family without tensor parallelism (audio), a dry
   mesh inside an existing world, and the world torn down after a
   failure; the CLI's JSON.
 
@@ -195,22 +197,37 @@ SHAPES = {"train": ("train_4k", 32, 4, "train"),
 PAIRS = [(a, k) for a in ("tinyllama_1_1b", "mamba2_370m") for k in SHAPES]
 
 
-def _facts_case(arch, kind, tp=False) -> dict:
+def _facts_case(arch, kind, tp=False, **moe) -> dict:
     return {"kind": "dryrun_facts", "name": f"{arch}/{kind}", "arch": arch,
             "shape": SHAPES[kind], "zero3": True, "kernel_mode": "torch",
-            "tp": tp}
+            "tp": tp, **moe}
 
 
 TP_PAIRS = [(a, k) for a in ("tinyllama_1_1b", "mamba2_370m") for k in SHAPES]
+# the moe family under --opt's dispatch (per sample), plain and under
+# tensor parallelism: DeepSeek expert-parallel (4 experts over 2), Grok's 3
+# experts split on ff
+MOE_PAIRS = [("deepseek_v2_lite_16b", "train"),
+             ("deepseek_v2_lite_16b", "prefill"), ("grok_1_314b", "train"),
+             ("grok_1_314b", "decode")]
+MOE_EXPERTS = {"deepseek_v2_lite_16b": 4, "grok_1_314b": 3}
+
+
+def _moe_case(arch, kind, tp):
+    return _facts_case(arch, kind, tp=tp, local=True,
+                       experts=MOE_EXPERTS[arch])
 
 
 @pytest.fixture(scope="module")
 def worlds():
     """Rank 0's facts of each pair on the fake world and on gloo (PAIRS,
-    then TP_PAIRS under tensor parallelism), and the gloo ranks' answer to
-    a dry mesh asked for inside their world."""
+    then TP_PAIRS under tensor parallelism, then MOE_PAIRS plain and under
+    it), and the gloo ranks' answer to a dry mesh asked for inside their
+    world."""
     cases = ([_facts_case(a, k) for a, k in PAIRS]
-             + [_facts_case(a, k, tp=True) for a, k in TP_PAIRS])
+             + [_facts_case(a, k, tp=True) for a, k in TP_PAIRS]
+             + [_moe_case(a, k, tp) for tp in (False, True)
+                for a, k in MOE_PAIRS])
     dry = run_dry(WORLD, cases)
     real = run_world(4, WORLD, cases + [{"kind": "dry_refused"}])
     return dry, real
@@ -242,12 +259,14 @@ def test_fake_world_matches_gloo(arch, kind, worlds):
     assert f["temp_bytes"] > 0 and g["temp_bytes"] == 0
 
 
-def _held_tp(arch, kind, worlds):
+def _held_tp(arch, kind, worlds, i=None, plain_i=None):
     dry, real = worlds
     assert dry["error"] is None
-    i = len(PAIRS) + TP_PAIRS.index((arch, kind))
+    if i is None:
+        i = len(PAIRS) + TP_PAIRS.index((arch, kind))
+        plain_i = PAIRS.index((arch, kind))
     f, g = dry["results"][i]["facts"], real[0][i]["facts"]
-    plain = dry["results"][PAIRS.index((arch, kind))]["facts"]
+    plain = dry["results"][plain_i]["facts"]
     assert f["flops"] > 0 and f["flops"] == g["flops"]
     assert f["flops"] < plain["flops"]
     assert f["arg_bytes"] == g["arg_bytes"] < plain["arg_bytes"]
@@ -272,6 +291,28 @@ def test_fake_world_matches_gloo_tp_mamba2(kind, worlds):
     """The same for reduced Mamba2 split by SSD heads over 2 (B | C
     all-gathered over ``model``, the gate norm's statistic all-reduced)."""
     _held_tp("mamba2_370m", kind, worlds)
+
+
+@pytest.mark.parametrize("arch,kind", MOE_PAIRS)
+def test_fake_world_matches_gloo_tp_moe(arch, kind, worlds):
+    """The same for the moe family with per-sample dispatch, as ``--opt``
+    runs it: DeepSeek's experts split by expert and MLA replicated (its
+    leaves all-gathered over ``model``), Grok's experts on ff with its
+    heads split; the plain program's counts fake against gloo too."""
+    dry, real = worlds
+    base = len(PAIRS) + len(TP_PAIRS)
+    j = MOE_PAIRS.index((arch, kind))
+    f, g = dry["results"][base + j]["facts"], real[0][base + j]["facts"]
+    assert f["flops"] == g["flops"]
+    assert f["collective_counts"] == g["collective_counts"]
+    _held_tp(arch, kind, worlds, i=base + len(MOE_PAIRS) + j,
+             plain_i=base + j)
+    # MLA's leaves all-gathered over ``model``; serving gathers the
+    # vocab-parallel logits
+    tp = dry["results"][base + len(MOE_PAIRS) + j]["facts"]
+    more = arch == "deepseek_v2_lite_16b" or kind != "train"
+    assert (tp["collective_counts"]["all-gather"]
+            > f["collective_counts"]["all-gather"]) == more
 
 
 def test_dry_mesh_refused_inside_a_world(worlds):
@@ -578,9 +619,9 @@ def test_cli_opt_writes_the_tensor_parallel_report(tmp_path):
 
 
 def test_cli_opt_raises_for_a_family_without_tensor_parallelism(tmp_path):
-    r = _cli("--arch", "deepseek_v2_lite_16b", "--shape", "train_4k",
+    r = _cli("--arch", "whisper_medium", "--shape", "train_4k",
              "--opt", tmp=tmp_path)
     assert r.returncode != 0
     assert "tensor parallelism over the 'model' axis" in r.stderr
-    assert "'moe' family" in r.stderr
+    assert "'audio' family" in r.stderr
     assert not list(tmp_path.iterdir())

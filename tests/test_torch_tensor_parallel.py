@@ -334,8 +334,8 @@ def test_attention_mode_of_the_dense_family(arch, want):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("deepseek_v2_lite_16b", "moe"), ("whisper_medium", "audio"),
-    ("paligemma_3b", "vlm")])
+    ("whisper_medium", "audio"), ("paligemma_3b", "vlm"),
+    ("xlm_roberta_base", "dense")])
 def test_tp_refused_for_other_families(arch, family):
     from repro_torch.configs.base import RuntimeConfig as TRuntime
     from repro_torch.configs.base import get_arch as tget
