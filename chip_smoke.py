@@ -5437,6 +5437,13 @@ DIST_MOE_MASK = (0, 2)
 DIST_MOE_SEL = (1, 2)
 DIST_MOE_LR = 0.25
 DIST_DECODE_MOE = dict(DIST_DECODE, steps=8)
+# Slice 19: PaliGemma-3B at full width and depth (18 rows, 5.9 GB of bf16),
+# 1 client × 4 sequences of DIST_VLM_PREFIX stub patches + DIST_VLM_TEXT
+# text tokens; two of its rows selected (mask, sel_upload and τ = 2 alike)
+DIST_VLM_SEL = (5, 12)
+DIST_VLM_PREFIX = 256
+DIST_VLM_TEXT = 256
+DIST_VLM_LR = 0.25
 DIST_CPU_TOL = 1e-6
 CLI_ROUNDS = 3
 COLLECTIVE_OPS = {"all_gather": "c10d::_allgather_base_",
@@ -5635,125 +5642,131 @@ def dist_cpu_step(out_path: str) -> int:
     return 0
 
 
-def moe_programs(card: str, mesh, gen, out: dict, paths: dict,
-                 tp_same) -> None:
-    """Slice 18 in ``phase_distributed``: DeepSeek-V2-Lite-16B at full
-    width and depth MOE_ROUND_LAYERS (bf16, 1 client × 4 × SSM_SEQ, zero3)
-    on the phase's (1, 1) mesh: the τ = 1 step over DIST_MOE_MASK (a
-    ``dense0`` row and a ``blocks`` row) against the single-host step,
-    ``sel_upload`` and τ = DIST_TAU over the ``blocks`` rows DIST_MOE_SEL,
-    a 4 × SSM_SEQ prefill against ``Model.logits_seq`` and
-    DIST_DECODE_MOE greedy decode steps against ``Model.decode_step``;
-    each again with ``tp_constraints`` at model = 1 (``tp_same``):
-    bit-equal, with the plain program's collectives.  No program runs
-    under the profiler (the collectives are the step's own count)."""
-    import numpy as np
+def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
+                tag: str, label: str, cfg, rt, batch_of, mask_cols, sel,
+                lr: float, seed: int) -> None:
+    """Slices 18–19 in ``phase_distributed``: one model's five programs on
+    the phase's (1, 1) mesh (zero3, 1 client), none under the profiler:
+    the τ = 1 step over the mask columns ``mask_cols`` against the
+    single-host step (every group holding one moved, the groups outside
+    the mask bit-unchanged), ``sel_upload`` and τ = DIST_TAU over the
+    ``blocks`` rows ``sel`` (``masked_update`` on each ``blocks`` leaf a
+    local step), a prefill of the client's rows against
+    ``Model.logits_seq`` and DIST_DECODE_MOE greedy decode steps against
+    ``Model.decode_step``; each again with ``tp_constraints`` at model = 1
+    (``tp_same``): bit-equal, with the plain program's collectives.
+    ``batch_of(lead)`` draws a batch of leading dims ``lead`` from
+    ``gen`` (seeded ``seed``, ``seed + 1`` for τ = 2, ``seed + 2`` for the
+    prompt).  Neither MLA nor the prefix-LM attends through flash: no
+    flash launch.  The launches are the paths
+    ``distributed_<tag>_<program>``; the programs' peak GB is logged."""
     import torch
-    from repro_torch.configs.base import RuntimeConfig, get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, layer_layout
     from repro_torch.sharding import rules
     from repro_torch.sharding.fl_step import (COLLECTIVES, make_fl_train_step,
                                               make_fl_train_step_tau,
                                               reset_collectives, shard_params)
     from repro_torch.sharding.serve import (make_prefill_step, make_serve_step,
                                             shard_cache)
-    cfg = dataclasses.replace(get_arch("deepseek_v2_lite_16b"),
-                              n_layers=MOE_ROUND_LAYERS)
-    rt = RuntimeConfig(remat=False, seq_chunk=SSM_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     model = Model(cfg, rt)
     tp_rt = dataclasses.replace(rt, tp_constraints=True)
     tp_model = Model(cfg, tp_rt)
     params = model.init(0)
-    L = model.n_selectable
-    gen.manual_seed(30)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 4, SSM_SEQ), device="cuda",
-                           generator=gen, dtype=torch.int32)
-    batch, one = {"tokens": tokens}, {"tokens": tokens[0]}
+    segs = layer_layout(cfg)
+    gen.manual_seed(seed)
+    batch = batch_of((1,))
+    one = {k: v[0] for k, v in batch.items()}
     sizes = torch.tensor([7.0], device="cuda")
 
     def mask_of(cols):
-        m = torch.zeros((1, L), device="cuda")
+        m = torch.zeros((1, model.n_selectable), device="cuda")
         m[0, list(cols)] = 1.0
         return m
-    masks = mask_of(DIST_MOE_MASK)
-    sel_masks = mask_of([1 + i for i in DIST_MOE_SEL])
+    off = sum(g.count for g in segs[:[g.path for g in segs].index("blocks")])
+    masks, sel_masks = mask_of(mask_cols), mask_of([off + i for i in sel])
     step, specs = make_fl_train_step(model, mesh)(params)
     local = rules.shard_tree(params, specs, mesh)
     tp_local = shard_params(tp_model, mesh, params, specs)
 
-    def plain(tag, fn):
+    def plain(program, fn):
         """``fn()`` once: its result, collectives, launches (the path
-        ``distributed_deepseek_<tag>``) and seconds."""
+        ``distributed_<tag>_<program>``) and seconds."""
         torch.cuda.synchronize()
         reset_collectives()
         ops.reset_launches()
-        t0 = time.perf_counter()
+        t_run = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
-        paths[f"distributed_deepseek_{tag}"] = dict(ops.LAUNCHES)
-        return got, dict(COLLECTIVES), time.perf_counter() - t0
+        paths[f"distributed_{tag}_{program}"] = launches = dict(ops.LAUNCHES)
+        check(launches["flash_attention"] == 0,
+              f"[dist] {label} {program}: flash launched {launches}")
+        return got, dict(COLLECTIVES), time.perf_counter() - t_run
 
     res = {}
-    new, coll, s = plain("step", lambda: step(local, batch, masks, sizes,
-                                              DIST_MOE_LR))
-    loss = float(new[1]["loss"])
-    new = new[0]
-    ref = single_host_step(model, params, one, masks, sizes, DIST_MOE_LR)
+    (new, metrics), coll, s = plain("step", lambda: step(
+        local, batch, masks, sizes, lr))
+    loss = float(metrics["loss"])
+    ref = single_host_step(model, params, one, masks, sizes, lr)
     err = _tree_max_diff(new, ref)
-    moved = {k: _tree_max_diff(new[k], params[k]) for k in ("dense0",
-                                                            "blocks")}
+    cols, start = set(mask_cols), 0
+    moved = {}
+    for g in segs:
+        if cols & set(range(start, start + g.count)):
+            moved[g.path] = _tree_max_diff(new[g.path], params[g.path])
+        start += g.count
+    frozen = _tree_max_diff({k: new[k] for k in params if k not in moved},
+                            {k: params[k] for k in params if k not in moved})
     res["step"] = {"loss": loss, "param_err": err, "moved_max": moved,
                    "collectives": coll, "s": s}
-    log(f"[dist] DeepSeek-V2-Lite (depth {cfg.n_layers}) τ = 1 over mask "
-        f"columns {DIST_MOE_MASK}: loss {loss:.4f}; params off the "
-        f"single-host step {err:.3e} (limit {ROUND_PARAM_ATOL:g}); moved by "
-        f"up to {moved}; collectives {coll}; {s:.1f} s   [{card}]")
+    log(f"[dist] {label} τ = 1 over mask columns {tuple(mask_cols)}: loss "
+        f"{loss:.4f}; params off the single-host step {err:.3e} (limit "
+        f"{ROUND_PARAM_ATOL:g}); moved by up to {moved}, the rest by "
+        f"{frozen:g}; collectives {coll}; {s:.1f} s   [{card}]")
     check(math.isfinite(loss) and err <= ROUND_PARAM_ATOL
-          and min(moved.values()) > 0,
-          f"[dist] DeepSeek-V2-Lite τ = 1: loss {loss}, params off the "
-          f"single-host step {err:.3e}, moved {moved}")
+          and min(moved.values()) > 0 and frozen == 0,
+          f"[dist] {label} τ = 1: loss {loss}, params off the single-host "
+          f"step {err:.3e}, moved {moved}, the rest {frozen}")
     del ref
     tp_step = make_fl_train_step(tp_model, mesh)(params)[0]
-    tp_same("deepseek_step", lambda: new, lambda: tp_step(
-        tp_local, batch, masks, sizes, DIST_MOE_LR)[0], coll)
+    tp_same(f"{tag}_step", lambda: new, lambda: tp_step(
+        tp_local, batch, masks, sizes, lr)[0], coll)
     del new, tp_step
 
-    sel_model = Model(cfg, dataclasses.replace(rt, sel_upload=True))
-    sel_step = make_fl_train_step(sel_model, mesh,
-                                  sel_idx=DIST_MOE_SEL)(params)[0]
+    sel_step = make_fl_train_step(
+        Model(cfg, dataclasses.replace(rt, sel_upload=True)), mesh,
+        sel_idx=sel)(params)[0]
     new, coll, s = plain("sel_upload", lambda: sel_step(
-        local, batch, sel_masks, sizes, DIST_MOE_LR)[0])
+        local, batch, sel_masks, sizes, lr)[0])
     res["sel_upload"] = {"collectives": coll, "s": s,
                          "moved_max": _tree_max_diff(new, params)}
     tp_sel = make_fl_train_step(
         Model(cfg, dataclasses.replace(tp_rt, sel_upload=True)), mesh,
-        sel_idx=DIST_MOE_SEL)(params)[0]
-    tp_same("deepseek_sel_upload", lambda: new, lambda: tp_sel(
-        tp_local, batch, sel_masks, sizes, DIST_MOE_LR)[0], coll)
+        sel_idx=sel)(params)[0]
+    tp_same(f"{tag}_sel_upload", lambda: new, lambda: tp_sel(
+        tp_local, batch, sel_masks, sizes, lr)[0], coll)
     del new, sel_step, tp_sel
 
-    gen.manual_seed(31)
-    tau_tokens = torch.randint(0, cfg.vocab_size, (1, DIST_TAU, 4, SSM_SEQ),
-                               device="cuda", generator=gen,
-                               dtype=torch.int32)
-    tau_step = make_fl_train_step_tau(model, mesh, sel_idx=DIST_MOE_SEL,
+    gen.manual_seed(seed + 1)
+    tau_batch = batch_of((1, DIST_TAU))
+    tau_step = make_fl_train_step_tau(model, mesh, sel_idx=sel,
                                       tau=DIST_TAU)(params)[0]
     new, coll, s = plain("tau2", lambda: tau_step(
-        local, {"tokens": tau_tokens}, sel_masks, sizes, DIST_MOE_LR)[0])
+        local, tau_batch, sel_masks, sizes, lr)[0])
     n_leaves = len(params["blocks"])
     res["tau2"] = {"collectives": coll, "s": s,
                    "moved_max": _tree_max_diff(new, params),
-                   "launches": paths["distributed_deepseek_tau2"]}
-    tp_tau = make_fl_train_step_tau(tp_model, mesh, sel_idx=DIST_MOE_SEL,
+                   "launches": paths[f"distributed_{tag}_tau2"]}
+    tp_tau = make_fl_train_step_tau(tp_model, mesh, sel_idx=sel,
                                     tau=DIST_TAU)(params)[0]
-    tp_same("deepseek_tau2", lambda: new, lambda: tp_tau(
-        tp_local, {"tokens": tau_tokens}, sel_masks, sizes, DIST_MOE_LR)[0],
-        coll)
-    for tag in ("distributed_deepseek_tau2", "distributed_tp_deepseek_tau2"):
-        check(paths[tag]["masked_update"] == DIST_TAU * n_leaves,
-              f"[dist] DeepSeek-V2-Lite: {tag}'s masked_update launches "
-              f"{paths[tag]}, want {DIST_TAU * n_leaves}")
+    tp_same(f"{tag}_tau2", lambda: new, lambda: tp_tau(
+        tp_local, tau_batch, sel_masks, sizes, lr)[0], coll)
+    for path in (f"distributed_{tag}_tau2", f"distributed_tp_{tag}_tau2"):
+        check(paths[path]["masked_update"] == DIST_TAU * n_leaves,
+              f"[dist] {label}: {path}'s masked_update launches "
+              f"{paths[path]}, want {DIST_TAU * n_leaves}")
     del new, tau_step, tp_tau
 
     prefill = make_prefill_step(model, mesh)(params, one)[0]
@@ -5762,19 +5775,19 @@ def moe_programs(card: str, mesh, gen, out: dict, paths: dict,
         want = model.logits_seq(params, one)
     err = (got.float() - want.float()).abs().max().item()
     res["prefill"] = {"max_abs_err": err, "collectives": coll, "s": s}
-    log(f"[dist] DeepSeek-V2-Lite prefill {tuple(one['tokens'].shape)}: "
-        f"last-position logits against Model.logits_seq {err:.3e} (limit "
+    log(f"[dist] {label} prefill "
+        f"{ {k: tuple(v.shape) for k, v in one.items()} }: last-position "
+        f"logits against Model.logits_seq {err:.3e} (limit "
         f"{TOL['bfloat16']:g}); collectives {coll}   [{card}]")
-    check(err <= TOL["bfloat16"], "[dist] DeepSeek-V2-Lite: the mesh "
-                                  "prefill's logits differ from "
-                                  "Model.logits_seq")
+    check(err <= TOL["bfloat16"], f"[dist] {label}: the mesh prefill's "
+                                  f"logits differ from Model.logits_seq")
     tp_prefill = make_prefill_step(tp_model, mesh)(params, one)[0]
-    tp_same("deepseek_prefill", lambda: got,
+    tp_same(f"{tag}_prefill", lambda: got,
             lambda: tp_prefill(tp_local, one), coll)
     del prefill, tp_prefill, got, want
 
     dd = DIST_DECODE_MOE
-    gen.manual_seed(32)
+    gen.manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab_size, (dd["batch"], dd["prompt"]),
                            device="cuda", generator=gen, dtype=torch.int32)
     total = dd["prompt"] + dd["steps"]
@@ -5800,20 +5813,73 @@ def moe_programs(card: str, mesh, gen, out: dict, paths: dict,
     same = all(torch.equal(mesh_logits[t].argmax(-1),
                            model_logits[t].argmax(-1)) for t in mesh_logits)
     res["decode"] = {"same_tokens": same, "collectives": coll, "s": s}
-    log(f"[dist] DeepSeek-V2-Lite: {dd['steps']} greedy decode steps (batch "
+    log(f"[dist] {label}: {dd['steps']} greedy decode steps (batch "
         f"{dd['batch']}, prompt {dd['prompt']}): the same tokens as "
         f"Model.decode_step: {same}; collectives {coll}   [{card}]")
-    check(same, "[dist] DeepSeek-V2-Lite: the mesh decode's tokens differ "
-                "from Model.decode_step's")
+    check(same, f"[dist] {label}: the mesh decode's tokens differ from "
+                f"Model.decode_step's")
     tp_serve, (_, tp_cspecs) = make_serve_step(tp_model, mesh)(
         params, model.init_cache(dd["batch"], total), dd["batch"])
-    tp_same("deepseek_decode", lambda: mesh_logits, lambda: lockstep(
+    tp_same(f"{tag}_decode", lambda: mesh_logits, lambda: lockstep(
         tp_serve, tp_local, lambda c: shard_cache(tp_model, mesh, c,
                                                   tp_cspecs)), coll)
-    out["deepseek"] = res
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["s"] = time.perf_counter() - t0
+    log(f"[dist] {label}: peak {res['peak_gb']:.2f} GB over its programs; "
+        f"{res['s']:.1f} s   [{card}]")
+    out[tag] = res
     del params, local, tp_local, serve, tp_serve, mesh_logits, model_logits
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def moe_programs(card: str, mesh, gen, out: dict, paths: dict,
+                 tp_same) -> None:
+    """Slice 18: :func:`tp_programs` of DeepSeek-V2-Lite-16B at full
+    width and depth MOE_ROUND_LAYERS (bf16, 4 × SSM_SEQ tokens): τ = 1
+    over DIST_MOE_MASK (a ``dense0`` row and a ``blocks`` row), the
+    ``blocks`` rows DIST_MOE_SEL; since slice 19 its MLA splits by heads
+    under tensor parallelism, which at model = 1 is the plain code."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    cfg = dataclasses.replace(get_arch("deepseek_v2_lite_16b"),
+                              n_layers=MOE_ROUND_LAYERS)
+
+    def batch_of(lead):
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, lead + (4, SSM_SEQ), device="cuda",
+            generator=gen, dtype=torch.int32)}
+    tp_programs(card, mesh, gen, out, paths, tp_same, tag="deepseek",
+                label=f"DeepSeek-V2-Lite (depth {cfg.n_layers})", cfg=cfg,
+                rt=RuntimeConfig(remat=False, seq_chunk=SSM_SEQ),
+                batch_of=batch_of, mask_cols=DIST_MOE_MASK, sel=DIST_MOE_SEL,
+                lr=DIST_MOE_LR, seed=30)
+
+
+def vlm_programs(card: str, mesh, gen, out: dict, paths: dict,
+                 tp_same) -> None:
+    """Slice 19: :func:`tp_programs` of PaliGemma-3B at full width and
+    depth (18 rows, bf16), its first run on the card: 4 sequences of
+    DIST_VLM_PREFIX stub patches + DIST_VLM_TEXT tokens, its ``blocks``
+    rows DIST_VLM_SEL the τ = 1 mask too.  The prefix-LM attends on the
+    plain path (the flash kernel's mask has no prefix)."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    cfg = get_arch("paligemma_3b")
+
+    def batch_of(lead):
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, lead + (4, DIST_VLM_TEXT), device="cuda",
+            generator=gen, dtype=torch.int32),
+            "patches": torch.randn(
+                lead + (4, DIST_VLM_PREFIX, cfg.d_model), device="cuda",
+                generator=gen).to(torch.bfloat16)}
+    tp_programs(card, mesh, gen, out, paths, tp_same, tag="paligemma",
+                label="PaliGemma-3B (full depth)", cfg=cfg,
+                rt=RuntimeConfig(remat=False,
+                                 seq_chunk=DIST_VLM_PREFIX + DIST_VLM_TEXT),
+                batch_of=batch_of, mask_cols=DIST_VLM_SEL, sel=DIST_VLM_SEL,
+                lr=DIST_VLM_LR, seed=33)
 
 
 def phase_distributed(card: str) -> dict:
@@ -5844,7 +5910,10 @@ def phase_distributed(card: str) -> dict:
     DeepSeek-V2-Lite at full width and the moe rounds' depth
     (:func:`moe_programs`): its τ = 1, ``sel_upload`` and τ = 2 steps,
     prefill and decode, plain and with tensor parallelism at model = 1,
-    bit-equal with the same collectives."""
+    bit-equal with the same collectives; (h, slice 19) PaliGemma-3B at
+    full width and depth (:func:`vlm_programs`): the same five programs
+    over its 256-patch prefix, plain against the single-host step and
+    ``Model``, and with tensor parallelism at model = 1, bit-equal."""
     import json as _json
     import tempfile
     import numpy as np
@@ -6415,6 +6484,12 @@ def phase_distributed(card: str) -> dict:
         moe_programs(card, mesh, gen, out, paths, tp_same)
         mark("DeepSeek-V2-Lite")
 
+        # (h) slice 19: PaliGemma-3B (full width and depth), its first run
+        # on the card: each program plain and with tensor parallelism at
+        # model = 1, bit-equal with the same collectives, none profiled
+        vlm_programs(card, mesh, gen, out, paths, tp_same)
+        mark("PaliGemma-3B")
+
         # (c) reduced f32: the card against the CPU (gloo, a child process)
         ops.reset_launches()
         card_new = dist_reduced_step("cuda")
@@ -6573,34 +6648,44 @@ TP_BLOCKS = (("tinyllama_1_1b", "dense", 4, LONG_SEQ, TP_BLOCK_MS),
 
 
 # Slice 18: the moe family's blocks split by hand on the card (arch, kind,
-# batch, seq, model sizes): DeepSeek-V2-Lite's moe block expert-parallel
-# (32 and 4 of 64 experts a coordinate; MLA whole) and its dense0 (the MLP
-# of 11 264 columns, 704 a coordinate), Grok-1's moe block at full width
-# (one layer: 9.7 GB of bf16 experts), expert-parallel at 2 (4 of 8
-# experts) and on ff at 16 (2048 of 32 768 columns), its attention 24/4
-# and 3/1 heads a coordinate.  Each sub-block is held on the same input
-# as the whole one (see tp_moe_block_split): the router's bf16 logits tie
-# often at full width, and a tie broken by the summed attention's
-# rounding would route a token elsewhere.
-TP_MOE_BLOCKS = (("deepseek_v2_lite_16b", "moe", 4, LONG_SEQ, TP_BLOCK_MS),
-                 ("deepseek_v2_lite_16b", "moe_dense0", 4, LONG_SEQ, (16,)),
-                 ("grok_1_314b", "moe", 4, LONG_SEQ, TP_BLOCK_MS))
-TP_MOE_RTOL = 2e-2
+# batch, seq, model sizes, prefix): DeepSeek-V2-Lite's moe block
+# expert-parallel (32 and 4 of 64 experts a coordinate; slice 19: MLA 8
+# and 1 of 16 heads, over the whole latent) and its dense0 (the MLP of
+# 11 264 columns, 704 a coordinate), Grok-1's moe block at full width (one
+# layer: 9.7 GB of bf16 experts), expert-parallel at 2 (4 of 8 experts)
+# and on ff at 16 (2048 of 32 768 columns), its attention 24/4 and 3/1
+# heads a coordinate; slice 19: PaliGemma-3B's block over its 256-patch
+# prefix (the prefix-LM on the plain path), "kv_shared" at 2 and 8 (4 and
+# 1 of 8 query heads over its one kv head), attention whole at 16 (8 heads
+# do not divide) with the MLP split (1024 of 16 384 columns).  Each
+# sub-block is held on the same input as the whole one (see
+# tp_sub_block_split): the router's bf16 logits tie often at full width,
+# and a tie broken by the summed attention's rounding would route a token
+# elsewhere.
+TP_SUB_BLOCKS = (("deepseek_v2_lite_16b", "moe", 4, LONG_SEQ, TP_BLOCK_MS, 0),
+                 ("deepseek_v2_lite_16b", "moe_dense0", 4, LONG_SEQ, (16,),
+                  0),
+                 ("grok_1_314b", "moe", 4, LONG_SEQ, TP_BLOCK_MS, 0),
+                 ("paligemma_3b", "dense", 4, 512, (2, 8, 16), 256))
+TP_SUB_RTOL = 2e-2
 
 
-def tp_moe_block_split(cfg, kind: str, row: dict, x, h, dy, M):
-    """One moe-family block's two sub-blocks, whole (M None) or at M model
+def tp_sub_block_split(cfg, kind: str, row: dict, x, h, dy, M, prefix=0):
+    """One block's two sub-blocks, whole (M None) or at M model
     coordinates computed in this process (``TPLayout.compute_slice`` of
     the full leaves, a ``ModelAxis`` whose f and g are the identity, the
-    partials summed by hand in f32): the attention on ``x`` (MLA once,
-    whole: ``"replicated"``) and the moe layer (or ``dense0``'s MLP) on
-    ``h``, the same input whole and split, so that both route alike.  The
-    split's inputs and the leaves every coordinate reads whole (the
-    norms, the router) reach the coordinates through one f32 copy each,
-    so that their gradients, like the outputs, are summed in f32 and
-    rounded once.  Returns ({"attn": x + attention, "ffn": h + the
-    layer}, the gradients of ``x``, ``h`` and each full leaf for the
-    cotangent ``dy`` on both)."""
+    partials summed by hand in f32): the attention on ``x`` (the moe
+    family's through ``_moe_attention``, MLA's by heads; otherwise
+    ``blocks.attention_fwd``, causal with a bidirectional ``prefix``) and
+    the moe layer (or the MLP) on ``h``, the same input whole and split,
+    so that both route alike; a ``"replicated"`` attention once, whole.
+    The split's inputs and the leaves several coordinates read whole (the
+    norms, the router, MLA's latent projections, a ``"kv_shared"`` kv
+    head) reach the coordinates through one f32 copy each, so that their
+    gradients, like the outputs, are summed in f32 and rounded once.
+    Returns ({"attn": x + attention, "ffn": h + the layer}, the gradients
+    of ``x``, ``h`` and each full leaf for the cotangent ``dy`` on
+    both)."""
     import torch
     from repro_torch.models import blocks as B
     from repro_torch.models import moe as MOE
@@ -6612,29 +6697,35 @@ def tp_moe_block_split(cfg, kind: str, row: dict, x, h, dy, M):
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     attn = dict(positions=pos, window=0, seq_chunk=x.shape[1])
 
+    def attention(p, tp, inp):
+        if cfg.family == "moe":
+            return _moe_attention(_take(p, "attn_"), inp, cfg, tp=tp, **attn)
+        return B.attention_fwd(_take(p, "attn_"), inp, cfg, causal=True,
+                               prefix_len=prefix, tp=tp, **attn)
+
     def ffn(p, tp, inp):
         if kind == "moe":
             return MOE.moe_fwd(_take(p, "moe_"), inp, cfg, tp=tp)[0]
         return B.mlp_fwd(_take(p, "mlp_"), inp, cfg, tp=tp)
     if M is None:
-        a = _moe_attention(_take(leaves, "attn_"), xin, cfg, **attn)
+        a = attention(leaves, None, xin)
         f = ffn(leaves, None, hin)
     else:
         layout = rules.TPLayout(cfg, M)
         n = 1 if layout.mode == "replicated" else M
-        whole = {k: v.float() for k, v in leaves.items()
-                 if k in ("attn_ln", "attn_kv_ln", "mlp_ln", "moe_ln",
-                          "moe_router")}
+        shared = ("attn_ln", "attn_kv_ln", "attn_w_dkv", "attn_w_krope",
+                  "mlp_ln", "moe_ln", "moe_router") + (
+            ("attn_wk", "attn_wv") if layout.mode == "kv_shared" else ())
+        whole = {k: v.float() for k, v in leaves.items() if k in shared}
         x32, h32 = xin.float(), hin.float()
         a = f = 0.0
         for m in range(M):
             tp = ModelAxis(layout, m)
-            p = {k: (whole[k].to(v.dtype) if k in whole
-                     else layout.compute_slice(k, v, m))
-                 for k, v in leaves.items()}
+            p = {k: layout.compute_slice(
+                k, whole[k].to(v.dtype) if k in whole else v, m)
+                for k, v in leaves.items()}
             if m < n:
-                a = a + _moe_attention(_take(p, "attn_"), x32.to(x.dtype),
-                                       cfg, tp=tp, **attn).float()
+                a = a + attention(p, tp, x32.to(x.dtype)).float()
             f = f + ffn(p, tp, h32.to(h.dtype)).float()
         a, f = a.to(x.dtype), f.to(x.dtype)
     outs = {"attn": xin + a, "ffn": hin + f}
@@ -6644,22 +6735,22 @@ def tp_moe_block_split(cfg, kind: str, row: dict, x, h, dy, M):
             dict(zip(["x", "h", *leaves], grads)))
 
 
-def phase_tp_moe_block(card: str, out: dict, paths: dict) -> None:
-    """Slice 18 in ``phase_tp_block``: each block of TP_MOE_BLOCKS at full
-    width (bf16, random weights, seed 0, the norms' scales drawn away from
-    0), forward and backward, whole and at each model size M
-    (:func:`tp_moe_block_split`): both sub-blocks' outputs, the inputs'
-    gradients and every leaf's within TP_MOE_RTOL of the whole's largest
+def phase_tp_sub_block(card: str, out: dict, paths: dict) -> None:
+    """Slices 18–19 in ``phase_tp_block``: each block of TP_SUB_BLOCKS at
+    full width (bf16, random weights, seed 0, the norms' scales drawn away
+    from 0), forward and backward, whole and at each model size M
+    (:func:`tp_sub_block_split`): both sub-blocks' outputs, the inputs'
+    gradients and every leaf's within TP_SUB_RTOL of the whole's largest
     magnitude.  Grok's attention must launch the tensor-core flash kernels
-    M times each way (the split's launches are the paths
-    ``tp_block_<arch>_<kind>_m<M>``)."""
+    M times each way, MLA and PaliGemma's prefix-LM none (the split's
+    launches are the paths ``tp_block_<arch>_<kind>_m<M>``)."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import blocks as B
     from repro_torch.models.model import _block_shapes
     from repro_torch.sharding import rules
-    for arch, kind, b, s, sizes in TP_MOE_BLOCKS:
+    for arch, kind, b, s, sizes, prefix in TP_SUB_BLOCKS:
         cfg = get_arch(arch)
         gen = torch.Generator(device="cuda").manual_seed(0)
         row = {k: v[0] for k, v in B.init_stacked(
@@ -6677,7 +6768,8 @@ def phase_tp_moe_block(card: str, out: dict, paths: dict) -> None:
                          device="cuda").to(torch.bfloat16)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want, want_g = tp_moe_block_split(cfg, kind, row, x, h, dy, None)
+        want, want_g = tp_sub_block_split(cfg, kind, row, x, h, dy, None,
+                                          prefix)
         torch.cuda.synchronize()
         whole_s = time.perf_counter() - t0
         for M in sizes:
@@ -6687,7 +6779,8 @@ def phase_tp_moe_block(card: str, out: dict, paths: dict) -> None:
             torch.cuda.synchronize()
             ops.reset_launches()
             t0 = time.perf_counter()
-            got, got_g = tp_moe_block_split(cfg, kind, row, x, h, dy, M)
+            got, got_g = tp_sub_block_split(cfg, kind, row, x, h, dy, M,
+                                            prefix)
             torch.cuda.synchronize()
             split_s = time.perf_counter() - t0
             launches = dict(ops.LAUNCHES)
@@ -6723,25 +6816,26 @@ def phase_tp_moe_block(card: str, out: dict, paths: dict) -> None:
                         "expert_parallel": layout.expert_parallel,
                         "experts": ne, "rel_err": errs, "launches": launches,
                         "whole_s": whole_s, "split_s": split_s}
-            log(f"[tp-block] {cfg.name} {kind} block, {b} × {s}, bf16, M = "
+            log(f"[tp-block] {cfg.name} {kind} block, {b} × {s}"
+                f"{f' (prefix {prefix})' if prefix else ''}, bf16, M = "
                 f"{M} ({share} a coordinate): the hand-summed partials "
                 f"against the whole, relative to its largest magnitude: "
                 f"attention {errs['attn']:.3e}, ffn {errs['ffn']:.3e}, dx "
                 f"{errs['x']:.3e}, dh {errs['h']:.3e}, worst {worst} "
-                f"{errs[worst]:.3e} (limit {TP_MOE_RTOL:g}); launches "
+                f"{errs[worst]:.3e} (limit {TP_SUB_RTOL:g}); launches "
                 f"{({k: v for k, v in launches.items() if v})}; whole "
                 f"{whole_s:.2f} s, split {split_s:.2f} s   [{card}]")
-            check(max(errs.values()) <= TP_MOE_RTOL and all(
+            check(max(errs.values()) <= TP_SUB_RTOL and all(
                 math.isfinite(e) for e in errs.values()),
                 f"[tp-block] {cfg.name} {kind}, M = {M}: the split block "
                 f"disagrees with the whole: {errs}")
-            if not cfg.use_mla:
-                check(launches["flash_attention_mma"] == M
-                      and launches["flash_attention_bwd_mma"] == M
-                      and launches["flash_attention"] == M,
-                      f"[tp-block] {cfg.name}, M = {M}: each coordinate's "
-                      f"attention must launch the tensor-core flash "
-                      f"kernels once forward and once backward: {launches}")
+            flash = 0 if cfg.use_mla or prefix else M
+            check(launches["flash_attention_mma"] == flash
+                  and launches["flash_attention_bwd_mma"] == flash
+                  and launches["flash_attention"] == flash,
+                  f"[tp-block] {cfg.name}, M = {M}: want {flash} "
+                  f"tensor-core flash launches each way (one a coordinate, "
+                  f"none for MLA or a prefix-LM): {launches}")
             del got, got_g
         del row, want, want_g, x, h, dy
         gc.collect()
@@ -6761,8 +6855,8 @@ def phase_tp_block(card: str) -> dict:
     tensor-core flash kernels M times each way; a Mamba2 block's scan the
     tensor-core ``ssd_scan`` 2 M times (both passes).  The split's
     launches are the paths ``tp_block_m<M>`` (TinyLlama) and
-    ``tp_block_<arch>_<kind>_m<M>``.  Then (slice 18) the moe family's
-    blocks, :func:`phase_tp_moe_block`."""
+    ``tp_block_<arch>_<kind>_m<M>``.  Then (slices 18–19) the moe
+    family's blocks and PaliGemma's, :func:`phase_tp_sub_block`."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
@@ -6861,7 +6955,7 @@ def phase_tp_block(card: str) -> dict:
             del got, got_g
         del row, leaves, xin, want, want_g, x, dy
         torch.cuda.empty_cache()
-    phase_tp_moe_block(card, out, paths)
+    phase_tp_sub_block(card, out, paths)
     out["paths"] = paths
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[tp-block] phase {out['phase_s']:.1f} s   [{card}]")
@@ -6885,19 +6979,24 @@ DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
 # slice 17: Mamba2's three too
 DRYRUN_CARD_TP = DRYRUN_CARD
 # The archs whose --opt (tensor-parallel) programs the dry run runs: the
-# dense family, (slice 17) the ssm and hybrid ones and (slice 18) the moe
+# dense family, (slice 17) the ssm and hybrid ones, (slice 18) the moe and
+# (slice 19) the vlm family's language model
 DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
                    "gemma_7b", "mamba2_370m", "zamba2_7b",
-                   "deepseek_v2_lite_16b", "grok_1_314b")
+                   "deepseek_v2_lite_16b", "grok_1_314b", "paligemma_3b")
 # What --opt must at least give a train_4k step on 16 × 16, per device,
 # against the step replicated over 'model': (argument bytes ÷, FLOPs ÷,
-# useful share), None where not held.  SmolLM's attention (15 heads),
+# useful share), None where not held.  SmolLM's attention (15 heads) and
 # Mamba2's vocabulary (50 280 rows do not divide by 16: the embedding and
-# the tied head whole on every rank) and DeepSeek's MLA stay replicated
-# (its meta count: FLOPs ÷2.96, useful 0.1153).
+# the tied head whole on every rank) stay replicated; DeepSeek's MLA
+# splits by heads over a latent whole on every rank (the meta count:
+# FLOPs ÷13.74, useful 0.5344); PaliGemma's 8 heads do not divide by 16,
+# so its attention and the full prefix-LM scores stay whole (÷3.78,
+# 0.1873).
 DRYRUN_TP_MIN = {"smollm_360m": (8, None, None),
                  "mamba2_370m": (4, 4, 0.25),
-                 "deepseek_v2_lite_16b": (8, 2.5, 0.1)}
+                 "deepseek_v2_lite_16b": (8, 10, 0.4),
+                 "paligemma_3b": (8, 3, 0.15)}
 # A device's memory, against which the --opt programs' argument and peak
 # temporary bytes are read
 DEVICE_GB = 80.0

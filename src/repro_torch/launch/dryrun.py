@@ -45,11 +45,12 @@ Usage:
 
 ``--opt`` turns on the reference's §Perf levers (:func:`opt_runtime`),
 tensor parallelism over ``model`` among them: the steps of the dense,
-ssm, hybrid and moe families split over ``model``
-(``sharding/tensor_parallel.py``; a moe model with per-sample dispatch,
-as the reference's ``--opt`` runs it) and write
-``…__tp-rematsc-moelocal.json``; the vlm and audio families' raise,
-naming the family.
+vlm, ssm, hybrid and moe families' language models split over ``model``
+(``sharding/tensor_parallel.py``: DeepSeek's MLA by heads over a latent
+whole on every rank, PaliGemma's prefix-LM blocks as the dense family's;
+a moe model with per-sample dispatch, as the reference's ``--opt`` runs
+it) and write ``…__tp-rematsc-moelocal.json``; the audio family's and
+the classifiers' raise, naming the family.
 """
 from __future__ import annotations
 
@@ -360,8 +361,10 @@ def main(argv=None) -> int:
     ap.add_argument("--opt", action="store_true",
                     help="enable §Perf levers (tp constraints + chunk remat "
                          "+ per-sample moe dispatch): tensor parallelism "
-                         "over 'model' for the dense, ssm, hybrid and moe "
-                         "families; the vlm and audio families' steps raise")
+                         "over 'model' for the language models of the "
+                         "dense, vlm, ssm, hybrid and moe families (MLA "
+                         "split by heads); the audio family's and the "
+                         "classifiers' steps raise")
     ap.add_argument("--sel-frac", type=float, default=0.0,
                     help="static selected-layer fraction for sel_upload")
     ap.add_argument("--out", default=OUT_DIR,

@@ -14,6 +14,15 @@ rope) and 128 (ROADMAP.md).  Decode folds ``w_ukv`` into the query and
 the output (the absorbed matmuls, DeepSeek-V2 §2.1.2), so attention runs
 against the latent cache directly, and writes the token's latent into the
 cache **in place** (the reference returns a new cache).
+
+``tp`` (``sharding.tensor_parallel.ModelAxis``) is the parallel form over
+``model``: with its heads split (``tp.attn_split``) a rank computes its
+``tp.n_heads`` heads of ``wq``, of the ``w_ukv`` expansion (or the
+absorbed decode) and of ``wo``, a partial sum the caller reduces, and the
+latent ``c_kv`` / ``k_rope`` whole from whole ``w_dkv`` / ``w_krope`` /
+``kv_ln``; Megatron's f (``tp.copy``) wraps the normed input of ``wq``
+and the latent where the rank's heads read it, so that the gradient of
+the latent path, whole on every rank, is counted once.
 """
 from __future__ import annotations
 
@@ -41,10 +50,11 @@ def mla_param_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _expand_kv(p: dict, ckv: torch.Tensor, cfg: ArchConfig):
-    """(B,S,lora) → k_nope (B,S,H,nope), v (B,S,H,v_dim)."""
+def _expand_kv(p: dict, ckv: torch.Tensor, cfg: ArchConfig, H: int):
+    """(B,S,lora) → k_nope (B,S,H,nope), v (B,S,H,v_dim) of ``w_ukv``'s H
+    heads."""
     B, S, _ = ckv.shape
-    kv = (ckv @ p["w_ukv"]).reshape(B, S, cfg.n_heads,
+    kv = (ckv @ p["w_ukv"]).reshape(B, S, H,
                                     cfg.qk_nope_dim + cfg.v_head_dim)
     return kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
 
@@ -61,34 +71,37 @@ def _attend(q_nope, q_rope, k_nope, k_rope, v, bias, scale):
 def mla_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             positions: torch.Tensor, cache: Optional[dict] = None,
             cache_pos: Optional[torch.Tensor] = None, seq_chunk: int = 1024,
-            window: int = 0) -> torch.Tensor:
+            window: int = 0, tp=None) -> torch.Tensor:
     """MLA sub-block forward (pre-norm, causal; the caller adds the
-    residual).  Returns the block's output; a decode cache is updated in
-    place.
+    residual).  Returns the block's output (with ``tp`` splitting the
+    heads, this model coordinate's partial sum); a decode cache is
+    updated in place.
 
     cache: {"ckv": (B,W,lora), "krope": (B,W,rope), "pos": (W,) int32} —
     the token's latent goes to ring index ``cache_pos % W``; with the
     per-slot serving cache (``pos`` (B, W), ``cache_pos`` (B,)) every batch
     row writes its own index."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = cfg.n_heads if tp is None else tp.n_heads
+    f = tp.copy if tp is not None and tp.attn_split else (lambda t: t)
     nope, rope_d, v_dim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = 1.0 / math.sqrt(nope + rope_d)
 
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, H, nope + rope_d)
+    q = (f(h) @ p["wq"]).reshape(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
-    ckv = rms_norm(h @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)    # (B,S,lora)
-    k_rope = apply_rope((h @ p["w_krope"]).reshape(B, S, 1, rope_d), cos, sin)
+    ckv = f(rms_norm(h @ p["w_dkv"], p["kv_ln"], cfg.norm_eps))  # (B,S,lora)
+    k_rope = f(apply_rope((h @ p["w_krope"]).reshape(B, S, 1, rope_d), cos,
+                          sin))
 
     if cache is not None:
         return _absorbed_decode(p, q_nope, q_rope, ckv, k_rope, cfg,
                                 positions, cache, cache_pos, window,
                                 scale) @ p["wo"]
 
-    k_nope, v = _expand_kv(p, ckv, cfg)
+    k_nope, v = _expand_kv(p, ckv, cfg, H)
     if S > seq_chunk and S % seq_chunk == 0:
         outs = []
         for c in range(S // seq_chunk):
@@ -108,9 +121,10 @@ def _absorbed_decode(p, q_nope, q_rope, ckv, k_rope, cfg, positions, cache,
                      cache_pos, window, scale) -> torch.Tensor:
     """Write the token's latent into the cache, then attend against the
     latent with ``w_ukv`` folded into q and the output: O(W·lora) per
-    token instead of expanding (W, H, nope + v).  Returns (B,1,H·v)."""
-    B, S = q_nope.shape[:2]
-    H, lora = cfg.n_heads, cfg.kv_lora_rank
+    token instead of expanding (W, H, nope + v), over the H heads of
+    ``q_nope`` and ``w_ukv``.  Returns (B,1,H·v)."""
+    B, S, H = q_nope.shape[:3]
+    lora = cfg.kv_lora_rank
     nope, v_dim = cfg.qk_nope_dim, cfg.v_head_dim
     cckv, ckr, cpos = cache["ckv"], cache["krope"], cache["pos"]
     W = cckv.shape[1]

@@ -325,17 +325,19 @@ def _moe_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
                    remat_chunk=False, kernel_mode=None,
                    tp=None) -> torch.Tensor:
     """The moe family's (causal) attention sub-block: MLA when
-    ``cfg.use_mla``, else the dense family's GQA (grok-1).  ``tp``: GQA's
-    parallel form, its partial sums reduced over ``model`` here; MLA runs
-    whole on every rank (``"replicated"``)."""
+    ``cfg.use_mla``, else the dense family's GQA (grok-1).  ``tp``: the
+    parallel form, its partial sums (MLA: the rank's heads over the whole
+    latent; GQA: its query and kv heads) reduced over ``model`` here; a
+    ``"replicated"`` attention runs whole on every rank."""
     if cfg.use_mla:
-        return MLA.mla_fwd(p, x, cfg, positions=positions, cache=cache,
-                           cache_pos=cache_pos, window=window,
-                           seq_chunk=seq_chunk)
-    a = B.attention_fwd(p, x, cfg, positions=positions, cache=cache,
-                        cache_pos=cache_pos, causal=True, window=window,
-                        seq_chunk=seq_chunk, remat_chunk=remat_chunk,
-                        kernel_mode=kernel_mode, tp=tp)
+        a = MLA.mla_fwd(p, x, cfg, positions=positions, cache=cache,
+                        cache_pos=cache_pos, window=window,
+                        seq_chunk=seq_chunk, tp=tp)
+    else:
+        a = B.attention_fwd(p, x, cfg, positions=positions, cache=cache,
+                            cache_pos=cache_pos, causal=True, window=window,
+                            seq_chunk=seq_chunk, remat_chunk=remat_chunk,
+                            kernel_mode=kernel_mode, tp=tp)
     return tp.reduce(a) if tp is not None and tp.attn_split else a
 
 
@@ -647,11 +649,14 @@ class Model:
         (a cut at or past ``n_enc_layers``) runs without a graph.
 
         ``tp`` (``sharding.tensor_parallel.ModelAxis``, the language
-        models of the dense, ssm, hybrid and moe families): the parallel
-        form over ``model``, ``params`` this model coordinate's (the
-        hook's rows too, and the hybrid's shared block and deepseek's
-        ``dense0``, viewed once by the caller); the hidden state and the
-        aux loss come out whole on every rank.
+        models of the dense, vlm, ssm, hybrid and moe families): the
+        parallel form over ``model``, ``params`` this model coordinate's
+        (the hook's rows too, and the hybrid's shared block, deepseek's
+        ``dense0`` and the embed group, viewed once by the caller: the
+        vlm's ``patch_proj`` whole, so the stub prefix is projected whole
+        on every rank, and the text tokens vocab-parallel where the
+        vocabulary divides); the hidden state and the aux loss come out
+        whole on every rank.
         """
         cfg = self.cfg
         if trainable is not None and not supports_prefix_cut(cfg):
@@ -673,8 +678,8 @@ class Model:
             if cfg.task == "classification":
                 x = px
             else:
-                x = torch.cat([px, self._embed_tokens(params,
-                                                      batch["tokens"])], 1)
+                x = torch.cat([px, self._embed_tokens(
+                    params, batch["tokens"], tp)], 1)
         else:
             x = self._embed_tokens(params, batch["tokens"], tp)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -932,7 +937,7 @@ class Model:
         row's ZeRO-3 shards there).
 
         ``tp``: the parallel form over ``model`` (the language models of
-        the dense, ssm, hybrid and moe families, no delta): this model
+        the dense, vlm, ssm, hybrid and moe families, no delta): this model
         coordinate's params, a cache of its kv heads and Mamba2 channels
         and heads (``sharding.serve.shard_cache``; MLA's latent rows
         whole), the logits whole.

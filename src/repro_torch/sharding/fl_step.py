@@ -7,17 +7,20 @@ local shards; the cohort meets only in the collectives, which run on the
 ``data`` (and ``pod``) sub-groups of the mesh.  By default each client's
 compute is replicated over ``model``, as in the reference's own fully
 manual fallback (its ``_shard_map`` docstring).  With
-``RuntimeConfig(tp_constraints=True)`` the step of the dense, ssm,
-hybrid and moe families is split over ``model`` instead, the values
-those of GSPMD under the reference's Megatron constraints: a rank stores
-and computes its model slice (``rules.TPLayout``, :func:`storage_layout`),
-the row loop's hook views each gathered row as the rank's share
-(``tensor_parallel.ModelAxis``; the hybrid's unstacked shared block and
-deepseek's ``dense0`` once a step, :func:`view_shared`) and the model
-runs its parallel form (f and g around every block's products, a Mamba2
-block split by SSD heads, the routed experts by expert or on ff with the
-routers whole, a vocab-parallel embedding and cross-entropy where the
-vocabulary divides).  The vlm and audio families raise on it
+``RuntimeConfig(tp_constraints=True)`` the step of the dense, vlm, ssm,
+hybrid and moe families' language models is split over ``model``
+instead, the values those of GSPMD under the reference's Megatron
+constraints: a rank stores and computes its model slice
+(``rules.TPLayout``, :func:`storage_layout`), the row loop's hook views
+each gathered row as the rank's share (``tensor_parallel.ModelAxis``;
+the hybrid's unstacked shared block, deepseek's ``dense0`` and the embed
+group once a step, :func:`view_shared`) and the model runs its parallel
+form (f and g around every block's products, MLA's heads over a latent
+whole on every rank, a Mamba2 block split by SSD heads, the routed
+experts by expert or on ff with the routers whole, the vlm's projector
+whole and its prefix-LM attention split as the dense family's, a
+vocab-parallel embedding and cross-entropy where the vocabulary
+divides).  The audio family and the classifiers raise on it
 (``rules.check_tp_family``).
 
 The per-(client, layer) aggregation of Eq. (5)-(7) is fused into one
@@ -185,10 +188,11 @@ def model_axis(layout: Optional[rules.TPLayout],
     return ModelAxis.on_mesh(layout, mesh)
 
 
-# Groups gathered whole (not row by row through the hook) that hold
-# blocks: the hybrid's unstacked shared block and deepseek's stacked
-# ``dense0`` (not a hooked segment, as in the reference)
-VIEWED = ("shared_attn", "dense0")
+# Groups gathered whole (not row by row through the hook) that a rank
+# views as its share once a step: the hybrid's unstacked shared block,
+# deepseek's stacked ``dense0`` (not a hooked segment, as in the
+# reference) and the embed group (the vlm's ``patch_proj`` gathered whole)
+VIEWED = ("shared_attn", "dense0", "embed")
 
 
 def view_shared(tree: PyTree, specs: PyTree,
@@ -196,8 +200,8 @@ def view_shared(tree: PyTree, specs: PyTree,
     """``tree`` with its :data:`VIEWED` groups (gathered over ``data``)
     viewed as this rank's share (``ModelAxis.view_row``, its spec dims
     all present: ``lead=0``), once a step rather than at each of the
-    hybrid's sites or each ``dense0`` row; any other group, or no axis, as
-    it is."""
+    hybrid's sites, each ``dense0`` row or each use of ``patch_proj``; any
+    other group, or no axis, as it is."""
     if axis is None:
         return tree
     return {k: axis.view_row(v, specs[k], lead=0) if k in VIEWED else v
@@ -287,11 +291,14 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
     paper's R/L upload, made structural); the rest of the model is
     gathered without a gradient and stays as it is.
 
-    ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm, hybrid and
-    moe families): the local shards are :func:`shard_params`'s, model
-    slices included; the Eq.(5) sums are unchanged.  The leaves replicated
-    over ``model`` get the same gradient on every model rank: the norms
-    and the moe routers whole through f, and the ones a Mamba2 rank
+    ``RuntimeConfig(tp_constraints=True)`` (the dense, vlm, ssm, hybrid
+    and moe families' language models): the local shards are
+    :func:`shard_params`'s, model slices included; the Eq.(5) sums are
+    unchanged.  The leaves replicated over ``model`` get the same gradient
+    on every model rank: the norms (MLA's ``kv_ln`` too) and the moe
+    routers whole through f, MLA's ``w_dkv`` / ``w_krope`` whole on
+    every rank and cut to the rank's slice by the gather's backward, and
+    the ones a Mamba2 rank
     narrows to its heads or channels (``gate_ln``, ``A_log``, ``D``,
     ``dt_bias``) by gathering the slices' gradients back over ``model``
     (``tensor_parallel._NarrowGather``).

@@ -13,17 +13,18 @@ the port keeps those entries, so its specs equal the reference's leaf by
 leaf.  With tensor parallelism off (``RuntimeConfig(tp_constraints=
 False)``) a rank stores the slice of a leaf along the client axes of its
 spec and holds it whole over ``model`` (:func:`local_shard`), as the
-reference's fully manual fallback does.  With it on, for the dense,
-ssm and hybrid families, a rank stores the slice its spec gives,
-``model`` included (:class:`TPLayout`, :func:`tp_local_shard`), and
-computes its share of each layer (``sharding/tensor_parallel.py``);
-:func:`attention_mode` says how a config's heads split.
-:func:`cache_specs` stays the reference's; a tensor-parallel decode keeps
-each rank's kv heads whole over the sequence and its Mamba2 conv channels
-in its own order instead (:func:`tp_shard_cache`), a layout difference
-with the same values.  ``make_shard_hook`` (the moe experts' activation
-constraints) waits with the moe family's tensor parallelism
-(ROADMAP.md).
+reference's fully manual fallback does.  With it on, for the language
+models of the dense, vlm, ssm, hybrid and moe families, a rank stores the
+slice its spec gives, ``model`` included (:class:`TPLayout`,
+:func:`tp_local_shard`), and computes its share of each layer
+(``sharding/tensor_parallel.py``); :func:`attention_mode` says how a
+config's heads split.  :func:`cache_specs` stays the reference's; a
+tensor-parallel decode keeps each rank's kv heads whole over the
+sequence, its Mamba2 conv channels in its own order and MLA's latent rows
+whole on every rank instead (:func:`tp_shard_cache`), a layout difference
+with the same values.  The moe experts' activation constraints (the
+reference's ``make_shard_hook``) are the experts' split itself
+(:meth:`TPLayout.experts`).
 """
 from __future__ import annotations
 
@@ -282,18 +283,18 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
 # Tensor parallelism over 'model' (RuntimeConfig(tp_constraints=True))
 # ---------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
 
 
 def check_tp_family(cfg: ArchConfig) -> None:
     """Tensor parallelism over ``model`` is ported for the language models
-    of the dense, ssm, hybrid and moe families; the vlm and audio families
-    raise, naming themselves."""
+    of the dense, vlm, ssm, hybrid and moe families; the audio family and
+    the classifiers (CLIP, XLM-R) raise, naming themselves."""
     if cfg.family not in TP_FAMILIES or cfg.task != "lm":
         raise ValueError(
             f"RuntimeConfig(tp_constraints=True): tensor parallelism over "
-            f"the 'model' axis is ported for the dense, ssm, hybrid and moe "
-            f"families' language models; the vlm and audio families wait, "
+            f"the 'model' axis is ported for the dense, vlm, ssm, hybrid "
+            f"and moe families' language models; the audio family waits, "
             f"and so does the {cfg.family!r} family's {cfg.name} (task "
             f"{cfg.task!r}) (ROADMAP.md)")
 
@@ -303,19 +304,22 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
     heads, K kv heads of ``hd``):
 
     * ``"heads"`` when M divides H and K: a rank computes H/M query heads
-      and their K/M kv heads (every mode at M = 1);
+      and their K/M kv heads (every mode at M = 1); MLA (DeepSeek) when M
+      divides H alone: a rank computes H/M heads of ``wq``, of the
+      ``w_ukv`` expansion and of ``wo``, and the latent (``w_dkv``,
+      ``w_krope``, ``kv_ln``), which every head reads, whole;
     * ``"kv_shared"`` when M divides H and K divides M (and K·hd): a rank
       computes H/M query heads, all of one kv head, whose ``wk`` / ``wv``
-      columns it all-gathers over ``model``;
-    * ``"replicated"`` otherwise (SmolLM's 15 heads at 16), and for MLA
-      (DeepSeek), whose latent projections ``w_dkv``, ``w_krope``,
-      ``kv_ln`` and ``w_ukv`` are not split by head: attention runs whole
-      on every rank, its leaves all-gathered over ``model``; only the MLP
-      or the experts, the embedding and the head are split.
+      columns it all-gathers over ``model`` (PaliGemma's one kv head at 2,
+      4 and 8);
+    * ``"replicated"`` otherwise (SmolLM's 15 heads, PaliGemma's 8 at
+      16): attention runs whole on every rank, its leaves all-gathered
+      over ``model``; only the MLP or the experts, the embedding and the
+      head are split.
     """
-    if cfg.use_mla:
-        return "replicated"
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.use_mla:
+        return "heads" if H % msz == 0 else "replicated"
     if H % msz == 0 and K % msz == 0:
         return "heads"
     if H % msz == 0 and msz % K == 0 and (K * hd) % msz == 0:
@@ -325,9 +329,10 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
 
 class TPLayout:
     """A model's storage and compute under tensor parallelism over a
-    ``model`` axis of ``size`` ranks: the dense family's blocks, the ssm
-    and hybrid families' Mamba2 blocks, the hybrid's shared block, which
-    splits as a dense block, and the moe family's blocks and ``dense0``.
+    ``model`` axis of ``size`` ranks: the dense and vlm families' blocks,
+    the ssm and hybrid families' Mamba2 blocks, the hybrid's shared block,
+    which splits as a dense block, and the moe family's blocks and
+    ``dense0``, their attention MLA or GQA.
 
     Storage (:func:`tp_local_shard`): a rank holds the slice of each leaf
     that its spec gives, ``model`` included; a tuple entry ``(model,
@@ -343,11 +348,18 @@ class TPLayout:
     (x | B | C) as x_m | B_m | C_m.  ``wk`` / ``wv`` keep the contiguous
     split; under ``"kv_shared"`` a model slice is a part of one kv head,
     and the step all-gathers them over ``model``
-    (``sharding/tensor_parallel.py``), as it does every B_m | C_m.
+    (``sharding/tensor_parallel.py``), as it does every B_m | C_m.  MLA's
+    head-major leaves keep the contiguous split too, which is whole heads
+    where ``size`` divides H: ``wq`` (H·(nope + rope)), ``w_ukv``
+    (H·(nope + v), each head's [nope | v] side by side) and ``wo``'s rows
+    (H·v); its latent projections ``w_dkv`` / ``w_krope`` are stored
+    split by their spec and all-gathered over ``model`` whole, as is the
+    vlm projector ``patch_proj``.
 
     Compute (:meth:`compute_slice`): model coordinate m computes query
     heads :meth:`q_heads` and kv heads :meth:`kv_heads` (all of them under
-    ``"replicated"``, MLA's always), the m-th 1/size of each MLP's columns
+    ``"replicated"``; an MLA head's width taken per leaf, its latent
+    whole), the m-th 1/size of each MLP's columns
     (``d_ff`` wide, ``dense0``'s ``d_ff · (top_k + n_shared_experts)``,
     the shared experts' ``d_ff · n_shared_experts``), the SSD heads
     :meth:`ssm_heads` with their ``d_inner / size`` channels of z and x
@@ -406,6 +418,8 @@ class TPLayout:
     def kv_heads(self, m: int) -> tuple[int, int]:
         """(first, count) of the kv heads model coordinate m computes."""
         H, K = self.cfg.n_heads, self.cfg.n_kv_heads
+        if self.cfg.use_mla:             # MLA's kv heads are its heads
+            return self.q_heads(m)
         if self.mode == "heads":
             return m * (K // self.size), K // self.size
         if self.mode == "kv_shared":
@@ -485,10 +499,10 @@ class TPLayout:
         if name.startswith("ssm_"):
             return self._ssm_slice(name[len("ssm_"):], row, m)
         if name.startswith("attn_"):
-            if self.mode == "replicated":
-                return row
-            hd = self.cfg.resolved_head_dim
             leaf = name[len("attn_"):]
+            if self.mode == "replicated" or leaf in self.LATENT:
+                return row
+            hd = self.head_width(leaf)
             first, n = (self.kv_heads(m) if leaf in ("wk", "wv", "bk", "bv")
                         else self.q_heads(m))
             dim = 0 if leaf == "wo" else row.dim() - 1
@@ -508,6 +522,20 @@ class TPLayout:
             w = row.shape[dim] // self.size
             return row.narrow(dim, m * w, w)
         raise ValueError(f"no tensor-parallel slice for {name!r}")
+
+    # MLA's latent leaves: every head reads them, so no rank splits them
+    LATENT = ("w_dkv", "w_krope", "kv_ln")
+
+    def head_width(self, leaf: str) -> int:
+        """One head's width in an attention leaf (``wq``, ``wo``, …,
+        without ``attn_``): ``resolved_head_dim``, or MLA's per leaf —
+        ``wq`` nope + rope, ``w_ukv`` nope + v, ``wo`` v."""
+        cfg = self.cfg
+        if not cfg.use_mla:
+            return cfg.resolved_head_dim
+        return {"wq": cfg.qk_nope_dim + cfg.qk_rope_dim,
+                "w_ukv": cfg.qk_nope_dim + cfg.v_head_dim,
+                "wo": cfg.v_head_dim}[leaf]
 
     def _ssm_slice(self, leaf: str, row, m: int):
         di, gn, _ = self.ssm_widths()
@@ -571,10 +599,13 @@ def tp_shard_cache(cache: PyTree, c_specs: PyTree, mesh,
     heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W; of
     a Mamba2 ``conv`` leaf (L, B, K−1, x | B | C) the rank's channels of x
     and all of B | C, and of a ``state`` leaf (L, B, H, P, N) its SSD
-    heads; MLA's latent ``ckv`` / ``krope`` rows stay whole (its attention
-    runs whole on every rank).  Where K % M ≠ 0 the reference's rule
-    splits W over ``model`` instead, it splits ``conv`` contiguously and
-    the latent rows on their rank dim; the values read are the same."""
+    heads; MLA's latent ``ckv`` / ``krope`` rows stay whole on every rank,
+    because every head of a rank reads the whole latent (DeepSeek-V2-Lite's
+    ``decode_32k``: 27 layers × 8 rows × 32 768 × 576 × 2 B ≈ 8.2 GB a
+    device, where the reference's split would hold 0.5).  Where K % M ≠ 0
+    the reference's rule splits W over ``model`` instead, it splits
+    ``conv`` contiguously and the latent rows on their rank dim R; the
+    values read are the same."""
     m = mesh.coord(MODEL)
     first, n = layout.kv_heads(m)
 

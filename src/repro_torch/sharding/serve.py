@@ -8,12 +8,14 @@ through the model's ``layer_hook``, the other groups whole at the start
 of the step.  The batch and the KV / state caches are split over the
 client axes when their batch divides (``rules.batch_spec_serve``,
 ``rules.cache_specs``).  By default a rank runs its own rows whole over
-``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the dense, ssm,
-hybrid and moe families) a rank stores its model slice
-(``fl_step.storage_layout``), computes its heads, MLP columns, SSD heads,
-experts or their ff columns and, where the vocabulary divides,
-vocabulary rows (``tensor_parallel.ModelAxis``; the hybrid's shared block
-and deepseek's ``dense0`` viewed once a step), keeps its kv heads' cache
+``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the language
+models of the dense, vlm, ssm, hybrid and moe families) a rank stores its
+model slice (``fl_step.storage_layout``), computes its heads (MLA's over
+the whole latent), MLP columns, SSD heads, experts or their ff columns
+and, where the vocabulary divides, vocabulary rows
+(``tensor_parallel.ModelAxis``; the hybrid's shared block, deepseek's
+``dense0`` and the embed group viewed once a step: a vlm prefill
+projects its stub prefix whole on every rank), keeps its kv heads' cache
 rows whole over the sequence, its Mamba2 conv channels and state heads
 and MLA's latent rows whole (``rules.tp_shard_cache``), and all-gathers
 split last-position logits over ``model`` before it returns or argmaxes

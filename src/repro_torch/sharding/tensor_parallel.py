@@ -1,8 +1,8 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the dense, ssm,
-hybrid and moe families (new; the reference gets the same values from GSPMD
-under ``RuntimeConfig(tp_constraints=True)``, whose Megatron constraints
-are ``repro/sharding/fl_step.py``'s ``_tp_constrain`` and
-``_model_only``).
+"""Tensor parallelism over the mesh's ``model`` axis for the language
+models of the dense, vlm, ssm, hybrid and moe families (new; the reference
+gets the same values from GSPMD under ``RuntimeConfig(tp_constraints=
+True)``, whose Megatron constraints are ``repro/sharding/fl_step.py``'s
+``_tp_constrain`` and ``_model_only``).
 
 Megatron's split of a block: the column-parallel products (``wq``,
 ``wk``, ``wv``, ``mlp_wi``, a Mamba2 ``in_proj``, the head) take their
@@ -20,10 +20,22 @@ leaves it narrows to its heads or channels (``gate_ln``, ``A_log``,
 (:class:`_NarrowGather`), so that every rank's copy gets the same whole
 gradient.  A moe layer (``models/moe.py``) splits its routed experts by
 expert or on ff and its shared experts as an MLP, its router whole on
-every rank; MLA runs replicated, its leaves all-gathered.  The embedding
-and the cross-entropy are vocab-parallel where the vocabulary divides
-(``models/model.py``).  Every collective goes
-through the counted helpers of ``sharding/collectives.py``.
+every rank.  MLA (``models/mla.py``) splits by heads where the ``model``
+size divides them: a rank computes its heads of ``wq``, of the ``w_ukv``
+expansion and of ``wo`` (a partial sum for g), and the latent whole,
+``w_dkv`` and ``w_krope`` all-gathered over ``model`` with the own-slice
+backward (:class:`_GatherOwn`), ``kv_ln`` whole.  Its f wraps the normed
+input of ``wq`` and the latent ``c_kv`` and rope key where the rank's
+heads read them, not the ``h`` that feeds the latent projections: that
+path's gradient is whole on every rank already, and one f on ``h``
+ahead of both paths would count it ``size`` times.  Where the heads do
+not divide, MLA runs replicated, every attention leaf all-gathered.  The
+vlm family's projector ``patch_proj`` is all-gathered over ``model`` the
+same way (the stub prefix projected whole on every rank), and its
+prefix-LM attention splits as the dense family's.  The embedding and the
+cross-entropy are vocab-parallel where the vocabulary divides
+(``models/model.py``).  Every collective goes through the counted
+helpers of ``sharding/collectives.py``.
 
 :class:`ModelAxis` is the models' parallel form's argument
 (``blocks.attention_fwd``, ``blocks.mlp_fwd``, ``Model(…, tp=)``): the
@@ -75,7 +87,8 @@ class _Reduce(torch.autograd.Function):
 class _GatherOwn(torch.autograd.Function):
     """All-gather over ``model`` whose backward keeps the rank's own
     slice: every rank computed the same gradient of the whole leaf
-    (replicated attention), so a sum would be ``size`` times too large."""
+    (replicated attention, MLA's latent projections, the vlm projector),
+    so a sum would be ``size`` times too large."""
 
     @staticmethod
     def forward(ctx, x, dim, group, index):
@@ -196,29 +209,40 @@ class ModelAxis:
         hybrid's unstacked shared block).  Attention: under
         ``"kv_shared"`` ``wk`` / ``wv`` (and ``bk`` / ``bv``) all-gathered
         over ``model`` (reduce-scatter backward) and narrowed to the rank's
-        kv head; under ``"replicated"`` every split attention leaf
+        kv head; under ``"replicated"`` every split attention leaf, and
+        MLA's latent projections ``w_dkv`` / ``w_krope`` in any mode,
         all-gathered (its own slice backward).  Mamba2 (:meth:`_ssm_leaf`):
         the B | C columns all-gathered, the replicated vectors narrowed.
         A moe row's ``moe_`` leaves and a ``dense0`` row's MLP are the
-        rank's already; MLA's attention leaves are ``"replicated"``."""
+        rank's already.  The embed group's ``patch_proj`` (the vlm
+        projector) is all-gathered whole (its own slice backward); ``tok``
+        stays the rank's vocabulary rows."""
         out = {}
         for nm, x in row.items():
             if nm.startswith("ssm_"):
                 out[nm] = self._ssm_leaf(nm[len("ssm_"):], x)
-            elif nm.startswith("attn_") and self.mode != "heads":
+            elif nm.startswith("attn_"):
                 out[nm] = self._attn_leaf(nm[len("attn_"):], x,
                                           rules.model_dim(specs[nm]), lead)
+            elif nm == "patch_proj":
+                out[nm] = self._whole(x, rules.model_dim(specs[nm]), lead)
             else:
                 out[nm] = x
         return out
+
+    def _whole(self, x: torch.Tensor, dim: Optional[int],
+               lead: int) -> torch.Tensor:
+        """A leaf split on ``dim`` of its spec, all-gathered whole (its own
+        slice of the gradient back); one whole over ``model`` as it is."""
+        return x if dim is None else self._gather_own(x, dim - lead)
 
     def _attn_leaf(self, leaf: str, x: torch.Tensor, dim: Optional[int],
                    lead: int) -> torch.Tensor:
         if leaf == "ln" or dim is None:
             return x
-        if self.mode == "replicated":
-            return self._gather_own(x, dim - lead)
-        if leaf in ("wk", "wv", "bk", "bv"):
+        if self.mode == "replicated" or leaf in rules.TPLayout.LATENT:
+            return self._whole(x, dim, lead)
+        if self.mode == "kv_shared" and leaf in ("wk", "wv", "bk", "bv"):
             hd = self.layout.cfg.resolved_head_dim
             full = self._gather_sum(x, dim - lead)
             return full.narrow(full.dim() - 1, self.kv_first * hd, hd)

@@ -204,21 +204,24 @@ def _leaves(tree):
 
 
 def case_prefill(case, mesh):
-    """Mesh prefill: this rank's rows of the batch, their logits."""
+    """Mesh prefill: this rank's rows of the batch (``tokens``, and a vlm's
+    stub ``patches`` where the case has them), their logits."""
     import torch
 
     from repro_torch.bridge import params_to_local
     from repro_torch.sharding import rules
     from repro_torch.sharding.serve import batch_spec, make_prefill_step
     model = _model(case)
-    tokens = torch.from_numpy(case["tokens"])
+    batch = {k: torch.from_numpy(case[k]) for k in ("tokens", "patches")
+             if k in case}
+    tokens = batch["tokens"]
     prefill, specs = make_prefill_step(model, mesh, zero3=case["zero3"])(
-        case["params"], {"tokens": tokens})
+        case["params"], batch)
     local = params_to_local(case["params"], specs, mesh,
                             layout=_layout(model, mesh))
     b_spec = batch_spec(model, mesh, tokens.shape[0])
-    mine = rules.local_shard(tokens, b_spec, mesh)
-    return {"logits": prefill(local, {"tokens": mine}).numpy(),
+    mine = {k: rules.local_shard(v, b_spec, mesh) for k, v in batch.items()}
+    return {"logits": prefill(local, mine).numpy(),
             "rows": rules.local_shard(torch.arange(tokens.shape[0]), b_spec,
                                       mesh).numpy()}
 
@@ -313,8 +316,10 @@ def case_tp_moe_grads(case, mesh):
     """The loss of ``case["tokens"]`` (every rank the same batch) under the
     moe family's parallel form, its params stored without ZeRO-3 (the data
     ranks hold the same model slices): the loss, the routers' aux loss
-    and the gradients of the rank's ``blocks`` router and ``moe_ln``
-    (replicated over ``model``) and of its ``moe_wi_e`` slice."""
+    and the gradients of the rank's ``blocks`` leaves ``case["names"]``
+    (by default its router and ``moe_ln``, replicated over ``model``, and
+    its ``moe_wi_e`` slice; MLA's ``attn_ln``, ``attn_kv_ln`` and
+    ``w_dkv`` / ``w_krope`` slices where named)."""
     import torch
 
     from repro_torch.bridge import params_to_local
@@ -327,7 +332,7 @@ def case_tp_moe_grads(case, mesh):
     specs = rules.params_pytree_specs(model.cfg, case["params"], zero3=False,
                                       mesh_shape=dict(mesh.shape))
     local = params_to_local(case["params"], specs, mesh, layout=layout)
-    names = ("moe_router", "moe_ln", "moe_wi_e")
+    names = case.get("names", ("moe_router", "moe_ln", "moe_wi_e"))
     wrt = {nm: local["blocks"][nm].detach().requires_grad_()
            for nm in names}
     params = view_shared({**local, "blocks": {**local["blocks"], **wrt}},
@@ -341,6 +346,49 @@ def case_tp_moe_grads(case, mesh):
     return {"loss": float(loss), "aux": float(aux),
             "grads": {nm: g.numpy() for nm, g in zip(names, grads)},
             "expert_parallel": layout.expert_parallel}
+
+
+def case_tp_vlm_grads(case, mesh):
+    """A vlm language model's loss of ``case["batch"]`` (every rank the same
+    rows) under its parallel form, its params stored without ZeRO-3 (the
+    data ranks hold the same model slices): the loss, the loss again with
+    the prefix's hidden rows moved (the loss reads the text positions
+    only), and the gradients of the rank's ``patch_proj`` slice, of the
+    whole ``patch_proj`` it gathers over ``model`` and of its ``blocks``
+    row's ``attn_ln``."""
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import (model_axis, storage_layout,
+                                              view_shared)
+    model = _model(case)
+    axis = model_axis(storage_layout(model, mesh), mesh)
+    specs = rules.params_pytree_specs(model.cfg, case["params"], zero3=False,
+                                      mesh_shape=dict(mesh.shape))
+    local = params_to_local(case["params"], specs, mesh,
+                            layout=storage_layout(model, mesh))
+    proj = local["embed"]["patch_proj"].detach().requires_grad_()
+    ln = local["blocks"]["attn_ln"].detach().requires_grad_()
+    params = view_shared({**local, "embed": {**local["embed"],
+                                             "patch_proj": proj},
+                          "blocks": {**local["blocks"], "attn_ln": ln}},
+                         specs, axis)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    hook = (lambda pl, idx, seg: axis.view_row(pl, specs[seg]))
+    h, aux, prefix = model.hidden_seq(params, batch, tp=axis,
+                                      layer_hook=hook)
+    loss = model.loss_from_hidden(params, h, aux, prefix, batch, tp=axis)
+    moved = model.loss_from_hidden(
+        params, torch.cat([h[:, :prefix] + 1.0, h[:, prefix:]], 1), aux,
+        prefix, batch, tp=axis)
+    whole = params["embed"]["patch_proj"]
+    g_proj, g_whole, g_ln = torch.autograd.grad(loss, [proj, whole, ln])
+    return {"loss": float(loss), "moved_prefix_loss": float(moved),
+            "prefix_len": prefix, "mode": axis.mode,
+            "grads": {"patch_proj": g_proj.numpy(),
+                      "patch_proj_whole": g_whole.numpy(),
+                      "attn_ln": g_ln.numpy()}}
 
 
 def case_dryrun_facts(case, mesh):
@@ -400,7 +448,8 @@ CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "dryrun_pair": case_dryrun_pair, "dry_refused": case_dry_refused,
          "tp_round_trip": case_tp_round_trip,
          "tp_ssm_block": case_tp_ssm_block,
-         "tp_moe_grads": case_tp_moe_grads, "fail": case_fail}
+         "tp_moe_grads": case_tp_moe_grads,
+         "tp_vlm_grads": case_tp_vlm_grads, "fail": case_fail}
 
 
 def _mesh_dims(m: dict) -> tuple:

@@ -26,6 +26,9 @@
   kind derived from the layer layout; with ``--opt`` (tensor parallelism)
   the dense family's ``train_4k`` per device: FLOPs, useful share and
   argument bytes against the replicated step's;
+* PaliGemma's three programs and DeepSeek's train step (MLA split by
+  heads) under tensor parallelism on the fake world: their model-axis
+  collectives counted from the layout;
 * the refusals: ``--opt`` on a family without tensor parallelism (audio), a dry
   mesh inside an existing world, and the world torn down after a
   failure; the CLI's JSON.
@@ -313,6 +316,57 @@ def test_fake_world_matches_gloo_tp_moe(arch, kind, worlds):
     more = arch == "deepseek_v2_lite_16b" or kind != "train"
     assert (tp["collective_counts"]["all-gather"]
             > f["collective_counts"]["all-gather"]) == more
+
+
+# PaliGemma (prefix-LM, one kv head: "kv_shared" at 2) and DeepSeek (MLA
+# split by heads) under tensor parallelism, 3 layers, on the fake world only
+VLM_MLA = ([("paligemma_3b", k) for k in SHAPES]
+           + [("deepseek_v2_lite_16b", "train")])
+
+
+@pytest.fixture(scope="module")
+def vlm_mla():
+    """Rank 0's facts of each VLM_MLA pair on the fake (2, 2) world, plain
+    and under tensor parallelism (the moe one with per-sample dispatch)."""
+    cases = [_facts_case(a, k, tp=tp, layers=3,
+                         **({"local": True, "experts": 4}
+                            if a.startswith("deepseek") else {}))
+             for a, k in VLM_MLA for tp in (False, True)]
+    dry = run_dry(WORLD, cases)
+    assert dry["error"] is None and not dry["initialized_after"]
+    return {pair: (dry["results"][2 * i]["facts"],
+                   dry["results"][2 * i + 1]["facts"])
+            for i, pair in enumerate(VLM_MLA)}
+
+
+@pytest.mark.parametrize("arch,kind", VLM_MLA)
+def test_dry_run_tp_counts_of_paligemma_and_mla(arch, kind, vlm_mla):
+    """Host-side counts of the split programs against the plain ones on
+    the fake world: FLOPs and argument bytes down, the model-axis
+    all-reduces there, and exactly the model-axis all-gathers the layout
+    implies, per 3 rows: PaliGemma's ``wk`` and ``wv`` (its one kv head
+    shared by 2 ranks: reduce-scatter backward) and ``patch_proj`` once a
+    step, and the logits' gather when serving; DeepSeek's ``w_dkv`` and
+    ``w_krope`` (MLA's latent, whole on every rank: own-slice backward, no
+    reduce-scatter), no longer every attention leaf."""
+    plain, tp = vlm_mla[arch, kind]
+    rows = 3
+    assert tp["flops"] < plain["flops"]
+    assert tp["arg_bytes"] < plain["arg_bytes"]
+    assert (tp["collective_counts"]["all-reduce"]
+            > plain["collective_counts"].get("all-reduce", 0))
+    more = tp["collective_counts"]["all-gather"] - \
+        plain["collective_counts"]["all-gather"]
+    more_rs = tp["collective_counts"].get("reduce-scatter", 0) - \
+        plain["collective_counts"].get("reduce-scatter", 0)
+    if arch == "paligemma_3b":
+        assert more == 2 * rows + 1 + (kind != "train")
+        assert more_rs == (2 * rows if kind == "train" else 0)
+        return
+    assert more == 2 * rows and more_rs == 0
+    # the heads, experts and MLP split over 2; the routers, the latent
+    # projections and the head's vocabulary remainder stay whole
+    assert tp["flops"] <= 0.52 * plain["flops"]
 
 
 def test_dry_mesh_refused_inside_a_world(worlds):

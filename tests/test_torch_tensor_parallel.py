@@ -334,9 +334,11 @@ def test_attention_mode_of_the_dense_family(arch, want):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("whisper_medium", "audio"), ("paligemma_3b", "vlm"),
+    ("whisper_medium", "audio"), ("clip_vit_b32", "vlm"),
     ("xlm_roberta_base", "dense")])
 def test_tp_refused_for_other_families(arch, family):
+    """The audio family and the classifiers (CLIP of the vlm family, XLM-R
+    of the dense one) raise, naming their family."""
     from repro_torch.configs.base import RuntimeConfig as TRuntime
     from repro_torch.configs.base import get_arch as tget
     from repro_torch.configs.base import reduced as treduced
@@ -353,3 +355,25 @@ def test_tp_refused_for_other_families(arch, family):
             make(model, mesh)
     with pytest.raises(ValueError, match=match):
         fl_step.make_fl_train_step_tau(model, mesh, sel_idx=(0,), tau=2)
+
+
+def test_tp_accepted_for_paligemma():
+    """The vlm family's language model builds every tensor-parallel step,
+    its prefix-LM attention ``"kv_shared"`` at 2 (one kv head); the steps
+    themselves run in tests/test_torch_tensor_parallel_vlm.py."""
+    from repro_torch.configs.base import RuntimeConfig as TRuntime
+    from repro_torch.configs.base import get_arch as tget
+    from repro_torch.configs.base import reduced as treduced
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.sharding import fl_step, rules, serve
+    model = TModel(treduced(tget("paligemma_3b"), n_layers=2, d_model=32),
+                   TRuntime(tp_constraints=True), device="cpu")
+    mesh = SimpleNamespace(shape={"data": 1, "model": 2},
+                           axis_names=("data", "model"),
+                           group=lambda axes: None, coord=lambda axis: 1)
+    for make in (fl_step.make_fl_train_step, serve.make_prefill_step,
+                 serve.make_serve_step):
+        assert callable(make(model, mesh))
+    assert callable(fl_step.make_fl_train_step_tau(model, mesh, sel_idx=(0,),
+                                                   tau=2))
+    assert rules.TPLayout(model.cfg, 2).mode == "kv_shared"

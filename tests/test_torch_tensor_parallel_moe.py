@@ -2,35 +2,40 @@
 (``RuntimeConfig(tp_constraints=True)``: the routed experts split by
 expert where the ``model`` size divides their number, else on ff; the
 shared experts and DeepSeek's ``dense0`` MLP Megatron-split; the routers
-whole on every rank; MLA replicated) against the reference's single-host
-round and single-device serving, on gloo worlds of 4 processes
-(tests/_torch_dist.py).
+whole on every rank; MLA split by heads over a latent whole on every
+rank, replicated where the heads do not divide) against the reference's
+single-host round and single-device serving, on gloo worlds of 4
+processes (tests/_torch_dist.py).
 
 As in tests/test_torch_tensor_parallel_ssm.py the oracle is the reference
 computed with JAX on one device.  Two reduced models: DeepSeek-V2-Lite (3
 layers: ``dense0`` and 2 ``blocks`` rows; 4 experts, top 2, one shared
-expert; MLA, so attention ``"replicated"``), expert-parallel at 2 and 4
-(2 and 1 experts a rank); Grok-1 with 3 experts (3 ``blocks`` rows, GQA
+expert; MLA with 4 heads, ``"heads"`` at 2 and 4: 2 and 1 heads a rank),
+expert-parallel at 2 and 4 (2 and 1 experts a rank); Grok-1 with 3 experts (3 ``blocks`` rows, GQA
 4/2 of 64, tied head with softcap), split on ff at 2 and 4, its attention
 ``"heads"`` at 2 and ``"kv_shared"`` at 4.  Two worlds:
 
 * (data 2, model 2): DeepSeek's τ = 1 step with ``moe_local_dispatch``
   off and on, ``sel_upload``, τ = 2, prefill and 8 greedy decode steps
   (dispatch over the whole batch), the storage round trip and the
-  routers' gradients; Grok's τ = 1 step, ``sel_upload``, τ = 2, prefill
-  and decode (per-sample dispatch) and the round trip;
+  routers' and MLA latent path's gradients; Grok's τ = 1 step,
+  ``sel_upload``, τ = 2, prefill and decode (per-sample dispatch) and the
+  round trip;
 * (data 1, model 4): DeepSeek's τ = 1 step with per-sample dispatch,
-  prefill and decode (per-sample dispatch) and the routers' gradients;
-  Grok's τ = 1 step, ``sel_upload``, prefill and decode (whole batch) and
-  the routers' gradients.
+  prefill and decode (per-sample dispatch) and the routers' and latent
+  path's gradients; DeepSeek with 2 heads (MLA ``"replicated"``): its τ =
+  1 step; Grok's τ = 1 step, ``sel_upload``, prefill and decode (whole
+  batch) and the routers' gradients.
 
 Unit tests without a world: the storage order of ``moe_wi_e``,
 ``moe_wi_s`` and ``dense0``'s ``mlp_wi``, the width of ``dense0``'s
-slices, the refusals, and one moe block's partials summed by hand in one
-process against the whole block in both expert layouts.
+slices, MLA's per-leaf head widths, the refusals, one moe block's
+partials summed by hand in one process against the whole block in both
+expert layouts, and one MLA sub-block's (sequence and absorbed decode).
 """
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -44,9 +49,12 @@ from repro.core.client import Client
 from repro.models.model import Model, apply_layer_mask
 
 TOL, TAU_TOL, SERVE_TOL = 3e-5, 5e-5, 1e-5
-# (arch, layers, experts): DeepSeek's 3 layers are dense0 + 2 blocks rows
+# (arch, layers, experts): DeepSeek's 3 layers are dense0 + 2 blocks rows;
+# "deepseek_h2" is DeepSeek with 2 heads (HEADS), which 4 ranks do not divide
 ARCH = {"deepseek": ("deepseek_v2_lite_16b", 3, 4),
-        "grok": ("grok_1_314b", 3, 3)}
+        "grok": ("grok_1_314b", 3, 3),
+        "deepseek_h2": ("deepseek_v2_lite_16b", 3, 4)}
+HEADS = {"deepseek_h2": (2, 2)}
 MESH = {"m2": dict(data=2, model=2), "m4": dict(data=1, model=4)}
 MASKS = np.array([[1, 0, 1], [0, 1, 1]], np.float32)
 SIZES = np.array([10., 20.], np.float32)
@@ -54,6 +62,7 @@ SIZES = np.array([10., 20.], np.float32)
 # they are: DeepSeek's mask column 0 is dense0, its blocks rows start at 1
 SEL = {"deepseek": ((0, 1), np.array([[0, 1, 1], [0, 0, 1]], np.float32)),
        "grok": ((1, 2), np.array([[0, 1, 1], [0, 0, 1]], np.float32))}
+SEL["deepseek_h2"] = SEL["deepseek"]
 LR, TAU_LR, TAU = 0.1, 0.05, 2
 PROMPT, STEPS = 4, 8
 # what each world runs of each model: the runs, and whether its serving
@@ -66,8 +75,13 @@ RUNS = {("m2", "deepseek"): (("step", "step_local", "sel_upload", "tau",
         ("m4", "deepseek"): (("step_local", "prefill", "decode", "grads"),
                              True),
         ("m4", "grok"): (("step", "sel_upload", "prefill", "decode",
-                          "grads"), False)}
+                          "grads"), False),
+        ("m4", "deepseek_h2"): (("step",), False)}
 REPLICATED = ("moe_router", "moe_ln", "attn_ln")
+# the gradients a "grads" run returns: the routers' and (MLA) the latent
+# path's, which every head of a rank reads
+GRADS = ("moe_router", "moe_ln", "moe_wi_e")
+LATENT = ("attn_ln", "attn_kv_ln", "attn_w_dkv", "attn_w_krope")
 
 
 def _host(tree):
@@ -83,8 +97,16 @@ def max_err(a, b) -> float:
 
 def _cfg(family):
     arch, layers, experts = ARCH[family]
-    return reduced(get_arch(arch), n_layers=layers, d_model=64,
-                   max_experts=experts)
+    cfg = reduced(get_arch(arch), n_layers=layers, d_model=64,
+                  max_experts=experts)
+    if family in HEADS:
+        H, K = HEADS[family]
+        cfg = dataclasses.replace(cfg, n_heads=H, n_kv_heads=K)
+    return cfg
+
+
+def _grad_names(family):
+    return GRADS + (LATENT if family.startswith("deepseek") else ())
 
 
 @functools.cache
@@ -141,9 +163,9 @@ def decode_oracle(model, params, prompt):
     return np.stack(out, 1), np.asarray(logits, np.float32)
 
 
-def grads_oracle(model, params, tokens):
-    """The loss, the aux loss and the gradients of the ``blocks`` router,
-    ``moe_ln`` and ``moe_wi_e`` on one device."""
+def grads_oracle(model, params, tokens, names):
+    """The loss, the aux loss and the gradients of the ``blocks`` leaves
+    ``names`` on one device."""
     def loss(p, tok):
         h, aux, prefix = model.forward_seq(p, {"tokens": tok})
         return model.loss_from_hidden(p, h, aux, prefix,
@@ -152,7 +174,7 @@ def grads_oracle(model, params, tokens):
         loss, has_aux=True))(params, tokens)
     return {"loss": float(value), "aux": float(aux),
             "grads": {nm: np.asarray(g["blocks"][nm], np.float32)
-                      for nm in ("moe_router", "moe_ln", "moe_wi_e")}}
+                      for nm in names}}
 
 
 def _family_cases(world, family, rng):
@@ -165,7 +187,7 @@ def _family_cases(world, family, rng):
     arch, layers, experts = ARCH[family]
     runs, serve_local = RUNS[world, family]
     common = dict(arch=arch, layers=layers, experts=experts, params=host,
-                  zero3=True, tp=True)
+                  zero3=True, tp=True, heads=HEADS.get(family))
     tokens = rng.randint(0, V, (n, 2, 16)).astype(np.int32)
     step = dict(common, kind="fl_step", batch={"tokens": tokens},
                 masks=MASKS[:n], sizes=SIZES[:n], lr=LR)
@@ -206,8 +228,10 @@ def _family_cases(world, family, rng):
             cases[run] = dict(common, kind="tp_round_trip")
         elif run == "grads":
             seqs = rng.randint(0, V, (2, 16)).astype(np.int32)
-            cases[run] = dict(common, kind="tp_moe_grads", tokens=seqs)
-            refs[run] = grads_oracle(models[False], params, seqs)
+            cases[run] = dict(common, kind="tp_moe_grads", tokens=seqs,
+                              names=_grad_names(family))
+            refs[run] = grads_oracle(models[False], params, seqs,
+                                     _grad_names(family))
     return cases, refs, dict(cfg=cfg, host=host)
 
 
@@ -218,6 +242,8 @@ def worlds():
     for world in MESH:
         cases, refs, info = {}, {}, {}
         for family in ARCH:
+            if (world, family) not in RUNS:
+                continue
             c, r, i = _family_cases(world, family, rng)
             cases.update({(family, k): v for k, v in c.items()})
             refs.update({(family, k): v for k, v in r.items()})
@@ -363,12 +389,43 @@ def test_tp_moe_router_gradients_whole_on_every_rank(worlds, world, family,
         "moe_router"]) > 1e-3
 
 
+@pytest.mark.parametrize("world,family,run",
+                         [h for h in _held(("grads",))
+                          if h[1].startswith("deepseek")])
+def test_tp_mla_latent_gradients_whole_on_every_rank(worlds, world, family,
+                                                     run):
+    """MLA split by heads: the gradients of ``attn_ln`` and ``kv_ln``
+    (whole on every rank) are equal on every model rank and equal the
+    single-host ones; each rank's ``w_dkv`` / ``w_krope`` gradient, the
+    own slice of the whole gathered latent's, is its model slice of the
+    single-host gradient (the latent path's gradient counted once: a
+    second f on its input would make it M times too large)."""
+    w = worlds[world]
+    ref = w["refs"][family, run]
+    M = MESH[world]["model"]
+    runs = w["runs"][family, run]
+    for res in runs:
+        m = res["coords"]["model"]
+        for nm in ("attn_ln", "attn_kv_ln"):
+            np.testing.assert_array_equal(res["grads"][nm],
+                                          runs[0]["grads"][nm])
+            assert max_err(res["grads"][nm], ref["grads"][nm]) < TOL, nm
+        for nm in ("attn_w_dkv", "attn_w_krope"):
+            full = ref["grads"][nm]
+            width = full.shape[-1] // M
+            want = full[..., m * width:(m + 1) * width]
+            assert res["grads"][nm].shape == want.shape, nm
+            assert max_err(res["grads"][nm], want) < TOL, nm
+    for nm in LATENT:
+        assert np.abs(ref["grads"][nm]).max() > 1e-4, nm
+
+
 def test_tp_moe_model_coordinates_hold_different_experts(worlds):
     """At (data 2, model 2) DeepSeek's model coordinates store different
     experts (expert-parallel: 2 of 4 each, whole), Grok's all 3 experts on
     different ff columns."""
     M = MESH["m2"]["model"]
-    for family in ARCH:
+    for family in ("deepseek", "grok"):
         ranks = _by_data(worlds["m2"]["runs"][family, "step"])[0]
         a, b = ranks[0]["local"]["blocks"], ranks[1]["local"]["blocks"]
         for nm in ("moe_wi_e", "moe_wo_e"):
@@ -379,12 +436,15 @@ def test_tp_moe_model_coordinates_hold_different_experts(worlds):
                                           else E)
 
 
-@pytest.mark.parametrize("family", list(ARCH))
+@pytest.mark.parametrize("family", ["deepseek", "grok"])
 def test_tp_moe_storage_round_trip_is_exact(worlds, family):
     """Shards → full is the full tree bit for bit; model slice m of a
     gated ``moe_wi_e`` split on ff (Grok), of ``moe_wi_s`` and of
     ``dense0``'s ``mlp_wi`` is gate[…, m] | up[…, m]; an expert-parallel
-    ``moe_wi_e`` (DeepSeek) is the rank's experts, in their own order."""
+    ``moe_wi_e`` (DeepSeek) is the rank's experts, in their own order;
+    MLA's ``wq``, ``w_ukv`` and ``wo`` (DeepSeek, both segments) keep the
+    contiguous split, which is the rank's whole heads, head-major, as
+    ``compute_slice`` cuts them by each leaf's own head width."""
     w = worlds["m2"]
     cfg, host = w["info"][family]["cfg"], w["info"][family]["host"]
     M = MESH["m2"]["model"]
@@ -392,8 +452,7 @@ def test_tp_moe_storage_round_trip_is_exact(worlds, family):
         a, b = jax.tree.leaves(res["full"]), jax.tree.leaves(host)
         assert len(a) == len(b)
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
-        assert res["mode"] == ("replicated" if family == "deepseek"
-                               else "heads")
+        assert res["mode"] == "heads"
         m = res["coords"]["model"]
         sl = res["model_slice"]
 
@@ -412,6 +471,15 @@ def test_tp_moe_storage_round_trip_is_exact(worlds, family):
                                           gated(host["blocks"]["moe_wi_s"]))
             np.testing.assert_array_equal(sl["dense0"]["mlp_wi"],
                                           gated(host["dense0"]["mlp_wi"]))
+            import torch
+            from repro_torch.sharding import rules
+            layout = rules.TPLayout(_tcfg(family), M)
+            for seg in ("dense0", "blocks"):
+                for nm in ("attn_wq", "attn_w_ukv", "attn_wo"):
+                    full = host[seg][nm]
+                    want = np.stack([layout.compute_slice(
+                        nm, torch.tensor(r), m).numpy() for r in full])
+                    np.testing.assert_array_equal(sl[seg][nm], want)
         else:
             np.testing.assert_array_equal(sl["blocks"]["moe_wi_e"],
                                           gated(wi_e))
@@ -480,14 +548,15 @@ def test_tp_moe_dense0_slices_take_their_width_from_the_leaf():
 
 def test_tp_moe_layouts_of_the_production_models():
     """At 16: DeepSeek-V2-Lite expert-parallel (4 of 64 experts a rank),
-    MLA replicated, the vocabulary split; Grok-1 on ff (8 experts do not
+    MLA one head a rank, the vocabulary split; Grok-1 on ff (8 experts do not
     divide by 16), its attention ``"kv_shared"`` (48/8 heads), the
     vocabulary split; at 2 Grok is expert-parallel too."""
     from repro_torch.configs.base import get_arch as tget
     from repro_torch.sharding import rules
     ds = rules.TPLayout(tget("deepseek_v2_lite_16b"), 16)
     assert ds.expert_parallel and ds.experts(3) == (12, 4)
-    assert ds.mode == "replicated" and ds.vocab_split
+    assert ds.mode == "heads" and ds.vocab_split
+    assert ds.q_heads(3) == ds.kv_heads(3) == (3, 1)
     grok = rules.TPLayout(tget("grok_1_314b"), 16)
     assert not grok.expert_parallel and grok.experts(5) == (0, 8)
     assert grok.mode == "kv_shared" and grok.vocab_split
@@ -572,3 +641,105 @@ def test_tp_moe_block_partials_sum_to_the_whole_block(family, M, local):
     for name, a, b in pairs:    # f32 sums in another order: relative to
         assert float((a - b).abs().max()) <= 5e-5 * float(b.abs().max()), \
             name                # the tensor's largest magnitude
+
+
+def test_tp_mla_compute_slices_take_each_leafs_head_width():
+    """MLA's three per-head widths (reduced: nope 32, rope 16, v 32):
+    ``wq`` nope + rope = 48 a head, ``w_ukv`` nope + v = 64 (each head's
+    [nope | v] side by side), ``wo``'s rows v = 32; the latent ``w_dkv``,
+    ``w_krope`` and ``kv_ln`` whole.  Model coordinate m's slice is the
+    columns (rows) of its heads, head-major, at 2 and 4; at 4 ranks of 2
+    heads MLA falls back to ``"replicated"``."""
+    import torch
+    from repro_torch.models.mla import mla_param_shapes
+    from repro_torch.sharding import rules
+    cfg = _tcfg("deepseek")
+    assert (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+            cfg.v_head_dim) == (4, 32, 16, 32)
+    widths = {"wq": 48, "w_ukv": 64, "wo": 32}
+    shapes = mla_param_shapes(cfg)
+    for M in (2, 4):
+        layout = rules.TPLayout(cfg, M)
+        assert layout.mode == "heads"
+        assert {k: layout.head_width(k) for k in widths} == widths
+        for leaf, shp in shapes.items():
+            full = torch.arange(math.prod(shp), dtype=torch.float32) \
+                .reshape(shp)
+            for m in range(M):
+                got = layout.compute_slice("attn_" + leaf, full, m)
+                if leaf in ("ln", "kv_ln", "w_dkv", "w_krope"):
+                    assert torch.equal(got, full), leaf
+                    continue
+                w, n = widths[leaf], cfg.n_heads // M
+                heads = (full.reshape(-1, cfg.n_heads, w) if leaf != "wo"
+                         else full.reshape(cfg.n_heads, w, -1))
+                want = (heads[:, m * n:(m + 1) * n].reshape(full.shape[0], -1)
+                        if leaf != "wo" else
+                        heads[m * n:(m + 1) * n].reshape(-1, full.shape[1]))
+                assert torch.equal(got, want), (leaf, M, m)
+    two = rules.TPLayout(_tcfg("deepseek", n_heads=2, n_kv_heads=2), 4)
+    assert two.mode == "replicated" and two.q_heads(3) == (0, 2)
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("decode", [False, True], ids=["seq", "decode"])
+def test_tp_mla_partials_sum_to_the_whole(M, decode):
+    """One MLA sub-block's M coordinates in one process (``compute_slice``
+    weights, a ``ModelAxis`` with identity f and g): the partials summed
+    by hand against ``mla_fwd`` whole, in f32 — the sequence forward by
+    query chunks (16 of 32) with the input's and every leaf's gradient,
+    and the absorbed decode over a latent cache that every coordinate
+    writes alike, token by token."""
+    import torch
+    from repro_torch.models import mla as tmla
+    from repro_torch.models.mla import mla_param_shapes
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.tensor_parallel import ModelAxis
+    cfg = _tcfg("deepseek")
+    layout = rules.TPLayout(cfg, M)
+    gen = torch.Generator().manual_seed(1)
+    row = {k: torch.randn(s, generator=gen) * 0.3
+           for k, s in mla_param_shapes(cfg).items()}
+    S = 32
+    x = torch.randn((2, S, cfg.d_model), generator=gen)
+    pos = torch.arange(S, dtype=torch.int32)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    if not decode:
+        dy = torch.randn(x.shape, generator=gen)
+        leaves = {k: v.clone().requires_grad_() for k, v in row.items()}
+        xin = x.clone().requires_grad_()
+        want = tmla.mla_fwd(leaves, xin, cfg, positions=pos, seq_chunk=16)
+        want_g = torch.autograd.grad(want, [xin, *leaves.values()], dy)
+        leaves = {k: v.clone().requires_grad_() for k, v in row.items()}
+        xin = x.clone().requires_grad_()
+        got = sum(tmla.mla_fwd({k: layout.compute_slice("attn_" + k, v, m)
+                                for k, v in leaves.items()}, xin, cfg,
+                               positions=pos, seq_chunk=16,
+                               tp=ModelAxis(layout, m)) for m in range(M))
+        got_g = torch.autograd.grad(got, [xin, *leaves.values()], dy)
+        for name, a, b in zip(["out", "x", *leaves], [got, *got_g],
+                              [want, *want_g]):
+            assert rel(a.detach(), b.detach()) <= 5e-5, name
+        return
+
+    def cache():
+        return {"ckv": torch.zeros((2, S, cfg.kv_lora_rank)),
+                "krope": torch.zeros((2, S, cfg.qk_rope_dim)),
+                "pos": torch.full((S,), torch.iinfo(torch.int32).max,
+                                  dtype=torch.int32)}
+    whole, parts = cache(), [cache() for _ in range(M)]
+    slices = [{k: layout.compute_slice("attn_" + k, v, m)
+               for k, v in row.items()} for m in range(M)]
+    for t in range(8):
+        xt, p = x[:, t:t + 1], torch.tensor(t, dtype=torch.int32)
+        want = tmla.mla_fwd(row, xt, cfg, positions=p[None], cache=whole,
+                            cache_pos=p)
+        got = sum(tmla.mla_fwd(slices[m], xt, cfg, positions=p[None],
+                               cache=parts[m], cache_pos=p,
+                               tp=ModelAxis(layout, m)) for m in range(M))
+        assert rel(got, want) <= 5e-5, t
+    for part in parts:
+        for k in whole:
+            assert torch.equal(part[k], whole[k]), k
