@@ -175,13 +175,20 @@ source, all at once), then, failing with a non-zero exit on any mismatch:
     ``layer_grad_norm`` launches); with tensor parallelism over ``model``
     on (``tp_constraints``, model = 1), the τ = 1, ``sel_upload`` and
     τ = 2 steps, prefill and every decode step's logits bit-equal to the
-    plain programs', with the same collectives; then ``phase_tp_block``:
+    plain programs', with the same collectives; the same five programs
+    for Mamba2-370M, DeepSeek-V2-Lite, PaliGemma-3B and whisper-medium
+    (full depth, 1500 stub frames, decode over a cross cache filled from
+    its encoder), Zamba2-7B's step and decode; then ``phase_tp_block``:
     one full-width TinyLlama-1.1B block (bf16,
     4 × 1024) forward and backward split over M = 2 and M = 16 model
     coordinates in this process, each coordinate's partial in turn and
     the model-axis sums by hand, against the whole block (output, input
     and every leaf's gradient within TP_BLOCK_RTOL; at M = 16 the flash
-    kernels at 2 query heads and 1 kv head on the tensor-core route);
+    kernels at 2 query heads and 1 kv head on the tensor-core route),
+    and the same for the Mamba2, Zamba2, moe and PaliGemma blocks and
+    whisper-medium's encoder and decoder blocks (one head a flash launch
+    at M = 16; the decoder's cross-attention over a 1500-row encoder
+    output, whose gradient is held too);
 25. runs ``phase_dryrun``: (a) the dry run's CLI
     (``repro_torch.launch.dryrun``) on the CPU in child processes started
     at the beginning of the script, so that they run beside the card's
@@ -4810,7 +4817,6 @@ def phase_audio_decode(card: str) -> dict:
     import torch
     from repro_torch.configs.base import RuntimeConfig, get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models import blocks
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(get_arch("whisper_medium"), dtype="float32")
@@ -4837,14 +4843,8 @@ def phase_audio_decode(card: str) -> dict:
     cache = model.init_cache(B, S)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad():
-        enc = model.encode(params, frames)
-        xkv = cache["cross_kv"]
-        for li in range(cfg.n_layers):
-            row = {k[len("xattn_"):]: v[li]
-                   for k, v in params["blocks"].items()
-                   if k.startswith("xattn_")}
-            xkv["k"][li], xkv["v"][li] = blocks.make_cross_kv(row, enc, cfg)
+    fill_cross_cache(model, params, cache, frames)
+    xkv = cache["cross_kv"]
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     ops.reset_launches()
@@ -4888,7 +4888,7 @@ def phase_audio_decode(card: str) -> dict:
         else:
             raise SmokeFailure(f"[audio-decode] {label} was not refused")
     log(f"[audio-decode] refused: " + "; ".join(refused))
-    del params, cache, enc, got, want, h
+    del params, cache, got, want, h
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "step_ms": step_ms, "fill_s": fill_s,
             "forward_launches": fwd_launches}
@@ -5444,6 +5444,13 @@ DIST_VLM_SEL = (5, 12)
 DIST_VLM_PREFIX = 256
 DIST_VLM_TEXT = 256
 DIST_VLM_LR = 0.25
+# Slice 20: whisper-medium at full width and depth (24 + 24 rows, 1.52 GB
+# of bf16), 1 client × 4 sequences of 1500 stub frames + AUDIO_SEQ tokens:
+# the τ = 1 mask's encoder row 5 and decoder row 17 (mask columns 5 and
+# 24 + 17), the decoder rows of sel_upload and τ = 2
+DIST_AUDIO_MASK = (5, 41)
+DIST_AUDIO_SEL = (5, 17)
+DIST_AUDIO_LR = 0.25
 DIST_CPU_TOL = 1e-6
 CLI_ROUNDS = 3
 COLLECTIVE_OPS = {"all_gather": "c10d::_allgather_base_",
@@ -5644,8 +5651,9 @@ def dist_cpu_step(out_path: str) -> int:
 
 def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
                 tag: str, label: str, cfg, rt, batch_of, mask_cols, sel,
-                lr: float, seed: int) -> None:
-    """Slices 18–19 in ``phase_distributed``: one model's five programs on
+                lr: float, seed: int, flash=None,
+                fill_cache=None) -> None:
+    """Slices 18–20 in ``phase_distributed``: one model's five programs on
     the phase's (1, 1) mesh (zero3, 1 client), none under the profiler:
     the τ = 1 step over the mask columns ``mask_cols`` against the
     single-host step (every group holding one moved, the groups outside
@@ -5657,9 +5665,13 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
     (``tp_same``): bit-equal, with the plain program's collectives.
     ``batch_of(lead)`` draws a batch of leading dims ``lead`` from
     ``gen`` (seeded ``seed``, ``seed + 1`` for τ = 2, ``seed + 2`` for the
-    prompt).  Neither MLA nor the prefix-LM attends through flash: no
-    flash launch.  The launches are the paths
-    ``distributed_<tag>_<program>``; the programs' peak GB is logged."""
+    prompt).  ``flash``: each program's (forward, backward) flash
+    launches, all on the tensor-core route; none where not given (neither
+    MLA nor the prefix-LM attends through flash).  ``fill_cache(model,
+    params, cache)`` fills the full decode cache before it is laid out
+    (whisper's cross cache, from ``Model.encode``).  The launches are the
+    paths ``distributed_<tag>_<program>``; the programs' peak GB is
+    logged."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model, layer_layout
@@ -5669,6 +5681,7 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
                                               reset_collectives, shard_params)
     from repro_torch.sharding.serve import (make_prefill_step, make_serve_step,
                                             shard_cache)
+    from repro_torch.tree import tree_map
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, rt)
@@ -5701,8 +5714,12 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
         got = fn()
         torch.cuda.synchronize()
         paths[f"distributed_{tag}_{program}"] = launches = dict(ops.LAUNCHES)
-        check(launches["flash_attention"] == 0,
-              f"[dist] {label} {program}: flash launched {launches}")
+        fwd, bwd = (flash or {}).get(program, (0, 0))
+        check(launches["flash_attention"] == launches["flash_attention_mma"]
+              == fwd and launches["flash_attention_bwd"]
+              == launches["flash_attention_bwd_mma"] == bwd,
+              f"[dist] {label} {program}: flash launches {launches}, want "
+              f"{fwd} forward and {bwd} backward, all mma")
         return got, dict(COLLECTIVES), time.perf_counter() - t_run
 
     res = {}
@@ -5791,9 +5808,12 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
     prompt = torch.randint(0, cfg.vocab_size, (dd["batch"], dd["prompt"]),
                            device="cuda", generator=gen, dtype=torch.int32)
     total = dd["prompt"] + dd["steps"]
+    full_cache = model.init_cache(dd["batch"], total)
+    if fill_cache is not None:
+        fill_cache(model, params, full_cache)
 
     def lockstep(serve_fn, p, shard):
-        cache = shard(model.init_cache(dd["batch"], total))
+        cache = shard(tree_map(torch.clone, full_cache))
         tok, logits = prompt[:, 0], {}
         for t in range(total - 1):
             nxt, logits[t], cache = serve_fn(
@@ -5805,8 +5825,7 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
     def model_serve(p, tok, pos, cache):
         logits, cache = model.decode_step(p, tok, pos, cache)
         return logits.argmax(-1).to(torch.int32), logits, cache
-    serve = make_serve_step(model, mesh)(
-        params, model.init_cache(dd["batch"], total), dd["batch"])[0]
+    serve = make_serve_step(model, mesh)(params, full_cache, dd["batch"])[0]
     mesh_logits, coll, s = plain("decode", lambda: lockstep(
         serve, local, lambda c: c))
     model_logits = lockstep(model_serve, params, lambda c: c)
@@ -5819,7 +5838,7 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
     check(same, f"[dist] {label}: the mesh decode's tokens differ from "
                 f"Model.decode_step's")
     tp_serve, (_, tp_cspecs) = make_serve_step(tp_model, mesh)(
-        params, model.init_cache(dd["batch"], total), dd["batch"])
+        params, full_cache, dd["batch"])
     tp_same(f"{tag}_decode", lambda: mesh_logits, lambda: lockstep(
         tp_serve, tp_local, lambda c: shard_cache(tp_model, mesh, c,
                                                   tp_cspecs)), coll)
@@ -5829,6 +5848,7 @@ def tp_programs(card: str, mesh, gen, out: dict, paths: dict, tp_same, *,
         f"{res['s']:.1f} s   [{card}]")
     out[tag] = res
     del params, local, tp_local, serve, tp_serve, mesh_logits, model_logits
+    del full_cache
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5882,6 +5902,68 @@ def vlm_programs(card: str, mesh, gen, out: dict, paths: dict,
                 lr=DIST_VLM_LR, seed=33)
 
 
+def fill_cross_cache(model, params, cache, frames) -> None:
+    """whisper's cross cache from the port's encoder over ``frames``, row
+    by row through ``make_cross_kv``, in place (as the reference's
+    tests/test_decode_consistency.py fills it: neither package has an
+    encoder-prefill entry point)."""
+    import torch
+    from repro_torch.models import blocks
+    with torch.no_grad():
+        enc = model.encode(params, frames)
+        xkv = cache["cross_kv"]
+        for li in range(model.cfg.n_layers):
+            row = {k[len("xattn_"):]: v[li]
+                   for k, v in params["blocks"].items()
+                   if k.startswith("xattn_")}
+            xkv["k"][li], xkv["v"][li] = blocks.make_cross_kv(row, enc,
+                                                              model.cfg)
+
+
+def audio_programs(card: str, mesh, gen, out: dict, paths: dict,
+                   tp_same) -> None:
+    """Slice 20: :func:`tp_programs` of whisper-medium at full width and
+    depth (24 encoder and 24 decoder rows, 1.52 GB of bf16), its first
+    run on the mesh: 4 sequences of 1500 stub frames + AUDIO_SEQ tokens,
+    the τ = 1 mask over DIST_AUDIO_MASK (an ``enc_blocks`` row and a
+    ``blocks`` row), ``sel_upload`` and τ = 2 over the ``blocks`` rows
+    DIST_AUDIO_SEL, decode over a cross cache filled from
+    ``Model.encode`` (:func:`fill_cross_cache`).  The encoder's and the
+    decoder's self-attention run the flash kernels (48 sites a sequence
+    forward; backward from every row at τ = 1, from the decoder's rows
+    under ``sel_upload``, whose index_copy makes every ``blocks`` row
+    differentiable, and from the lowest selected row at each τ = 2 local
+    step, the encoder frozen), cross-attention the plain path; decode
+    none."""
+    import torch
+    from repro_torch.configs.base import RuntimeConfig, get_arch
+    cfg = get_arch("whisper_medium")
+    E, D = cfg.n_enc_layers, cfg.n_layers
+
+    def batch_of(lead):
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, lead + (4, AUDIO_SEQ), device="cuda",
+            generator=gen, dtype=torch.int32),
+            "frames": torch.randn(
+                lead + (4, cfg.enc_seq, cfg.d_model), device="cuda",
+                generator=gen).to(torch.bfloat16)}
+
+    def fill(model, params, cache):
+        frames = torch.randn((cache["cross_kv"]["k"].shape[1], cfg.enc_seq,
+                              cfg.d_model), device="cuda", generator=gen)
+        fill_cross_cache(model, params, cache, frames)
+    low = D - min(DIST_AUDIO_SEL)
+    tp_programs(card, mesh, gen, out, paths, tp_same, tag="whisper",
+                label="whisper-medium (full depth)", cfg=cfg,
+                rt=RuntimeConfig(remat=False, seq_chunk=AUDIO_SEQ),
+                batch_of=batch_of, mask_cols=DIST_AUDIO_MASK,
+                sel=DIST_AUDIO_SEL, lr=DIST_AUDIO_LR, seed=36,
+                flash={"step": (E + D, E + D), "sel_upload": (E + D, D),
+                       "tau2": (DIST_TAU * (E + D), DIST_TAU * low),
+                       "prefill": (E + D, 0)},
+                fill_cache=fill)
+
+
 def phase_distributed(card: str) -> dict:
     """Slice 13 on one card: a world of 1 on NCCL in this process (no
     fallback), a (1, 1) mesh, and through it (a) full-width TinyLlama-1.1B
@@ -5913,7 +5995,10 @@ def phase_distributed(card: str) -> dict:
     bit-equal with the same collectives; (h, slice 19) PaliGemma-3B at
     full width and depth (:func:`vlm_programs`): the same five programs
     over its 256-patch prefix, plain against the single-host step and
-    ``Model``, and with tensor parallelism at model = 1, bit-equal."""
+    ``Model``, and with tensor parallelism at model = 1, bit-equal; (i,
+    slice 20) whisper-medium at full width and depth
+    (:func:`audio_programs`): the same five over 1500 stub frames, decode
+    over a cross cache filled from its encoder."""
     import json as _json
     import tempfile
     import numpy as np
@@ -6490,6 +6575,12 @@ def phase_distributed(card: str) -> dict:
         vlm_programs(card, mesh, gen, out, paths, tp_same)
         mark("PaliGemma-3B")
 
+        # (i) slice 20: whisper-medium (full width and depth), its first
+        # run on the mesh: each program plain and with tensor parallelism
+        # at model = 1, bit-equal with the same collectives, none profiled
+        audio_programs(card, mesh, gen, out, paths, tp_same)
+        mark("whisper-medium")
+
         # (c) reduced f32: the card against the CPU (gloo, a child process)
         ops.reset_launches()
         card_new = dist_reduced_step("cuda")
@@ -6563,13 +6654,17 @@ TP_BLOCK_MS = (2, 16)       # model sizes of the block's split on the card
 TP_BLOCK_RTOL = 5e-2
 
 
-def tp_block_split(cfg, row: dict, x, dy, M: int):
+def tp_block_split(cfg, row: dict, x, dy, M: int, causal: bool = True,
+                   enc=None):
     """One dense block's parallel form at M model coordinates, computed in
     this process: each coordinate's attention partial
     (``blocks.attention_fwd`` on ``TPLayout.compute_slice`` of the full
     leaves, a ``ModelAxis`` whose f and g are the identity) in turn, summed
-    by hand, then the MLP's on the result.  Returns the output and the
-    gradients of ``x`` and of each full leaf for the cotangent ``dy``."""
+    by hand, then (whisper's decoder block, ``enc`` its encoder output)
+    the cross-attention's over each coordinate's cross k/v
+    (``blocks.make_cross_kv`` of its ``xattn_`` slices), then the MLP's
+    on the result.  Returns the output and the gradients of ``x`` (and of
+    ``enc``) and of each full leaf for the cotangent ``dy``."""
     import torch
     from repro_torch.models import blocks as B
     from repro_torch.models.model import _take
@@ -6578,23 +6673,35 @@ def tp_block_split(cfg, row: dict, x, dy, M: int):
     layout = rules.TPLayout(cfg, M)
     leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
     xin = x.detach().requires_grad_()
+    ins = [xin] if enc is None else [xin, enc.detach().requires_grad_()]
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def one(sub, p, inp, ax):
+        if sub == "attn":
+            return B.attention_fwd(_take(p, "attn_"), inp, cfg,
+                                   positions=pos, causal=causal, tp=ax)
+        if sub == "xattn":
+            xp = _take(p, "xattn_")
+            return B.attention_fwd(xp, inp, cfg, positions=pos,
+                                   cross_kv=B.make_cross_kv(xp, ins[1], cfg),
+                                   causal=False, tp=ax)
+        return B.mlp_fwd(_take(p, "mlp_"), inp, cfg, tp=ax)
 
     def summed(sub, inp):
         n = M if sub == "mlp" or layout.mode != "replicated" else 1
         tot = None
         for m in range(n):
-            ax = ModelAxis(layout, m)
             p = {k: layout.compute_slice(k, v, m) for k, v in leaves.items()}
-            y = (B.attention_fwd(_take(p, "attn_"), inp, cfg, positions=pos,
-                                 tp=ax) if sub == "attn"
-                 else B.mlp_fwd(_take(p, "mlp_"), inp, cfg, tp=ax)).float()
+            y = one(sub, p, inp, ModelAxis(layout, m)).float()
             tot = y if tot is None else tot + y
         return tot.to(inp.dtype)
     h = xin + summed("attn", xin)
+    if enc is not None:
+        h = h + summed("xattn", h)
     out = h + summed("mlp", h)
-    grads = torch.autograd.grad(out, [xin, *leaves.values()], dy)
-    return out.detach(), dict(zip(["x", *leaves], grads))
+    grads = torch.autograd.grad(out, [*ins, *leaves.values()], dy)
+    return out.detach(), dict(zip(["x", "enc"][:len(ins)] + list(leaves),
+                                  grads))
 
 
 def tp_ssm_block_split(cfg, row: dict, x, dy, M: int):
@@ -6640,11 +6747,17 @@ def tp_ssm_block_split(cfg, row: dict, x, dy, M: int):
 # model sizes): TinyLlama's dense block (slice 16's), a Mamba2 block of
 # Mamba2-370M (2 / 16 of 32 SSD heads a coordinate) and of Zamba2-7B (56 /
 # 7 of 112), and Zamba2's shared attention+MLP block at 16 (2 of 32 heads
-# of 112 a coordinate, "heads")
+# of 112, "heads"); slice 20: whisper-medium's encoder block (a dense
+# block of the audio family: non-causal, 4 × 1500 frames) and its decoder
+# block (4 × AUDIO_SEQ, causal self-attention, then cross-attention over
+# a 1500-row encoder output), 8 and 1 of 16 heads and 2048 and 256 of the
+# MLP's 4096 columns a coordinate at M = 2 and 16
 TP_BLOCKS = (("tinyllama_1_1b", "dense", 4, LONG_SEQ, TP_BLOCK_MS),
              ("mamba2_370m", "ssm", 4, SSM_SEQ, TP_BLOCK_MS),
              ("zamba2_7b", "ssm", 4, SSM_SEQ, TP_BLOCK_MS),
-             ("zamba2_7b", "attn_mlp_shared", 4, SSM_SEQ, (16,)))
+             ("zamba2_7b", "attn_mlp_shared", 4, SSM_SEQ, (16,)),
+             ("whisper_medium", "dense", 4, 1500, TP_BLOCK_MS),
+             ("whisper_medium", "encdec", 4, AUDIO_SEQ, TP_BLOCK_MS))
 
 
 # Slice 18: the moe family's blocks split by hand on the card (arch, kind,
@@ -6851,7 +6964,10 @@ def phase_tp_block(card: str) -> dict:
     ``tp_ssm_block_split`` for a Mamba2 block), against the whole block
     (``models.model._dense_block_fwd``, x + ``ssd.mamba2_fwd``): the
     output, the input's gradient and every leaf's within TP_BLOCK_RTOL of
-    the largest magnitude.  A dense block's attention must launch the
+    the largest magnitude (whisper's decoder block: the encoder output's
+    gradient too).  A dense block's attention (whisper's encoder block's
+    non-causal one, its decoder block's causal self-attention; the
+    cross-attention is plain) must launch the
     tensor-core flash kernels M times each way; a Mamba2 block's scan the
     tensor-core ``ssd_scan`` 2 M times (both passes).  The split's
     launches are the paths ``tp_block_m<M>`` (TinyLlama) and
@@ -6874,7 +6990,7 @@ def phase_tp_block(card: str) -> dict:
             gen, _block_shapes(cfg, kind), 1, torch.bfloat16,
             "cuda").items()}
         # the norms' scales away from 0, so their gradients are not vacuous
-        for k in ("attn_ln", "mlp_ln", "ssm_ln", "ssm_gate_ln"):
+        for k in ("attn_ln", "xattn_ln", "mlp_ln", "ssm_ln", "ssm_gate_ln"):
             if k in row:
                 row[k] = (torch.randn(row[k].shape, generator=gen,
                                       device="cuda") * 0.1).to(torch.bfloat16)
@@ -6882,24 +6998,41 @@ def phase_tp_block(card: str) -> dict:
                         device="cuda").to(torch.bfloat16)
         dy = torch.randn(x.shape, generator=gen,
                          device="cuda").to(torch.bfloat16)
+        # whisper: its encoder block attends over all frames; its decoder
+        # block's cross-attention reads an encoder output of enc_seq rows
+        causal = cfg.family != "audio" or kind == "encdec"
+        enc = (torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               if kind == "encdec" else None)
         leaves = {k: v.detach().requires_grad_() for k, v in row.items()}
-        xin = x.detach().requires_grad_()
+        ins = [x.detach().requires_grad_()]
+        if enc is not None:
+            ins.append(enc.detach().requires_grad_())
         pos = torch.arange(s, dtype=torch.int32, device="cuda")
         if kind == "ssm":
-            want = xin + SSD.mamba2_fwd(_take(leaves, "ssm_"), xin, cfg)[0]
+            want = ins[0] + SSD.mamba2_fwd(_take(leaves, "ssm_"), ins[0],
+                                           cfg)[0]
         else:
-            want = _dense_block_fwd(leaves, xin, cfg, positions=pos,
-                                    window=0)
-        want_g = dict(zip(["x", *leaves], torch.autograd.grad(
-            want, [xin, *leaves.values()], dy)))
-        name = cfg.name if kind != "attn_mlp_shared" else \
-            f"{cfg.name} shared"
+            want = _dense_block_fwd(
+                leaves, ins[0], cfg, positions=pos, window=0, causal=causal,
+                cross_kv=None if enc is None else B.make_cross_kv(
+                    _take(leaves, "xattn_"), ins[1], cfg))
+        want_g = dict(zip(["x", "enc"][:len(ins)] + list(leaves),
+                          torch.autograd.grad(
+                              want, [*ins, *leaves.values()], dy)))
+        name = {"attn_mlp_shared": f"{cfg.name} shared",
+                "encdec": f"{cfg.name} decoder"}.get(
+            kind, f"{cfg.name} encoder" if cfg.family == "audio"
+            else cfg.name)
         for M in sizes:
             layout = rules.TPLayout(cfg, M)
             torch.cuda.synchronize()
             ops.reset_launches()
-            got, got_g = (tp_ssm_block_split if kind == "ssm"
-                          else tp_block_split)(cfg, row, x, dy, M)
+            if kind == "ssm":
+                got, got_g = tp_ssm_block_split(cfg, row, x, dy, M)
+            else:
+                got, got_g = tp_block_split(cfg, row, x, dy, M,
+                                            causal=causal, enc=enc)
             torch.cuda.synchronize()
             launches = dict(ops.LAUNCHES)
             tag = (f"m{M}" if arch == "tinyllama_1_1b"
@@ -6928,10 +7061,15 @@ def phase_tp_block(card: str) -> dict:
             res.update(rel_err=errs, launches=launches,
                        rel_l2_err={k: rel2(*v) for k, v in pairs.items()})
             out[tag] = res
-            log(f"[tp-block] {name} {kind} block, {b} × {s}, bf16, M = {M} "
-                f"({share} a coordinate): the hand-summed partials against "
-                f"the whole block, relative to its largest magnitude: out "
-                f"{errs['out']:.3e}, dx {errs['x']:.3e}, worst leaf {worst} "
+            over, denc = "", ""
+            if enc is not None:
+                over = f" over {cfg.enc_seq} encoder rows"
+                denc = f", denc {errs['enc']:.3e}"
+            log(f"[tp-block] {name} {kind} block, {b} × {s}{over}, bf16, M "
+                f"= {M} ({share} a coordinate): the hand-summed partials "
+                f"against the whole block, relative to its largest "
+                f"magnitude: out {errs['out']:.3e}, dx {errs['x']:.3e}"
+                f"{denc}, worst {worst} "
                 f"{errs[worst]:.3e} (limit {TP_BLOCK_RTOL:g}; norm-wise, "
                 f"worst {max(res['rel_l2_err'].values()):.3e}); launches "
                 f"{({k: v for k, v in launches.items() if v})}   [{card}]")
@@ -6953,7 +7091,7 @@ def phase_tp_block(card: str) -> dict:
                       f"attention must launch the tensor-core flash kernels "
                       f"once forward and once backward: {launches}")
             del got, got_g
-        del row, leaves, xin, want, want_g, x, dy
+        del row, leaves, ins, want, want_g, x, dy, enc
         torch.cuda.empty_cache()
     phase_tp_sub_block(card, out, paths)
     out["paths"] = paths
@@ -6979,11 +7117,12 @@ DRYRUN_CARD = (("tinyllama_1_1b", "train_4k", 4),
 # slice 17: Mamba2's three too
 DRYRUN_CARD_TP = DRYRUN_CARD
 # The archs whose --opt (tensor-parallel) programs the dry run runs: the
-# dense family, (slice 17) the ssm and hybrid ones, (slice 18) the moe and
-# (slice 19) the vlm family's language model
+# dense family, (slice 17) the ssm and hybrid ones, (slice 18) the moe,
+# (slice 19) the vlm family's language model and (slice 20) the audio one
 DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
                    "gemma_7b", "mamba2_370m", "zamba2_7b",
-                   "deepseek_v2_lite_16b", "grok_1_314b", "paligemma_3b")
+                   "deepseek_v2_lite_16b", "grok_1_314b", "paligemma_3b",
+                   "whisper_medium")
 # What --opt must at least give a train_4k step on 16 × 16, per device,
 # against the step replicated over 'model': (argument bytes ÷, FLOPs ÷,
 # useful share), None where not held.  SmolLM's attention (15 heads) and
@@ -6992,11 +7131,14 @@ DRYRUN_TP_ARCHS = ("tinyllama_1_1b", "smollm_360m", "codeqwen1_5_7b",
 # splits by heads over a latent whole on every rank (the meta count:
 # FLOPs ÷13.74, useful 0.5344); PaliGemma's 8 heads do not divide by 16,
 # so its attention and the full prefix-LM scores stay whole (÷3.78,
-# 0.1873).
+# 0.1873); whisper's vocabulary (51 865 rows) and the client's 1500 stub
+# frames stay whole on every rank (the meta count: argument ÷6.42, FLOPs
+# ÷10.14, useful 0.5219).
 DRYRUN_TP_MIN = {"smollm_360m": (8, None, None),
                  "mamba2_370m": (4, 4, 0.25),
                  "deepseek_v2_lite_16b": (8, 10, 0.4),
-                 "paligemma_3b": (8, 3, 0.15)}
+                 "paligemma_3b": (8, 3, 0.15),
+                 "whisper_medium": (6, 8, 0.45)}
 # A device's memory, against which the --opt programs' argument and peak
 # temporary bytes are read
 DEVICE_GB = 80.0

@@ -45,12 +45,15 @@ Usage:
 
 ``--opt`` turns on the reference's §Perf levers (:func:`opt_runtime`),
 tensor parallelism over ``model`` among them: the steps of the dense,
-vlm, ssm, hybrid and moe families' language models split over ``model``
-(``sharding/tensor_parallel.py``: DeepSeek's MLA by heads over a latent
-whole on every rank, PaliGemma's prefix-LM blocks as the dense family's;
-a moe model with per-sample dispatch, as the reference's ``--opt`` runs
-it) and write ``…__tp-rematsc-moelocal.json``; the audio family's and
-the classifiers' raise, naming the family.
+vlm, ssm, hybrid, moe and audio families' language models split over
+``model`` (``sharding/tensor_parallel.py``: DeepSeek's MLA by heads over
+a latent whole on every rank, PaliGemma's prefix-LM blocks as the dense
+family's, whisper's encoder and decoder by heads with its cross k/v from
+an encoder output whole on every rank and its 51 865-row vocabulary,
+which 16 does not divide, whole; a moe model with per-sample dispatch,
+as the reference's ``--opt`` runs it) and write
+``…__tp-rematsc-moelocal.json``; the classifiers' (CLIP, XLM-R) raise,
+naming the family.
 """
 from __future__ import annotations
 
@@ -362,9 +365,10 @@ def main(argv=None) -> int:
                     help="enable §Perf levers (tp constraints + chunk remat "
                          "+ per-sample moe dispatch): tensor parallelism "
                          "over 'model' for the language models of the "
-                         "dense, vlm, ssm, hybrid and moe families (MLA "
-                         "split by heads); the audio family's and the "
-                         "classifiers' steps raise")
+                         "dense, vlm, ssm, hybrid, moe and audio families "
+                         "(MLA split by heads; whisper's encoder, decoder "
+                         "and cross-attention by heads); the classifiers' "
+                         "(CLIP, XLM-R) steps raise")
     ap.add_argument("--sel-frac", type=float, default=0.0,
                     help="static selected-layer fraction for sel_upload")
     ap.add_argument("--out", default=OUT_DIR,

@@ -310,7 +310,8 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     ``tp``: the parallel form (``sharding.tensor_parallel.ModelAxis``).
     ``p`` then holds this model coordinate's leaves: ``tp.n_heads`` query
-    heads and ``tp.n_kv_heads`` kv heads (their biases with them); the
+    heads and ``tp.n_kv_heads`` kv heads (their biases with them; a
+    cross-attention's ``cross_kv`` holds the rank's kv heads); the
     normed input passes ``tp.copy`` (Megatron's f) when attention is
     split, and the row-parallel ``wo`` returns this coordinate's partial
     sum, which the caller reduces over ``model``.  Under the replicated
@@ -423,9 +424,12 @@ def _cross_attention(p: dict, q: torch.Tensor, cross_kv: tuple,
 def make_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ArchConfig):
     """Cross-attention k/v, each (B, Se, Kh, hd), from the encoder's output
     and one decoder row's ``xattn_`` leaves (``wk``, ``wv``, and ``bk``,
-    ``bv`` under ``qkv_bias``)."""
+    ``bv`` under ``qkv_bias``).  Kh is read from ``wk``'s width: under
+    tensor parallelism the leaves are a model coordinate's (its
+    ``tp.n_kv_heads`` heads), and so are the k/v."""
     B, Se, _ = enc_out.shape
-    Kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    Kh = p["wk"].shape[-1] // hd
     k = (enc_out @ p["wk"]).reshape(B, Se, Kh, hd)
     v = (enc_out @ p["wv"]).reshape(B, Se, Kh, hd)
     if cfg.qkv_bias:

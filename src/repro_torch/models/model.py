@@ -312,9 +312,10 @@ def _dense_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                         kernel_mode=kernel_mode, tp=tp)
     x = x + (tp.reduce(a) if tp is not None and tp.attn_split else a)
     if "xattn_ln" in p:
-        x = x + B.attention_fwd(_take(p, "xattn_"), x, cfg,
-                                positions=positions, cross_kv=cross_kv,
-                                causal=False, seq_chunk=seq_chunk)
+        a = B.attention_fwd(_take(p, "xattn_"), x, cfg, positions=positions,
+                            cross_kv=cross_kv, causal=False,
+                            seq_chunk=seq_chunk, tp=tp)
+        x = x + (tp.reduce(a) if tp is not None and tp.attn_split else a)
     m = B.mlp_fwd(_take(p, "mlp_"), x, cfg, delta=dmlp, delta_slots=dslots,
                   delta_mode=kernel_mode, tp=tp)
     return x + (m if tp is None else tp.reduce(m))
@@ -419,20 +420,26 @@ class Model:
         return init_params(self.cfg, gen, self.device)
 
     # -- embedding / head --------------------------------------------------
-    def _embed_tokens(self, params, tokens, tp=None):
-        """Token embeddings.  ``tp`` with ``tp.vocab_split``:
-        vocab-parallel, ``tok`` holds this model coordinate's rows; ids
-        outside them embed as zeros and ``tp.reduce`` sums the
-        coordinates' rows (else ``tok`` is whole on every rank)."""
-        cfg = self.cfg
+    @staticmethod
+    def _token_rows(params, tokens, tp=None):
+        """The rows of ``embed.tok`` at ``tokens``.  ``tp`` with
+        ``tp.vocab_split``: vocab-parallel, ``tok`` holds this model
+        coordinate's rows; ids outside them embed as zeros and
+        ``tp.reduce`` sums the coordinates' rows (else ``tok`` is whole on
+        every rank)."""
+        tok = params["embed"]["tok"]
         if tp is None or not tp.vocab_split:
-            x = params["embed"]["tok"][tokens.long()]
-        else:
-            tok = params["embed"]["tok"]
-            local = tokens.long() - tp.vocab_start
-            mine = (local >= 0) & (local < tok.shape[0])
-            x = tp.reduce(torch.where(
-                mine[..., None], tok[local.clamp(0, tok.shape[0] - 1)], 0))
+            return tok[tokens.long()]
+        local = tokens.long() - tp.vocab_start
+        mine = (local >= 0) & (local < tok.shape[0])
+        return tp.reduce(torch.where(
+            mine[..., None], tok[local.clamp(0, tok.shape[0] - 1)], 0))
+
+    def _embed_tokens(self, params, tokens, tp=None):
+        """Token embeddings (:meth:`_token_rows`), plus the sinusoid of
+        positions ``arange(S)`` for a model without RoPE."""
+        cfg = self.cfg
+        x = self._token_rows(params, tokens, tp)
         if cfg.rope_theta == 0.0:
             S = tokens.shape[1]
             pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -537,7 +544,7 @@ class Model:
 
     def encode(self, params: dict, frames: torch.Tensor, *,
                trainable: Optional[dict] = None, cut: int = 0,
-               layer_hook=None) -> torch.Tensor:
+               layer_hook=None, tp=None) -> torch.Tensor:
         """whisper's encoder (the first half of the reference's
         ``_whisper_seq``): the stub frame embeddings (B, enc_seq, d) cast
         to ``frame_proj``'s type and projected, plus sinusoid positions;
@@ -546,7 +553,17 @@ class Model:
         segment's trainable rows) is given, each row through ``layer_hook``
         (segment ``"enc_blocks"``); then ``enc_norm``.  Returns the
         encoder's output (B, enc_seq, d), from which every decoder row
-        builds its cross k/v (:func:`blocks.make_cross_kv`)."""
+        builds its cross k/v (:func:`blocks.make_cross_kv`).
+
+        ``tp``: the parallel form, ``params`` this model coordinate's
+        (``frame_proj`` whole, viewed once by the caller; the rows split
+        as dense blocks, the output whole on every rank).  Where attention
+        splits (``tp.attn_split``) only the rank's heads' cross k/v read
+        the output, so it passes Megatron's f (``tp.copy``) here, once,
+        ahead of every decoder row: the gradients of ``enc_norm``, the
+        encoder rows and ``frame_proj`` are then whole on every rank, for
+        one all-reduce a step rather than one a decoder row.  Under
+        ``"replicated"`` attention every rank reads it whole: no f."""
         cfg, rt = self.cfg, self.runtime
         proj = params["embed"]["frame_proj"]
         e = frames.to(proj.dtype) @ proj
@@ -558,12 +575,14 @@ class Model:
                                     causal=False, window=0,
                                     seq_chunk=rt.seq_chunk,
                                     remat_chunk=rt.remat_scores,
-                                    kernel_mode=self.kernel_mode), carry[1]
+                                    kernel_mode=self.kernel_mode,
+                                    tp=tp), carry[1]
         zero = torch.zeros((), dtype=torch.float32, device=e.device)
         e, _ = self._run_stack(enc_row, (e, zero), params["enc_blocks"],
                                trainable, cut, hook=layer_hook or _no_hook,
                                segment="enc_blocks")
-        return B.rms_norm(e, params["enc_norm"], cfg.norm_eps)
+        e = B.rms_norm(e, params["enc_norm"], cfg.norm_eps)
+        return tp.copy(e) if tp is not None and tp.attn_split else e
 
     def _seq_segments(self, params: dict, positions: torch.Tensor,
                       causal: bool, prefix_len: int,
@@ -585,8 +604,8 @@ class Model:
                                         window=cfg.sliding_window,
                                         seq_chunk=rt.seq_chunk,
                                         remat_chunk=rt.remat_scores,
-                                        kernel_mode=km,
-                                        cross_kv=xkv), carry[1]
+                                        kernel_mode=km, cross_kv=xkv,
+                                        tp=tp), carry[1]
             return [("blocks", encdec_row, None)]
         if cfg.family in ("ssm", "hybrid"):
             after_row = (self._hybrid_sites(params["shared_attn"], positions,
@@ -649,14 +668,17 @@ class Model:
         (a cut at or past ``n_enc_layers``) runs without a graph.
 
         ``tp`` (``sharding.tensor_parallel.ModelAxis``, the language
-        models of the dense, vlm, ssm, hybrid and moe families): the
-        parallel form over ``model``, ``params`` this model coordinate's
-        (the hook's rows too, and the hybrid's shared block, deepseek's
-        ``dense0`` and the embed group, viewed once by the caller: the
-        vlm's ``patch_proj`` whole, so the stub prefix is projected whole
-        on every rank, and the text tokens vocab-parallel where the
-        vocabulary divides); the hidden state and the aux loss come out
-        whole on every rank.
+        models of the dense, vlm, ssm, hybrid, moe and audio families):
+        the parallel form over ``model``, ``params`` this model
+        coordinate's (the hook's rows too, and the hybrid's shared block,
+        deepseek's ``dense0`` and the embed group, viewed once by the
+        caller: the vlm's ``patch_proj`` and whisper's ``frame_proj``
+        whole, so the stub prefix or frames are projected whole on every
+        rank, and the text tokens vocab-parallel where the vocabulary
+        divides); whisper's encoder rows and decoder rows split as dense
+        blocks, their cross-attention by heads over the rank's cross k/v
+        (:meth:`encode` puts f on the encoder's output); the hidden state
+        and the aux loss come out whole on every rank.
         """
         cfg = self.cfg
         if trainable is not None and not supports_prefix_cut(cfg):
@@ -669,8 +691,9 @@ class Model:
                 params, batch["frames"],
                 trainable=(None if trainable is None
                            else trainable.get("enc_blocks", {})),
-                cut=cuts.get("enc_blocks", 0), layer_hook=layer_hook)
-            x = self._embed_tokens(params, batch["tokens"])
+                cut=cuts.get("enc_blocks", 0), layer_hook=layer_hook,
+                tp=tp)
+            x = self._embed_tokens(params, batch["tokens"], tp)
         elif cfg.family == "vlm":
             proj = params["embed"]["patch_proj"]
             px = batch["patches"].to(proj.dtype) @ proj
@@ -931,16 +954,20 @@ class Model:
         whisper: each decoder row's self-attention over its KV row, then
         its cross-attention over ``cache["cross_kv"]`` row ``li``, which
         the caller has filled from the encoder; one shared position only.
+        A model without RoPE (whisper) embeds the token's row and adds the
+        sinusoid of its position ``pos`` once (vocab-parallel under
+        ``tp`` where the vocabulary divides).
 
         ``layer_hook(row_params, idx, "blocks")`` is applied to every
         ``blocks`` row before it runs (the mesh serve step gathers the
         row's ZeRO-3 shards there).
 
         ``tp``: the parallel form over ``model`` (the language models of
-        the dense, vlm, ssm, hybrid and moe families, no delta): this model
-        coordinate's params, a cache of its kv heads and Mamba2 channels
-        and heads (``sharding.serve.shard_cache``; MLA's latent rows
-        whole), the logits whole.
+        the dense, vlm, ssm, hybrid, moe and audio families, no delta):
+        this model coordinate's params, a cache of its kv heads (whisper's
+        cross cache too) and Mamba2 channels and heads
+        (``sharding.serve.shard_cache``; MLA's latent rows whole), the
+        logits whole.
 
         Returns (logits (B, V), cache) — the cache updated in place.
         """
@@ -957,12 +984,14 @@ class Model:
                 "reference's cross-attention under per-slot positions does "
                 "not run, and neither package fills a slot's cross cache "
                 "from the encoder")
-        x = self._embed_tokens(params, tokens[:, None], tp)
         if cfg.rope_theta == 0.0:
-            # sinusoidal position of the *current* slot
+            # sinusoidal position of the *current* slot, added once
             sp = (B.sinusoid_positions(pos[:, None], cfg.d_model) if per_slot
                   else B.sinusoid_positions(pos[None], cfg.d_model)[None])
-            x = params["embed"]["tok"][tokens[:, None].long()] + sp.to(x.dtype)
+            x = self._token_rows(params, tokens[:, None], tp)
+            x = x + sp.to(x.dtype)
+        else:
+            x = self._embed_tokens(params, tokens[:, None], tp)
         positions = (pos[:, None] if per_slot else pos[None]).to(torch.int32)
         w = window or cfg.sliding_window
         hook = layer_hook or _no_hook

@@ -8,7 +8,7 @@ local shards; the cohort meets only in the collectives, which run on the
 compute is replicated over ``model``, as in the reference's own fully
 manual fallback (its ``_shard_map`` docstring).  With
 ``RuntimeConfig(tp_constraints=True)`` the step of the dense, vlm, ssm,
-hybrid and moe families' language models is split over ``model``
+hybrid, moe and audio families' language models is split over ``model``
 instead, the values those of GSPMD under the reference's Megatron
 constraints: a rank stores and computes its model slice
 (``rules.TPLayout``, :func:`storage_layout`), the row loop's hook views
@@ -18,10 +18,11 @@ group once a step, :func:`view_shared`) and the model runs its parallel
 form (f and g around every block's products, MLA's heads over a latent
 whole on every rank, a Mamba2 block split by SSD heads, the routed
 experts by expert or on ff with the routers whole, the vlm's projector
-whole and its prefix-LM attention split as the dense family's, a
+whole and its prefix-LM attention split as the dense family's, whisper's
+``enc_blocks`` and ``blocks`` rows each viewed through their own specs,
+its cross-attention split by heads and its ``frame_proj`` whole, a
 vocab-parallel embedding and cross-entropy where the vocabulary
-divides).  The audio family and the classifiers raise on it
-(``rules.check_tp_family``).
+divides).  The classifiers raise on it (``rules.check_tp_family``).
 
 The per-(client, layer) aggregation of Eq. (5)-(7) is fused into one
 backward pass, with the reference's two tricks:
@@ -291,11 +292,13 @@ def make_fl_train_step(model: Model, mesh, *, zero3: bool = True,
     paper's R/L upload, made structural); the rest of the model is
     gathered without a gradient and stays as it is.
 
-    ``RuntimeConfig(tp_constraints=True)`` (the dense, vlm, ssm, hybrid
-    and moe families' language models): the local shards are
+    ``RuntimeConfig(tp_constraints=True)`` (the dense, vlm, ssm, hybrid,
+    moe and audio families' language models): the local shards are
     :func:`shard_params`'s, model slices included; the Eq.(5) sums are
     unchanged.  The leaves replicated over ``model`` get the same gradient
-    on every model rank: the norms (MLA's ``kv_ln`` too) and the moe
+    on every model rank: the norms (MLA's ``kv_ln``, whisper's
+    ``xattn_ln`` and, through the one f on the encoder's output,
+    ``enc_norm`` too) and the moe
     routers whole through f, MLA's ``w_dkv`` / ``w_krope`` whole on
     every rank and cut to the rank's slice by the gather's backward, and
     the ones a Mamba2 rank
@@ -421,7 +424,10 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
     Under ``RuntimeConfig(tp_constraints=True)`` the local copies are the
     rank's model slices of the R rows, ``masked_update`` runs on them,
     and the local steps issue the model-axis collectives of the parallel
-    form.
+    form.  The rows of the other hooked segment (whisper's
+    ``enc_blocks``, gathered over ``data`` once a round with the frozen
+    base) are viewed through their own specs at each use, as the
+    ``blocks`` rows are.
     """
     cfg = model.cfg
     axis = model_axis(storage_layout(model, mesh), mesh)
@@ -451,8 +457,9 @@ def make_fl_train_step_tau(model: Model, mesh, *, sel_idx: tuple[int, ...],
 
         def hook_for(local_rows):
             def hook(pl, idx, segment):
-                if segment != "blocks":
-                    return pl
+                if segment != "blocks":      # whisper's enc_blocks rows
+                    return pl if axis is None else axis.view_row(
+                        pl, specs[segment])
                 j = slot_of.get(idx)
                 if j is not None:
                     return view({nm: local_rows[nm][j] for nm in pl})

@@ -14,17 +14,17 @@ leaf.  With tensor parallelism off (``RuntimeConfig(tp_constraints=
 False)``) a rank stores the slice of a leaf along the client axes of its
 spec and holds it whole over ``model`` (:func:`local_shard`), as the
 reference's fully manual fallback does.  With it on, for the language
-models of the dense, vlm, ssm, hybrid and moe families, a rank stores the
-slice its spec gives, ``model`` included (:class:`TPLayout`,
+models of the dense, vlm, ssm, hybrid, moe and audio families, a rank
+stores the slice its spec gives, ``model`` included (:class:`TPLayout`,
 :func:`tp_local_shard`), and computes its share of each layer
 (``sharding/tensor_parallel.py``); :func:`attention_mode` says how a
 config's heads split.  :func:`cache_specs` stays the reference's; a
 tensor-parallel decode keeps each rank's kv heads whole over the
-sequence, its Mamba2 conv channels in its own order and MLA's latent rows
-whole on every rank instead (:func:`tp_shard_cache`), a layout difference
-with the same values.  The moe experts' activation constraints (the
-reference's ``make_shard_hook``) are the experts' split itself
-(:meth:`TPLayout.experts`).
+sequence (whisper's cross cache too), its Mamba2 conv channels in its own
+order and MLA's latent rows whole on every rank instead
+(:func:`tp_shard_cache`), a layout difference with the same values.  The
+moe experts' activation constraints (the reference's ``make_shard_hook``)
+are the experts' split itself (:meth:`TPLayout.experts`).
 """
 from __future__ import annotations
 
@@ -283,19 +283,21 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
 # Tensor parallelism over 'model' (RuntimeConfig(tp_constraints=True))
 # ---------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe", "audio")
 
 
 def check_tp_family(cfg: ArchConfig) -> None:
     """Tensor parallelism over ``model`` is ported for the language models
-    of the dense, vlm, ssm, hybrid and moe families; the audio family and
-    the classifiers (CLIP, XLM-R) raise, naming themselves."""
+    of the dense, vlm, ssm, hybrid, moe and audio families (whisper's
+    decoder is one: ``task == "lm"``); the classifiers (CLIP of the vlm
+    family, XLM-R of the dense one) raise, naming their family, name and
+    task: neither package splits a pooled classification head."""
     if cfg.family not in TP_FAMILIES or cfg.task != "lm":
         raise ValueError(
             f"RuntimeConfig(tp_constraints=True): tensor parallelism over "
-            f"the 'model' axis is ported for the dense, vlm, ssm, hybrid "
-            f"and moe families' language models; the audio family waits, "
-            f"and so does the {cfg.family!r} family's {cfg.name} (task "
+            f"the 'model' axis is ported for the language models of the "
+            f"dense, vlm, ssm, hybrid, moe and audio families, not for the "
+            f"{cfg.family!r} family's classifier {cfg.name} (task "
             f"{cfg.task!r}) (ROADMAP.md)")
 
 
@@ -304,14 +306,16 @@ def attention_mode(cfg: ArchConfig, msz: int) -> str:
     heads, K kv heads of ``hd``):
 
     * ``"heads"`` when M divides H and K: a rank computes H/M query heads
-      and their K/M kv heads (every mode at M = 1); MLA (DeepSeek) when M
+      and their K/M kv heads (every mode at M = 1; whisper-medium's 16
+      and 16 at 2 to 16, one head a rank at 16, in self- and
+      cross-attention alike); MLA (DeepSeek) when M
       divides H alone: a rank computes H/M heads of ``wq``, of the
       ``w_ukv`` expansion and of ``wo``, and the latent (``w_dkv``,
       ``w_krope``, ``kv_ln``), which every head reads, whole;
     * ``"kv_shared"`` when M divides H and K divides M (and K·hd): a rank
       computes H/M query heads, all of one kv head, whose ``wk`` / ``wv``
       columns it all-gathers over ``model`` (PaliGemma's one kv head at 2,
-      4 and 8);
+      4 and 8; reduced whisper's 4 over 2 at 4);
     * ``"replicated"`` otherwise (SmolLM's 15 heads, PaliGemma's 8 at
       16): attention runs whole on every rank, its leaves all-gathered
       over ``model``; only the MLP or the experts, the embedding and the
@@ -331,8 +335,10 @@ class TPLayout:
     """A model's storage and compute under tensor parallelism over a
     ``model`` axis of ``size`` ranks: the dense and vlm families' blocks,
     the ssm and hybrid families' Mamba2 blocks, the hybrid's shared block,
-    which splits as a dense block, and the moe family's blocks and
-    ``dense0``, their attention MLA or GQA.
+    which splits as a dense block, the moe family's blocks and
+    ``dense0``, their attention MLA or GQA, and whisper's encoder rows
+    (``enc_blocks``) and decoder rows, whose cross-attention (``xattn_``)
+    splits as their self-attention.
 
     Storage (:func:`tp_local_shard`): a rank holds the slice of each leaf
     that its spec gives, ``model`` included; a tuple entry ``(model,
@@ -353,13 +359,18 @@ class TPLayout:
     where ``size`` divides H: ``wq`` (H·(nope + rope)), ``w_ukv``
     (H·(nope + v), each head's [nope | v] side by side) and ``wo``'s rows
     (H·v); its latent projections ``w_dkv`` / ``w_krope`` are stored
-    split by their spec and all-gathered over ``model`` whole, as is the
-    vlm projector ``patch_proj``.
+    split by their spec and all-gathered over ``model`` whole, as are the
+    vlm projector ``patch_proj`` and whisper's ``frame_proj``.  A plain
+    (not gated) ``mlp_wi`` (whisper's GELU MLP) keeps the contiguous
+    split, which is the rank's columns already.
 
     Compute (:meth:`compute_slice`): model coordinate m computes query
     heads :meth:`q_heads` and kv heads :meth:`kv_heads` (all of them under
     ``"replicated"``; an MLA head's width taken per leaf, its latent
-    whole), the m-th 1/size of each MLP's columns
+    whole), in whisper's cross-attention as in its self-attention
+    (``xattn_wq`` / ``wk`` / ``wv`` by heads on the last dim, ``xattn_wo``
+    on its rows, ``xattn_ln`` whole), the m-th 1/size of each MLP's
+    columns
     (``d_ff`` wide, ``dense0``'s ``d_ff · (top_k + n_shared_experts)``,
     the shared experts' ``d_ff · n_shared_experts``), the SSD heads
     :meth:`ssm_heads` with their ``d_inner / size`` channels of z and x
@@ -490,16 +501,17 @@ class TPLayout:
 
     def compute_slice(self, name: str, row, m: int):
         """What model coordinate m computes with of one full row's leaf
-        ``name`` (``attn_wq``, ``mlp_wi``, ``ssm_in_proj``, ``moe_wi_e``,
-        …, of a ``blocks`` or ``dense0`` row or of the hybrid's shared
-        block): the parallel form's weights, as the step's gathers leave
-        them."""
-        if name in ("attn_ln", "mlp_ln", "ssm_ln", "moe_ln", "moe_router"):
+        ``name`` (``attn_wq``, ``xattn_wk``, ``mlp_wi``, ``ssm_in_proj``,
+        ``moe_wi_e``, …, of a ``blocks``, ``enc_blocks`` or ``dense0`` row
+        or of the hybrid's shared block): the parallel form's weights, as
+        the step's gathers leave them."""
+        if name in ("attn_ln", "xattn_ln", "mlp_ln", "ssm_ln", "moe_ln",
+                    "moe_router"):
             return row
         if name.startswith("ssm_"):
             return self._ssm_slice(name[len("ssm_"):], row, m)
-        if name.startswith("attn_"):
-            leaf = name[len("attn_"):]
+        if name.startswith(("attn_", "xattn_")):
+            leaf = name.split("_", 1)[1]
             if self.mode == "replicated" or leaf in self.LATENT:
                 return row
             hd = self.head_width(leaf)
@@ -596,7 +608,11 @@ def tp_shard_cache(cache: PyTree, c_specs: PyTree, mesh,
     """This rank's decode cache under tensor parallelism: the batch rows
     of :func:`shard_tree` by ``c_specs`` (:func:`cache_specs`, the
     reference's), then of each ``k`` / ``v`` leaf (L, B, W, K, hd) the kv
-    heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W; of
+    heads the rank computes (:meth:`TPLayout.kv_heads`), whole over W:
+    whisper's ``cross_kv`` (L, B, enc_seq, K, hd) too, which is the
+    reference's split of it on K (under ``"kv_shared"`` the rank's one
+    kv head, which the reference's rule, K not dividing, would split on
+    enc_seq instead); of
     a Mamba2 ``conv`` leaf (L, B, K−1, x | B | C) the rank's channels of x
     and all of B | C, and of a ``state`` leaf (L, B, H, P, N) its SSD
     heads; MLA's latent ``ckv`` / ``krope`` rows stay whole on every rank,

@@ -9,17 +9,19 @@ of the step.  The batch and the KV / state caches are split over the
 client axes when their batch divides (``rules.batch_spec_serve``,
 ``rules.cache_specs``).  By default a rank runs its own rows whole over
 ``model``.  With ``RuntimeConfig(tp_constraints=True)`` (the language
-models of the dense, vlm, ssm, hybrid and moe families) a rank stores its
-model slice (``fl_step.storage_layout``), computes its heads (MLA's over
-the whole latent), MLP columns, SSD heads, experts or their ff columns
-and, where the vocabulary divides, vocabulary rows
-(``tensor_parallel.ModelAxis``; the hybrid's shared block, deepseek's
-``dense0`` and the embed group viewed once a step: a vlm prefill
-projects its stub prefix whole on every rank), keeps its kv heads' cache
-rows whole over the sequence, its Mamba2 conv channels and state heads
-and MLA's latent rows whole (``rules.tp_shard_cache``), and all-gathers
-split last-position logits over ``model`` before it returns or argmaxes
-them.  A moe model whose
+models of the dense, vlm, ssm, hybrid, moe and audio families) a rank
+stores its model slice (``fl_step.storage_layout``), computes its heads
+(MLA's over the whole latent; whisper's in self- and cross-attention),
+MLP columns, SSD heads, experts or their ff columns and, where the
+vocabulary divides, vocabulary rows (``tensor_parallel.ModelAxis``; the
+hybrid's shared block, deepseek's ``dense0`` and the embed group viewed
+once a step: a vlm prefill projects its stub prefix, a whisper prefill
+its batch's ``frames``, whole on every rank), keeps its kv heads' cache
+rows whole over the sequence (whisper's ``cross_kv``, which the caller
+fills from ``Model.encode``, too), its Mamba2 conv channels and state
+heads and MLA's latent rows whole (``rules.tp_shard_cache``), and
+all-gathers split last-position logits over ``model`` before it returns
+or argmaxes them.  A moe model whose
 routers share their capacity across the batch keeps the batch whole on
 every rank (:func:`batch_spec`).
 
@@ -97,7 +99,9 @@ def gathered(params: dict, specs: dict, mesh, axis=None):
 def make_prefill_step(model: Model, mesh, *, zero3: bool = True):
     """``build(params_shapes, batch_shapes) -> (prefill, specs)``;
     ``prefill(params, batch)`` returns ``Model.logits_seq`` of this rank's
-    batch rows (last-position logits, or the classifier's)."""
+    batch rows (last-position logits, or the classifier's); ``batch``
+    carries every input of the family (``tokens``, a vlm's ``patches``,
+    whisper's ``frames``), each laid out by :func:`batch_spec`."""
     cfg = model.cfg
     axis = model_axis(storage_layout(model, mesh), mesh)
     mesh_shape = dict(mesh.shape)
@@ -122,7 +126,9 @@ def make_serve_step(model: Model, mesh, *, zero3: bool = True,
     ``build(params_shapes, cache_shapes, batch) -> (serve, (specs,
     cache_specs))``; ``serve(params, tokens, pos, cache)`` returns
     (next tokens (argmax, int32), logits, cache), the cache (laid out by
-    :func:`shard_cache`) updated in place, for this rank's rows."""
+    :func:`shard_cache`) updated in place, for this rank's rows.
+    whisper's cache carries ``cross_kv``, filled by the caller from
+    ``Model.encode`` before :func:`shard_cache` lays it out."""
     cfg = model.cfg
     axis = model_axis(storage_layout(model, mesh), mesh)
     mesh_shape = dict(mesh.shape)

@@ -1,8 +1,8 @@
 """Tensor parallelism over the mesh's ``model`` axis for the language
-models of the dense, vlm, ssm, hybrid and moe families (new; the reference
-gets the same values from GSPMD under ``RuntimeConfig(tp_constraints=
-True)``, whose Megatron constraints are ``repro/sharding/fl_step.py``'s
-``_tp_constrain`` and ``_model_only``).
+models of the dense, vlm, ssm, hybrid, moe and audio families (new; the
+reference gets the same values from GSPMD under ``RuntimeConfig(
+tp_constraints=True)``, whose Megatron constraints are
+``repro/sharding/fl_step.py``'s ``_tp_constrain`` and ``_model_only``).
 
 Megatron's split of a block: the column-parallel products (``wq``,
 ``wk``, ``wv``, ``mlp_wi``, a Mamba2 ``in_proj``, the head) take their
@@ -32,7 +32,13 @@ ahead of both paths would count it ``size`` times.  Where the heads do
 not divide, MLA runs replicated, every attention leaf all-gathered.  The
 vlm family's projector ``patch_proj`` is all-gathered over ``model`` the
 same way (the stub prefix projected whole on every rank), and its
-prefix-LM attention splits as the dense family's.  The embedding and the
+prefix-LM attention splits as the dense family's.  whisper (the audio
+family) splits its encoder and decoder rows as dense blocks, its
+cross-attention by heads as its self-attention (``xattn_`` leaves through
+the same views), its stub ``frame_proj`` all-gathered whole as
+``patch_proj`` is; the normed encoder output, which only the rank's split
+cross k/v read, passes one f ahead of every decoder row
+(``Model.encode``), not one a row.  The embedding and the
 cross-entropy are vocab-parallel where the vocabulary divides
 (``models/model.py``).  Every collective goes through the counted
 helpers of ``sharding/collectives.py``.
@@ -206,7 +212,8 @@ class ModelAxis:
         ``data`` (model slices), turned into what the rank computes with;
         ``specs`` are the leaves' specs, ``lead`` the leading dims they
         have and the row has not (1 for a stacked ``blocks`` row, 0 for the
-        hybrid's unstacked shared block).  Attention: under
+        hybrid's unstacked shared block).  Attention, whisper's
+        cross-attention (``xattn_``) alike: under
         ``"kv_shared"`` ``wk`` / ``wv`` (and ``bk`` / ``bv``) all-gathered
         over ``model`` (reduce-scatter backward) and narrowed to the rank's
         kv head; under ``"replicated"`` every split attention leaf, and
@@ -215,16 +222,17 @@ class ModelAxis:
         the B | C columns all-gathered, the replicated vectors narrowed.
         A moe row's ``moe_`` leaves and a ``dense0`` row's MLP are the
         rank's already.  The embed group's ``patch_proj`` (the vlm
-        projector) is all-gathered whole (its own slice backward); ``tok``
-        stays the rank's vocabulary rows."""
+        projector) and ``frame_proj`` (whisper's) are all-gathered whole
+        (their own slice backward); ``tok`` stays the rank's vocabulary
+        rows."""
         out = {}
         for nm, x in row.items():
             if nm.startswith("ssm_"):
                 out[nm] = self._ssm_leaf(nm[len("ssm_"):], x)
-            elif nm.startswith("attn_"):
-                out[nm] = self._attn_leaf(nm[len("attn_"):], x,
+            elif nm.startswith(("attn_", "xattn_")):
+                out[nm] = self._attn_leaf(nm.split("_", 1)[1], x,
                                           rules.model_dim(specs[nm]), lead)
-            elif nm == "patch_proj":
+            elif nm in ("patch_proj", "frame_proj"):
                 out[nm] = self._whole(x, rules.model_dim(specs[nm]), lead)
             else:
                 out[nm] = x

@@ -205,15 +205,16 @@ def _leaves(tree):
 
 def case_prefill(case, mesh):
     """Mesh prefill: this rank's rows of the batch (``tokens``, and a vlm's
-    stub ``patches`` where the case has them), their logits."""
+    stub ``patches`` or whisper's stub ``frames`` where the case has
+    them), their logits."""
     import torch
 
     from repro_torch.bridge import params_to_local
     from repro_torch.sharding import rules
     from repro_torch.sharding.serve import batch_spec, make_prefill_step
     model = _model(case)
-    batch = {k: torch.from_numpy(case[k]) for k in ("tokens", "patches")
-             if k in case}
+    batch = {k: torch.from_numpy(case[k])
+             for k in ("tokens", "patches", "frames") if k in case}
     tokens = batch["tokens"]
     prefill, specs = make_prefill_step(model, mesh, zero3=case["zero3"])(
         case["params"], batch)
@@ -228,7 +229,10 @@ def case_prefill(case, mesh):
 
 def case_decode(case, mesh):
     """Greedy decode through the mesh serve step, from a prompt fed one
-    token a step: this rank's rows' tokens and last logits."""
+    token a step: this rank's rows' tokens and last logits.  whisper's
+    case carries its filled cross cache (``cross_kv``: full ``k`` / ``v``
+    (L, B, enc_seq, K, hd), as the parent filled it from the reference's
+    encoder), which ``shard_cache`` lays out with the rest."""
     import torch
 
     from repro_torch.bridge import params_to_local
@@ -240,6 +244,9 @@ def case_decode(case, mesh):
     B, P = prompt.shape
     steps = case["steps"]
     cache = model.init_cache(B, P + steps)
+    if "cross_kv" in case:
+        cache["cross_kv"] = {k: torch.from_numpy(v)
+                             for k, v in case["cross_kv"].items()}
     serve, (specs, c_specs) = make_serve_step(
         model, mesh, zero3=case["zero3"])(case["params"], cache, B)
     local = params_to_local(case["params"], specs, mesh,
@@ -248,6 +255,7 @@ def case_decode(case, mesh):
     b_spec = batch_spec(model, mesh, B)
     prompt = rules.local_shard(prompt, b_spec, mesh)
     out, tok = [], prompt[:, 0]
+    mine = {k: tuple(v.shape) for k, v in cache.get("cross_kv", {}).items()}
     for t in range(P + steps - 1):
         pos = torch.tensor(t, dtype=torch.int32)
         nxt, logits, cache = serve(local, tok, pos, cache)
@@ -255,7 +263,8 @@ def case_decode(case, mesh):
         if t + 1 >= P:
             out.append(nxt)
     return {"tokens": torch.stack(out, 1).numpy(), "logits": logits.numpy(),
-            "rows": rules.local_shard(torch.arange(B), b_spec, mesh).numpy()}
+            "rows": rules.local_shard(torch.arange(B), b_spec, mesh).numpy(),
+            "cross_kv_shapes": mine}
 
 
 def case_tp_round_trip(case, mesh):
@@ -391,6 +400,49 @@ def case_tp_vlm_grads(case, mesh):
                       "attn_ln": g_ln.numpy()}}
 
 
+def case_tp_audio_grads(case, mesh):
+    """whisper's loss of ``case["batch"]`` (``frames`` and ``tokens``,
+    every rank the same rows) under its parallel form, its params stored
+    without ZeRO-3 (the data ranks hold the same model slices): the loss,
+    the gradient of every stored leaf (the rank's slices of the split
+    ones) and of the whole ``frame_proj`` the rank gathers over
+    ``model``, and the rank's storage of ``case["want"]`` (the
+    single-host gradients, full) to hold them against."""
+    import torch
+
+    from repro_torch.bridge import params_to_local
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.fl_step import (model_axis, storage_layout,
+                                              view_shared)
+    from repro_torch.tree import tree_items
+    model = _model(case)
+    layout = storage_layout(model, mesh)
+    axis = model_axis(layout, mesh)
+    specs = rules.params_pytree_specs(model.cfg, case["params"], zero3=False,
+                                      mesh_shape=dict(mesh.shape))
+    local = params_to_local(case["params"], specs, mesh, layout=layout)
+    local = {g: {k: v.detach().requires_grad_() for k, v in sub.items()}
+             if isinstance(sub, dict) else sub.detach().requires_grad_()
+             for g, sub in local.items()}
+    params = view_shared(local, specs, axis)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    hook = (lambda pl, idx, seg: axis.view_row(pl, specs[seg]))
+    h, aux, prefix = model.hidden_seq(params, batch, tp=axis,
+                                      layer_hook=hook)
+    loss = model.loss_from_hidden(params, h, aux, prefix, batch, tp=axis)
+    leaves = tree_items(local)
+    whole = params["embed"]["frame_proj"]
+    grads = torch.autograd.grad(loss, [t for _, t in leaves] + [whole])
+    want = params_to_local(case["want"], specs, mesh, layout=layout)
+    return {"loss": float(loss), "mode": axis.mode,
+            "vocab_split": axis.vocab_split,
+            "grads": {"/".join(p): g.numpy()
+                      for (p, _), g in zip(leaves, grads)},
+            "frame_proj_whole": grads[-1].numpy(),
+            "want_whole": case["want"]["embed"]["frame_proj"],
+            "want": {"/".join(p): t.numpy() for p, t in tree_items(want)}}
+
+
 def case_dryrun_facts(case, mesh):
     """``launch.dryrun.build_program`` of a reduced arch at a small
     ``ShapeConfig`` on this mesh (meta stand-ins on a fake world, seeded
@@ -449,7 +501,8 @@ CASES = {"fl_step": case_fl_step, "fl_step_tau": case_fl_step_tau,
          "tp_round_trip": case_tp_round_trip,
          "tp_ssm_block": case_tp_ssm_block,
          "tp_moe_grads": case_tp_moe_grads,
-         "tp_vlm_grads": case_tp_vlm_grads, "fail": case_fail}
+         "tp_vlm_grads": case_tp_vlm_grads,
+         "tp_audio_grads": case_tp_audio_grads, "fail": case_fail}
 
 
 def _mesh_dims(m: dict) -> tuple:

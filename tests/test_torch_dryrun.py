@@ -26,10 +26,10 @@
   kind derived from the layer layout; with ``--opt`` (tensor parallelism)
   the dense family's ``train_4k`` per device: FLOPs, useful share and
   argument bytes against the replicated step's;
-* PaliGemma's three programs and DeepSeek's train step (MLA split by
-  heads) under tensor parallelism on the fake world: their model-axis
-  collectives counted from the layout;
-* the refusals: ``--opt`` on a family without tensor parallelism (audio), a dry
+* PaliGemma's and whisper's three programs and DeepSeek's train step
+  (MLA split by heads) under tensor parallelism on the fake world: their
+  model-axis collectives counted from the layout;
+* the refusals: ``--opt`` on a classifier (XLM-R), a dry
   mesh inside an existing world, and the world torn down after a
   failure; the CLI's JSON.
 
@@ -318,16 +318,20 @@ def test_fake_world_matches_gloo_tp_moe(arch, kind, worlds):
             > f["collective_counts"]["all-gather"]) == more
 
 
-# PaliGemma (prefix-LM, one kv head: "kv_shared" at 2) and DeepSeek (MLA
-# split by heads) under tensor parallelism, 3 layers, on the fake world only
+# PaliGemma (prefix-LM, one kv head: "kv_shared" at 2), DeepSeek (MLA
+# split by heads) and whisper (2 encoder rows and 3 decoder rows, "heads"
+# at 2 in self- and cross-attention, the vocabulary of 512 split) under
+# tensor parallelism, 3 layers, on the fake world only
 VLM_MLA = ([("paligemma_3b", k) for k in SHAPES]
-           + [("deepseek_v2_lite_16b", "train")])
+           + [("deepseek_v2_lite_16b", "train")]
+           + [("whisper_medium", k) for k in SHAPES])
 
 
 @pytest.fixture(scope="module")
 def vlm_mla():
     """Rank 0's facts of each VLM_MLA pair on the fake (2, 2) world, plain
-    and under tensor parallelism (the moe one with per-sample dispatch)."""
+    and under tensor parallelism (the moe one with per-sample
+    dispatch)."""
     cases = [_facts_case(a, k, tp=tp, layers=3,
                          **({"local": True, "experts": 4}
                             if a.startswith("deepseek") else {}))
@@ -339,7 +343,7 @@ def vlm_mla():
             for i, pair in enumerate(VLM_MLA)}
 
 
-@pytest.mark.parametrize("arch,kind", VLM_MLA)
+@pytest.mark.parametrize("arch,kind", VLM_MLA[:-len(SHAPES)])
 def test_dry_run_tp_counts_of_paligemma_and_mla(arch, kind, vlm_mla):
     """Host-side counts of the split programs against the plain ones on
     the fake world: FLOPs and argument bytes down, the model-axis
@@ -367,6 +371,36 @@ def test_dry_run_tp_counts_of_paligemma_and_mla(arch, kind, vlm_mla):
     # the heads, experts and MLP split over 2; the routers, the latent
     # projections and the head's vocabulary remainder stay whole
     assert tp["flops"] <= 0.52 * plain["flops"]
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_dry_run_tp_counts_of_whisper(kind, vlm_mla):
+    """Host-side counts of whisper's split programs (E = 2 encoder rows,
+    D = 3 decoder rows, "heads" at 2) against the plain ones on the fake
+    world: FLOPs halved but for the few whole leaves, argument bytes
+    down; exactly the model-axis all-reduces the layout implies — g after
+    each split sub-block (2 an encoder row, 3 a decoder row: self-,
+    cross-attention, MLP), the vocab-parallel embedding's sum, and in
+    training f's backward of each (as many), the one f on the encoder's
+    output and the vocab-parallel cross-entropy's f, max and sums — and
+    one more all-gather (``frame_proj`` whole once a step), two when
+    serving (the logits); the ZeRO-3 reduce-scatters unchanged."""
+    plain, tp = vlm_mla["whisper_medium", kind]
+    E, D = 2, 3
+    assert tp["flops"] < 0.52 * plain["flops"]
+    assert tp["arg_bytes"] < 0.52 * plain["arg_bytes"]
+    # the g's and the embedding's; decode runs no encoder row (its cross
+    # cache is filled)
+    g = 2 * E * (kind != "decode") + 3 * D + 1
+    if kind == "train":
+        g = 2 * g - 1 + 1 + 3              # f's, the encoder's f, the CE
+    assert (tp["collective_counts"]["all-reduce"]
+            - plain["collective_counts"].get("all-reduce", 0)) == g
+    assert (tp["collective_counts"]["all-gather"]
+            - plain["collective_counts"]["all-gather"]) == 1 + (
+                kind != "train")
+    assert tp["collective_counts"].get("reduce-scatter", 0) == \
+        plain["collective_counts"].get("reduce-scatter", 0)
 
 
 def test_dry_mesh_refused_inside_a_world(worlds):
@@ -673,9 +707,11 @@ def test_cli_opt_writes_the_tensor_parallel_report(tmp_path):
 
 
 def test_cli_opt_raises_for_a_family_without_tensor_parallelism(tmp_path):
-    r = _cli("--arch", "whisper_medium", "--shape", "train_4k",
+    """``--opt`` on a classifier (XLM-R, of the dense family) raises,
+    naming it, and writes no report."""
+    r = _cli("--arch", "xlm_roberta_base", "--shape", "train_4k",
              "--opt", tmp=tmp_path)
     assert r.returncode != 0
     assert "tensor parallelism over the 'model' axis" in r.stderr
-    assert "'audio' family" in r.stderr
+    assert "'dense' family's classifier xlm-roberta-base" in r.stderr
     assert not list(tmp_path.iterdir())

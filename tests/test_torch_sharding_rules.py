@@ -179,10 +179,10 @@ def test_input_specs_match_reference(arch):
 
 
 def test_tp_constraints_raise():
-    """Tensor parallelism over 'model' is ported for the dense, ssm,
-    hybrid and moe families: asking for it on another family (here audio)
-    raises rather than replicating silently."""
-    cfg = tcfg.reduced(tcfg.get_arch("whisper_medium"), n_layers=2,
+    """Tensor parallelism over 'model' is ported for the language models
+    of every family: asking for it on a classifier (here XLM-R) raises
+    rather than replicating silently."""
+    cfg = tcfg.reduced(tcfg.get_arch("xlm_roberta_base"), n_layers=2,
                        d_model=32)
     model = tmodel.Model(cfg, tcfg.RuntimeConfig(tp_constraints=True),
                          device="cpu")

@@ -334,11 +334,10 @@ def test_attention_mode_of_the_dense_family(arch, want):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("whisper_medium", "audio"), ("clip_vit_b32", "vlm"),
-    ("xlm_roberta_base", "dense")])
+    ("clip_vit_b32", "vlm"), ("xlm_roberta_base", "dense")])
 def test_tp_refused_for_other_families(arch, family):
-    """The audio family and the classifiers (CLIP of the vlm family, XLM-R
-    of the dense one) raise, naming their family."""
+    """The classifiers (CLIP of the vlm family, XLM-R of the dense one)
+    raise, naming their family and themselves."""
     from repro_torch.configs.base import RuntimeConfig as TRuntime
     from repro_torch.configs.base import get_arch as tget
     from repro_torch.configs.base import reduced as treduced
@@ -348,7 +347,8 @@ def test_tp_refused_for_other_families(arch, family):
                    TRuntime(tp_constraints=True), device="cpu")
     mesh = SimpleNamespace(shape={"data": 1, "model": 2},
                            axis_names=("data", "model"))
-    match = f"tensor parallelism over the 'model' axis.*'{family}' family"
+    match = (f"tensor parallelism over the 'model' axis.*'{family}' "
+             f"family's classifier {model.cfg.name}")
     for make in (fl_step.make_fl_train_step, serve.make_prefill_step,
                  serve.make_serve_step):
         with pytest.raises(ValueError, match=match):
@@ -377,3 +377,28 @@ def test_tp_accepted_for_paligemma():
     assert callable(fl_step.make_fl_train_step_tau(model, mesh, sel_idx=(0,),
                                                    tau=2))
     assert rules.TPLayout(model.cfg, 2).mode == "kv_shared"
+
+
+def test_tp_accepted_for_whisper():
+    """The audio family builds every tensor-parallel step: reduced
+    whisper's self- and cross-attention ``"heads"`` at 2 (4 heads over 2
+    kv heads), ``"kv_shared"`` at 4, its plain GELU MLP not gated; the
+    steps themselves run in tests/test_torch_tensor_parallel_audio.py."""
+    from repro_torch.configs.base import RuntimeConfig as TRuntime
+    from repro_torch.configs.base import get_arch as tget
+    from repro_torch.configs.base import reduced as treduced
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.sharding import fl_step, rules, serve
+    model = TModel(treduced(tget("whisper_medium"), n_layers=2, d_model=32),
+                   TRuntime(tp_constraints=True), device="cpu")
+    mesh = SimpleNamespace(shape={"data": 1, "model": 2},
+                           axis_names=("data", "model"),
+                           group=lambda axes: None, coord=lambda axis: 1)
+    for make in (fl_step.make_fl_train_step, serve.make_prefill_step,
+                 serve.make_serve_step):
+        assert callable(make(model, mesh))
+    assert callable(fl_step.make_fl_train_step_tau(model, mesh, sel_idx=(0,),
+                                                   tau=2))
+    layout = rules.TPLayout(model.cfg, 2)
+    assert layout.mode == "heads" and not layout.gated
+    assert rules.TPLayout(model.cfg, 4).mode == "kv_shared"
