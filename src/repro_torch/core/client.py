@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import aggregation as agg
 from repro_torch.core import masks as M
 from repro_torch.core.strategies import PROBE_KEYS
@@ -339,32 +340,36 @@ class Client:
         Returns (new global params, per-client mean local losses on the
         device).
         """
-        cfg = self.cfg
-        mt = self._device_f32(masks)
-        n = mt.shape[0]
-        if cut is not None and cut >= self.model.n_selectable:
-            with torch.no_grad():
-                losses = torch.stack([torch.stack([
-                    self.model.seq_loss(params, _row(batches, i, s))
-                    for s in range(next(iter(batches.values())).shape[1])
-                ]).mean() for i in range(n)])
-            return params, losses
-        weights = M.aggregation_weights(mt, self._device_f32(sizes))  # Eq. 7
-        if cut is None:
-            deltas, losses = self._stacked_deltas(
-                lambda i: self._local_update_impl(params, _row(batches, i),
-                                                  mt[i], lr), n)
-            update = agg.aggregate_stacked(deltas, weights, cfg)
-            del deltas
-            new_params = agg.apply_suffix_update(params, update, lr, 0, cfg)
-        else:
-            deltas, losses = self._stacked_deltas(
-                lambda i: self._masked_local_update(params, _row(batches, i),
-                                                    mt[i], lr, cut), n)
-            update = agg.aggregate_suffix(deltas, weights, cut, cfg)
-            del deltas
-            new_params = agg.apply_suffix_update(params, update, lr, cut, cfg)
-        return new_params, losses
+        with tracing.span("update", device=self.model.device):
+            cfg = self.cfg
+            mt = self._device_f32(masks)
+            n = mt.shape[0]
+            if cut is not None and cut >= self.model.n_selectable:
+                with torch.no_grad():
+                    tau = next(iter(batches.values())).shape[1]
+                    losses = torch.stack([torch.stack([
+                        self.model.seq_loss(params, _row(batches, i, s))
+                        for s in range(tau)]).mean() for i in range(n)])
+                return params, losses
+            # Eq. 7
+            weights = M.aggregation_weights(mt, self._device_f32(sizes))
+            if cut is None:
+                deltas, losses = self._stacked_deltas(
+                    lambda i: self._local_update_impl(
+                        params, _row(batches, i), mt[i], lr), n)
+                update = agg.aggregate_stacked(deltas, weights, cfg)
+                del deltas
+                new_params = agg.apply_suffix_update(params, update, lr, 0,
+                                                     cfg)
+            else:
+                deltas, losses = self._stacked_deltas(
+                    lambda i: self._masked_local_update(
+                        params, _row(batches, i), mt[i], lr, cut), n)
+                update = agg.aggregate_suffix(deltas, weights, cut, cfg)
+                del deltas
+                new_params = agg.apply_suffix_update(params, update, lr,
+                                                     cut, cfg)
+            return new_params, losses
 
     def cohort_update(self, params: dict, batches: dict, masks, sizes,
                       lr: float, cut: Optional[int] = None
@@ -392,19 +397,22 @@ class Client:
         marks the rows that aggregated (alive, finite and under
         ``max_delta_sq``).
         """
-        cfg = self.cfg
-        mt = self._device_f32(masks)
-        deltas, losses = self._stacked_deltas(
-            lambda i: self._local_update_impl(params, _row(batches, i),
-                                              mt[i], lr), mt.shape[0])
-        agg.corrupt_delta_rows(deltas, codes, explode_scale)
-        ok = agg.finite_row_mask(deltas, max_delta_sq) \
-            * self._device_f32(survivors)
-        agg.zero_delta_rows(deltas, ok)
-        weights = M.aggregation_weights(mt, self._device_f32(sizes) * ok)
-        update = agg.aggregate_stacked(deltas, weights, cfg)
-        del deltas
-        return agg.apply_suffix_update(params, update, lr, 0, cfg), losses, ok
+        with tracing.span("update", device=self.model.device):
+            cfg = self.cfg
+            mt = self._device_f32(masks)
+            deltas, losses = self._stacked_deltas(
+                lambda i: self._local_update_impl(params, _row(batches, i),
+                                                  mt[i], lr), mt.shape[0])
+            agg.corrupt_delta_rows(deltas, codes, explode_scale)
+            ok = agg.finite_row_mask(deltas, max_delta_sq) \
+                * self._device_f32(survivors)
+            agg.zero_delta_rows(deltas, ok)
+            weights = M.aggregation_weights(mt,
+                                            self._device_f32(sizes) * ok)
+            update = agg.aggregate_stacked(deltas, weights, cfg)
+            del deltas
+            new_params = agg.apply_suffix_update(params, update, lr, 0, cfg)
+            return new_params, losses, ok
 
     def cohort_update_guarded(self, params: dict, batches: dict, masks, sizes,
                               lr: float, survivors, codes, explode_scale,
@@ -454,17 +462,18 @@ class Client:
         requested keys, each the mean over the selection batches, plus
         ``"scores"`` when a strategy's device ``score_fn`` is given (applied
         to the meaned stats on the device)."""
-        n, nb = next(iter(batches.values())).shape[:2]
-        rows = []
-        for i in range(n):
-            outs = [self._probe_one(params, _row(batches, i, b), tuple(reqs))
-                    for b in range(nb)]
-            rows.append({k: torch.stack([o[k] for o in outs]).mean(0)
-                         for k in outs[0]})
-        stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-        if score_fn is not None:
-            stats = dict(stats, scores=score_fn(stats))
-        return stats
+        with tracing.span("probe", device=self.model.device):
+            n, nb = next(iter(batches.values())).shape[:2]
+            rows = []
+            for i in range(n):
+                outs = [self._probe_one(params, _row(batches, i, b),
+                                        tuple(reqs)) for b in range(nb)]
+                rows.append({k: torch.stack([o[k] for o in outs]).mean(0)
+                             for k in outs[0]})
+            stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+            if score_fn is not None:
+                stats = dict(stats, scores=score_fn(stats))
+            return stats
 
     def probe_cohort(self, params: dict, batches: dict,
                      reqs: tuple = PROBE_KEYS,
@@ -496,14 +505,15 @@ class Client:
         """One forward for both loss and accuracy, as device scalars: the
         hidden state feeds the loss tail and, for labelled batches, the
         accuracy logits (0 without labels)."""
-        model = self.model
-        h, aux, prefix_len = model.hidden_seq(params, batch)
-        loss = model.loss_from_hidden(params, h, aux, prefix_len, batch)
-        if "label" not in batch:
-            return loss, torch.zeros((), device=loss.device)
-        logits = model._head(params, h.mean(1)[:, None])[:, 0]
-        acc = (logits.argmax(-1) == batch["label"].long()).float().mean()
-        return loss, acc
+        with tracing.span("eval", device=self.model.device):
+            model = self.model
+            h, aux, prefix_len = model.hidden_seq(params, batch)
+            loss = model.loss_from_hidden(params, h, aux, prefix_len, batch)
+            if "label" not in batch:
+                return loss, torch.zeros((), device=loss.device)
+            logits = model._head(params, h.mean(1)[:, None])[:, 0]
+            acc = (logits.argmax(-1) == batch["label"].long()).float().mean()
+            return loss, acc
 
     def evaluate(self, params: dict, batch: dict) -> tuple[float, float]:
         loss, acc = self.evaluate_raw(params, batch)

@@ -41,6 +41,9 @@ synchronous loop.
 ``wall_s`` in pipelined records is host time per round (select submit →
 dispatch complete, the prefetch inside it included), not device latency:
 the end-of-run drain is excluded, so ``sum(wall_s)`` ≤ the elapsed time.
+Its two reads are of the monotonic clock (``tracing.now_ns``) and, with
+``repro_torch.tracing`` on, the ``round`` span's ends; the loop also opens
+``select_wait`` around its wait for the round's masks.
 ``verbose=True`` prints round t at the end of iteration t+1, once its
 record has come down.  With faults active the guarded round step
 (``FLServer._update_round_faulty``) replaces the update and round t+1's
@@ -50,12 +53,12 @@ sync), and those host losses ride the round's pending record.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Optional
 
+from repro_torch import tracing
 from repro_torch.core.client import HostCopy
 from repro_torch.core.server import (FLServer, History, RoundRecord,
                                      SampledRound)
@@ -174,7 +177,8 @@ class RoundScheduler:
                                   thread_name_prefix="p1-solver")
         try:
             for t in range(start, T):
-                t0 = time.time()  # repro: allow[nondeterminism] -- wall_s telemetry only, never an input to round math
+                t0 = tracing.now_ns()
+                rnd = tracing.begin("round", t, t0)
                 self._join_late(block=False)
                 plan = sampled.plan
                 # the host solve (stats copy + (P1)) overlaps the queued
@@ -183,21 +187,23 @@ class RoundScheduler:
                 # lookahead: sample rounds t+1..t+depth whose plans are
                 # cache-free while the solver thread works
                 self._prefetch(T, self.depth)
-                if srv.solver_deadline_s is None:
-                    masks = masks_fut.result()
-                    self._selected_through = t
-                else:
-                    try:
-                        masks = masks_fut.result(
-                            timeout=srv.solver_deadline_s)
+                with tracing.span("select_wait"):
+                    if srv.solver_deadline_s is None:
+                        masks = masks_fut.result()
                         self._selected_through = t
-                    except FutureTimeout:
-                        # degrade, don't stall: round t runs on the warm
-                        # rows while the solve finishes in the background
-                        # (it stays the store's single writer);
-                        # cache-dependent plans wait for _join_late
-                        masks = srv._fallback_rows(plan)
-                        self._late = (masks_fut, t)
+                    else:
+                        try:
+                            masks = masks_fut.result(
+                                timeout=srv.solver_deadline_s)
+                            self._selected_through = t
+                        except FutureTimeout:
+                            # degrade, don't stall: round t runs on the
+                            # warm rows while the solve finishes in the
+                            # background (it stays the store's single
+                            # writer); cache-dependent plans wait for
+                            # _join_late
+                            masks = srv._fallback_rows(plan)
+                            self._late = (masks_fut, t)
                 # cache-dependent plans (selection_period > 1, non-refresh)
                 # unblock once select(t) has landed in the stats cache
                 self._prefetch(T, self.depth)
@@ -230,7 +236,9 @@ class RoundScheduler:
                 loss_dev, acc_dev = client.evaluate_raw(params, test)
                 vals = HostCopy({"losses": losses, "loss": loss_dev,
                                  "acc": acc_dev})
-                pending.append((plan, masks, vals, time.time() - t0))  # repro: allow[nondeterminism] -- wall_s telemetry only
+                t1 = tracing.now_ns()
+                tracing.end(rnd, t1)
+                pending.append((plan, masks, vals, (t1 - t0) / 1e9))
                 if verbose:
                     # print up to the *previous* round, whose record has
                     # long come down: printing never waits on the round

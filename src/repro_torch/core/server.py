@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.strategy import SelectionContext, Strategy, get_strategy
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import aggregation as agg
@@ -456,7 +457,8 @@ class FLServer:
             self.select_stats["memo_hits"] += 1
             masks = self._select_memo[1].copy()
         else:
-            masks = self.strategy.select(probe, plan.budgets, ctx)
+            with tracing.span("solve", t=plan.t):
+                masks = self.strategy.select(probe, plan.budgets, ctx)
             self.select_stats["solves"] += 1
             if memoizable:
                 self._select_memo = (key, masks.copy())
@@ -624,7 +626,7 @@ class FLServer:
     def run_round(self, params: dict, t: int) -> tuple[dict, RoundRecord]:
         """One synchronous round: plan → sample → probe → select → update →
         eval."""
-        t0 = time.time()  # repro: allow[nondeterminism] -- wall_s telemetry only, never an input to round math
+        t0 = tracing.now_ns()
         plan = self.plan_round(t)
         sampled = self.sample_round(plan)
         stats = self.probe_round(params, sampled)
@@ -634,7 +636,8 @@ class FLServer:
         test_loss, test_acc = self.client.evaluate(
             params, self._to_device(self.data.test_batch()))
         rec = self._make_record(plan, masks, float(np.mean(losses)),
-                                test_loss, test_acc, time.time() - t0)  # repro: allow[nondeterminism] -- wall_s telemetry only
+                                test_loss, test_acc,
+                                (tracing.now_ns() - t0) / 1e9)
         return params, rec
 
     # -- round-boundary checkpointing ------------------------------------

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import delta_matmul as _dmm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import layer_grad_norm as _lgn
@@ -249,7 +250,10 @@ class _SSD(torch.autograd.Function):
     def backward(ctx, gy):
         from repro_torch.models.ssd import ssd_chunked
         need = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
+        # on the card this runs on torch's autograd device thread; its
+        # parent span is the open ``update`` or ``probe``
+        with tracing.span("scan_bwd", device=gy.device), \
+                torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]
             y, _ = ssd_chunked(*ins, ctx.chunk)
